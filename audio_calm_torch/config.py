@@ -1,7 +1,8 @@
 """Model configuration dataclasses of the PyTorch port.
 
 Field-for-field copies of the JAX package's `Qwen2Config`, `LoRAConfig`,
-`CALMModelConfig` and `VAEModelConfig` (audio_calm_tpu/config.py), so a
+`CALMModelConfig`, `VAEModelConfig` and `TrainingConfig`
+(audio_calm_tpu/config.py), so a
 configuration written for one package builds the same geometry in the other.
 The port keeps its own copy: it imports nothing of the JAX package.
 """
@@ -116,6 +117,53 @@ class CALMModelConfig:
     pretrained_asr_head_path: Optional[str] = None
     pretrained_asr_query_path: Optional[str] = None
     pretrained_lora_path: Optional[str] = None
+
+
+@dataclass
+class TrainingConfig:
+    output_dir: str = "outputs/checkpoints/run"
+    run_name: str = "run"
+    resume_from_checkpoint: Optional[str] = None
+    per_device_train_batch_size: int = 16
+    per_device_eval_batch_size: int = 1
+    # optax.MultiSteps: one optimizer update per k step calls, on the mean
+    # of their gradients
+    gradient_accumulation_steps: int = 1
+    # slices of one step's batch whose gradients are averaged (1 = off)
+    microbatch_steps: int = 1
+    # per-task overrides of microbatch_steps (None = microbatch_steps)
+    tts_microbatch_steps: Optional[int] = None
+    asr_microbatch_steps: Optional[int] = None
+    # storage dtype of the FROZEN params (the LLM base, the embedding)
+    frozen_weights_dtype: str = "float32"
+    learning_rate: float = 5e-5
+    num_train_epochs: float = 3.0
+    max_steps: int = -1
+    bf16: bool = True
+    gradient_checkpointing: bool = True
+    lr_scheduler_type: str = "cosine"
+    warmup_ratio: float = 0.1
+    max_grad_norm: float = 1.0
+    weight_decay: float = 0.01
+    adam_beta1: float = 0.9
+    adam_beta2: float = 0.999
+    adam_epsilon: float = 1e-8
+    logging_steps: int = 10
+    save_steps: int = 500
+    save_total_limit: int = 2
+    eval_steps: int = 500
+    load_best_model_at_end: bool = True
+    metric_for_best_model: str = "loss"
+    seed: int = 42
+    # 5-group LR multipliers (reference: train_calm.py:249-291)
+    soa_lr_mult: float = 5.0
+    proj_lr_mult: float = 1.0
+    head_lr_mult: float = 3.0
+    # metrics are read back from the device every N steps at most
+    metrics_drain_steps: int = 4
+    shard_optimizer_state: bool = True
+    dataloader_num_workers: int = 0
+    report_to: str = "none"
 
 
 @dataclass(frozen=True)

@@ -1,29 +1,35 @@
-"""QwenCALM, TTS inference members (counterpart of
-audio_calm_tpu/models/calm.py).
+"""QwenCALM, TTS members (counterpart of audio_calm_tpu/models/calm.py).
 
 The Qwen2 backbone (+LoRA) encodes [text | SOA]; the length and duration
 predictors size the audio; the DiT flow head is the ODE's velocity field.
-Module names follow the JAX parameter tree (embed, llm, soa_embed,
-tts_flow_head, tts_len_predictor, tts_dur_predictor) so weights carry
-across one-to-one (models/convert.py). The ASR members (input_proj,
-asr_cross_attn, asr_query_embed, asr_flow_head) and the training forwards
-are still to be ported.
+Module names follow the JAX parameter tree (embed, llm, input_proj,
+soa_embed, tts_flow_head, tts_len_predictor, tts_dur_predictor) so weights
+carry across one-to-one (models/convert.py). Training: `forward_tts` with
+the reference's solo semantics (every row one utterance). Still to be
+ported: the ASR members (asr_cross_attn, asr_query_embed, asr_flow_head,
+forward_asr) and the packed forwards.
 
-The model computes in the dtype of its weights: fp32 for the parity tests,
-bf16 for serving, with fp32 norms, softmax, predictor outputs and
+The model computes in `compute_dtype` (default: the dtype of its weights;
+fp32 for the parity tests, bf16 for serving and training) and casts its
+weights at use, with fp32 norms, softmax, predictor outputs and
 denormalized latents as in JAX.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
 
 from audio_calm_torch.config import CALMModelConfig
-from audio_calm_torch.models.calm_heads import PredictorMLP, TransformerFlowHead
+from audio_calm_torch.models.calm_heads import (AudioInputProjector,
+                                                PredictorMLP,
+                                                TransformerFlowHead)
 from audio_calm_torch.models.qwen2 import Qwen2Embed, Qwen2Model
+from audio_calm_torch.ops.dropout import assign_dropout_sites
+from audio_calm_torch.ops.flow import compute_flow_loss
+from audio_calm_torch.ops.mas import monotonic_alignment_search
 
 
 def _as_stat(x, dim: int, device) -> torch.Tensor:
@@ -37,13 +43,23 @@ def _as_stat(x, dim: int, device) -> torch.Tensor:
     return arr.reshape(1, 1, 1)
 
 
+def smooth_l1(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """F.smooth_l1_loss (beta=1), mean reduction, written as JAX's."""
+    d = (pred - target).abs()
+    return torch.where(d < 1.0, 0.5 * d * d, d - 0.5).mean()
+
+
 class QwenCALM(nn.Module):
-    def __init__(self, cfg: CALMModelConfig):
+    def __init__(self, cfg: CALMModelConfig,
+                 compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.cfg = cfg
+        self.compute_dtype = compute_dtype
         qdim = cfg.qwen.hidden_size
         self.embed = Qwen2Embed(cfg.qwen)
-        self.llm = Qwen2Model(cfg.qwen, lora=cfg.lora if cfg.use_lora else None)
+        self.llm = Qwen2Model(cfg.qwen, lora=cfg.lora if cfg.use_lora else None,
+                              remat_policy=cfg.remat_policy)
+        self.input_proj = AudioInputProjector(cfg.latent_dim, qdim)
         self.soa_embed = nn.Parameter(torch.zeros(1, 1, qdim))
         self.tts_flow_head = TransformerFlowHead(
             input_dim=qdim, output_dim=cfg.latent_dim,
@@ -53,10 +69,12 @@ class QwenCALM(nn.Module):
         )
         self.tts_len_predictor = PredictorMLP(qdim, qdim // 2)
         self.tts_dur_predictor = PredictorMLP(qdim, qdim // 2)
+        assign_dropout_sites(self)
 
     @property
     def dtype(self) -> torch.dtype:
-        return self.soa_embed.dtype
+        """The compute dtype."""
+        return self.compute_dtype or self.soa_embed.dtype
 
     def normalize_latents(self, latents: torch.Tensor) -> torch.Tensor:
         c = self.cfg
@@ -73,24 +91,25 @@ class QwenCALM(nn.Module):
     def embed_tokens(self, ids: torch.Tensor) -> torch.Tensor:
         return self.embed(ids)
 
-    def _llm_encode(self, inputs_embeds, attention_mask):
+    def _llm_encode(self, inputs_embeds, attention_mask, train=False, seed=0):
         pos_ids = (attention_mask.long().cumsum(-1) - 1).clamp_min(0)
         return self.llm(inputs_embeds, attention_mask=attention_mask,
-                        position_ids=pos_ids)
+                        position_ids=pos_ids, train=train, seed=seed)
 
     def encode_text_for_tts(self, text_ids: torch.Tensor,
-                            attention_mask: torch.Tensor
+                            attention_mask: torch.Tensor, train: bool = False,
+                            seed: int = 0
                             ) -> Tuple[torch.Tensor, torch.Tensor,
                                        torch.Tensor]:
         """[text, SOA] through the LLM -> (condition_vec [B, 1, D],
         text_context [B, T, D], text_pad_mask [B, T] True = PAD)."""
         B = text_ids.shape[0]
         text_embeds = self.embed_tokens(text_ids).to(self.dtype)
-        soa = self.soa_embed.expand(B, 1, -1)
+        soa = self.soa_embed.to(self.dtype).expand(B, 1, -1)
         inp = torch.cat([text_embeds, soa], dim=1)
         full_mask = torch.cat(
             [attention_mask, torch.ones_like(attention_mask[:, :1])], dim=1)
-        hidden = self._llm_encode(inp, full_mask)
+        hidden = self._llm_encode(inp, full_mask, train, seed)
         return hidden[:, -1:, :], hidden[:, :-1, :], attention_mask == 0
 
     def predict_length(self, text_ctx: torch.Tensor,
@@ -117,3 +136,94 @@ class QwenCALM(nn.Module):
     def tts_flow_fn(self, condition, x, t, context, context_mask, x_mask):
         return self.tts_flow_head(condition, x, t, context=context,
                                   context_mask=context_mask, x_mask=x_mask)
+
+    # ------------------------------------------------------------------
+    # TTS training (JAX calm.py:170-312, solo semantics: real=None)
+    # ------------------------------------------------------------------
+    def forward_tts(self, text_ids: torch.Tensor, attention_mask: torch.Tensor,
+                    latents: torch.Tensor, audio_mask: torch.Tensor,
+                    train: bool = True,
+                    generator: Optional[torch.Generator] = None,
+                    seed: int = 0, t: Optional[torch.Tensor] = None,
+                    x0: Optional[torch.Tensor] = None,
+                    drop: Optional[torch.Tensor] = None
+                    ) -> Dict[str, torch.Tensor]:
+        """text ids [B, T_txt] + mask, raw latents [B, T_aud, latent_dim] +
+        mask -> {loss, loss_tts, loss_len, loss_dur}. `generator` draws the
+        flow loss's noise (t, x0 and the CFG drop may be passed in instead);
+        `seed` fixes the dropout masks (LoRA and DiT attention) when
+        train=True."""
+        gt = self.normalize_latents(latents)
+        cond_vec, text_ctx, text_pad = self.encode_text_for_tts(
+            text_ids, attention_mask, train, seed)
+        return self._tts_condition_and_loss(
+            cond_vec, text_ctx, text_pad, gt, audio_mask.bool(), train,
+            generator, seed, t, x0, drop)
+
+    def _tts_condition_and_loss(self, cond_vec, text_ctx, text_pad, gt,
+                                tgt_mask, train, generator, seed, t=None,
+                                x0=None, drop=None
+                                ) -> Dict[str, torch.Tensor]:
+        """MAS + len/dur predictors + flow loss on the LLM outputs; every
+        term a plain mean (the reference's solo semantics)."""
+        c = self.cfg
+        T_aud = gt.shape[1]
+
+        # length prediction
+        valid_f = (~text_pad).float()
+        text_mean = (text_ctx.float() * valid_f[:, :, None]).sum(dim=1) / \
+            valid_f.sum(dim=1, keepdim=True).clamp_min(1.0)
+        len_pred = self.tts_len_predictor(text_mean.to(self.dtype)).float()
+        gt_len = tgt_mask.float().sum(dim=1)
+        text_len = valid_f.sum(dim=1)
+        min_f = torch.clamp_min(text_len * 2.0, 10.0)
+        max_f = torch.clamp_max(text_len * 12.0, float(c.max_audio_len))
+        len_pred_c = torch.minimum(torch.maximum(len_pred, min_f), max_f)
+        len_loss = smooth_l1(torch.log1p(len_pred_c), torch.log1p(gt_len))
+
+        # MAS duration targets, without gradient (JAX: stop_gradient); the
+        # similarity in fp32 after L2 normalisation, as JAX computes it
+        with torch.no_grad():
+            audio = self.input_proj(gt).float()
+            tn = text_ctx.float()
+            tn = tn / torch.linalg.vector_norm(
+                tn, dim=-1, keepdim=True).clamp_min(1e-12)
+            an = audio / torch.linalg.vector_norm(
+                audio, dim=-1, keepdim=True).clamp_min(1e-12)
+            sim = torch.einsum("bnd,btd->bnt", tn, an)
+            sim = sim.masked_fill(text_pad[:, :, None], -1e9)
+            sim = sim.masked_fill(~tgt_mask[:, None, :], -1e9)
+            align_gt = monotonic_alignment_search(
+                torch.log_softmax(sim, dim=1))
+        gt_dur = align_gt.sum(dim=-1)
+
+        # duration prediction
+        dur_raw = self.tts_dur_predictor(text_ctx).float()
+        dur_pred = torch.logaddexp(dur_raw, torch.zeros_like(dur_raw)) + 1e-4
+        dur_pred = torch.where(text_pad, 0.0, dur_pred)
+        dur_sum = dur_pred.sum(dim=1, keepdim=True).clamp_min(1e-4)
+        dur_scaled = dur_pred * (T_aud / dur_sum)
+        dur_loss = (torch.log1p(dur_scaled * valid_f)
+                    - torch.log1p(gt_dur * valid_f)).abs().mean()
+
+        # condition + flow loss (teacher-forced MAS alignment)
+        aligned = torch.einsum("bnt,bnd->btd", align_gt.to(text_ctx.dtype),
+                               text_ctx)
+        condition = (aligned + cond_vec) * tgt_mask[:, :, None].to(
+            text_ctx.dtype)
+        target = gt * tgt_mask[:, :, None].to(gt.dtype)
+
+        def head_fn(cond, x, t_, ctx, cmask, xmask):
+            return self.tts_flow_head(cond, x, t_, context=ctx,
+                                      context_mask=cmask, x_mask=xmask,
+                                      train=train, seed=seed)
+
+        tts_loss = compute_flow_loss(
+            head_fn, generator, condition, target, tgt_mask,
+            cfg_dropout_prob=c.cfg_dropout_prob if train else 0.0,
+            context=text_ctx, context_mask=text_pad, train=train,
+            t=t, x0=x0, drop=drop)
+        loss = (tts_loss * c.tts_loss_weight + len_loss * c.len_pred_loss_weight
+                + dur_loss * c.dur_pred_loss_weight)
+        return {"loss": loss, "loss_tts": tts_loss, "loss_len": len_loss,
+                "loss_dur": dur_loss}

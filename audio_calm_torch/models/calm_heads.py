@@ -1,10 +1,15 @@
-"""CALM heads on the TTS path: the DiT flow head and the predictor MLPs
-(counterpart of audio_calm_tpu/models/calm_heads.py).
+"""CALM heads on the TTS path: the DiT flow head, the predictor MLPs and
+the audio input projector (counterpart of
+audio_calm_tpu/models/calm_heads.py).
 
 All sequence tensors [B, T, C]. Key-padding masks are True at PAD, as in
-the JAX package. Each module computes in the dtype of its weights (fp32 in
-the parity tests, bf16 when serving) and keeps the JAX package's fp32
-islands: the sinusoidal embeddings and the softmax.
+the JAX package. Each module computes in the dtype of its input and casts
+its weights at use, as flax's `dtype=` does (layers.Linear); the layers
+that JAX builds without a `dtype` (the predictors, the flow head's
+out_proj) compute in the promotion of the input's and the weight's dtypes.
+The JAX package's fp32 islands stay: the sinusoidal embeddings and the
+softmax. `train=True` turns on the DiT attention dropout (masks from the
+step's seed, ops/dropout.py).
 """
 
 from __future__ import annotations
@@ -17,8 +22,52 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from audio_calm_torch.models.layers import gelu
+from audio_calm_torch.models.layers import Linear, gelu
 from audio_calm_torch.ops.attention import MultiheadAttention
+
+
+class CausalConv1d(nn.Conv1d):
+    """Left-padded conv over [B, T, C_in] -> [B, T, C_out] (k - 1 zeros
+    before the first frame), weights cast to the input's dtype at use."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel_size: int = 3):
+        super().__init__(in_channels, out_channels, kernel_size)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = F.pad(x.transpose(1, 2), (self.kernel_size[0] - 1, 0))
+        y = F.conv1d(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+        return y.transpose(1, 2)
+
+
+class AudioInputProjector(nn.Module):
+    """VAE latents [B, T, latent_dim] -> LLM space [B, T, llm_dim]: two
+    causal convs (k=3) with GELU between, two residual MLP blocks, a post
+    LayerNorm (eps 1e-6). Without RoPE, as the model builds it
+    (use_rope=False in JAX)."""
+
+    def __init__(self, latent_dim: int, llm_dim: int):
+        super().__init__()
+        self.conv1 = CausalConv1d(latent_dim, llm_dim, 3)
+        self.conv2 = CausalConv1d(llm_dim, llm_dim, 3)
+        for i in range(2):
+            setattr(self, f"block{i}_ln", nn.LayerNorm(llm_dim, eps=1e-6))
+            setattr(self, f"block{i}_fc1", Linear(llm_dim, 2 * llm_dim))
+            setattr(self, f"block{i}_fc2", Linear(2 * llm_dim, llm_dim))
+        self.post_norm = nn.LayerNorm(llm_dim, eps=1e-6)
+
+    @staticmethod
+    def _ln(ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
+        return F.layer_norm(x, ln.normalized_shape, ln.weight.to(x.dtype),
+                            ln.bias.to(x.dtype), ln.eps)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.conv2(gelu(self.conv1(x)))
+        for i in range(2):
+            h = self._ln(getattr(self, f"block{i}_ln"), x)
+            h = getattr(self, f"block{i}_fc1")(h)
+            x = x + getattr(self, f"block{i}_fc2")(gelu(h))
+        return self._ln(self.post_norm, x)
 
 
 def timestep_embedding(t: torch.Tensor, dim: int) -> torch.Tensor:
@@ -50,11 +99,13 @@ class TimeMLP(nn.Module):
     def __init__(self, time_dim: int = 256):
         super().__init__()
         self.time_dim = time_dim
-        self.fc1 = nn.Linear(time_dim, time_dim)
-        self.fc2 = nn.Linear(time_dim, time_dim)
+        self.fc1 = Linear(time_dim, time_dim)
+        self.fc2 = Linear(time_dim, time_dim)
 
-    def forward(self, t: torch.Tensor) -> torch.Tensor:
-        e = timestep_embedding(t, self.time_dim).to(self.fc1.weight.dtype)
+    def forward(self, t: torch.Tensor, dtype=None) -> torch.Tensor:
+        """t [B] -> [B, time_dim] in `dtype` (default: the weights')."""
+        e = timestep_embedding(t, self.time_dim).to(
+            dtype or self.fc1.weight.dtype)
         return self.fc2(F.silu(self.fc1(e)))
 
 
@@ -64,7 +115,7 @@ class AdaLN(nn.Module):
     def __init__(self, dim: int, time_dim: int = 256):
         super().__init__()
         self.dim = dim
-        self.emb = nn.Linear(time_dim, 2 * dim)
+        self.emb = Linear(time_dim, 2 * dim)
 
     def forward(self, x: torch.Tensor, t_emb: torch.Tensor) -> torch.Tensor:
         scale, shift = self.emb(F.silu(t_emb)).chunk(2, dim=-1)
@@ -74,25 +125,29 @@ class AdaLN(nn.Module):
 
 class DiTBlock(nn.Module):
     def __init__(self, dim: int, num_heads: int, time_dim: int = 256,
-                 mlp_ratio: float = 4.0, cross: bool = True):
+                 mlp_ratio: float = 4.0, cross: bool = True,
+                 dropout: float = 0.1):
         super().__init__()
         self.adaLN1 = AdaLN(dim, time_dim)
-        self.attn = MultiheadAttention(dim, num_heads)
+        self.attn = MultiheadAttention(dim, num_heads, dropout)
         if cross:
             self.adaLN_ctx = AdaLN(dim, time_dim)
-            self.ctx_attn = MultiheadAttention(dim, num_heads)
+            self.ctx_attn = MultiheadAttention(dim, num_heads, dropout)
             self.ctx_gate = nn.Parameter(torch.zeros(1))
         self.adaLN2 = AdaLN(dim, time_dim)
-        self.mlp_fc1 = nn.Linear(dim, int(dim * mlp_ratio))
-        self.mlp_fc2 = nn.Linear(int(dim * mlp_ratio), dim)
+        self.mlp_fc1 = Linear(dim, int(dim * mlp_ratio))
+        self.mlp_fc2 = Linear(int(dim * mlp_ratio), dim)
 
-    def forward(self, x, t_emb, context=None, context_mask=None, x_mask=None):
+    def forward(self, x, t_emb, context=None, context_mask=None, x_mask=None,
+                train: bool = False, seed: int = 0):
         h = self.adaLN1(x, t_emb)
-        x = x + self.attn(h, h, h, key_padding_mask=x_mask)
+        x = x + self.attn(h, h, h, key_padding_mask=x_mask, train=train,
+                          seed=seed)
         if context is not None:
             h = self.adaLN_ctx(x, t_emb)
             out = self.ctx_attn(h, context, context,
-                                key_padding_mask=context_mask)
+                                key_padding_mask=context_mask, train=train,
+                                seed=seed)
             x = x + torch.sigmoid(self.ctx_gate.to(x.dtype)) * out
         h = self.adaLN2(x, t_emb)
         return x + self.mlp_fc2(gelu(self.mlp_fc1(h)))
@@ -104,34 +159,34 @@ class TransformerFlowHead(nn.Module):
     def __init__(self, input_dim: int, output_dim: int, hidden_dim: int = 1024,
                  num_layers: int = 6, num_heads: int = 16,
                  context_dim: Optional[int] = None, time_dim: int = 256,
-                 max_seq_len: int = 2048):
+                 max_seq_len: int = 2048, dropout: float = 0.1):
         super().__init__()
         self.time_mlp = TimeMLP(time_dim)
-        self.in_proj = nn.Linear(input_dim + output_dim, hidden_dim)
+        self.in_proj = Linear(input_dim + output_dim, hidden_dim)
         self.register_buffer(
             "pos_table",
             torch.tensor(sinusoidal_position_table(max_seq_len, hidden_dim)),
             persistent=False)
-        self.context_proj = (nn.Linear(context_dim, hidden_dim)
+        self.context_proj = (Linear(context_dim, hidden_dim)
                              if context_dim is not None else None)
         self.blocks = nn.ModuleList(
             DiTBlock(hidden_dim, num_heads, time_dim,
-                     cross=context_dim is not None)
+                     cross=context_dim is not None, dropout=dropout)
             for _ in range(num_layers))
         self.final_adaLN = AdaLN(hidden_dim, time_dim)
-        self.out_proj = nn.Linear(hidden_dim, output_dim)
+        self.out_proj = Linear(hidden_dim, output_dim, promote=True)
 
     def forward(self, condition, noisy_x, t, context=None, context_mask=None,
-                x_mask=None):
+                x_mask=None, train: bool = False, seed: int = 0):
         T = noisy_x.shape[1]
-        t_emb = self.time_mlp(t)
+        t_emb = self.time_mlp(t, noisy_x.dtype)
         x = self.in_proj(torch.cat([condition, noisy_x], dim=-1))
         x = x + self.pos_table[None, :T, :].to(x.dtype)
         proj_context = None
         if context is not None and self.context_proj is not None:
             proj_context = self.context_proj(context)
         for blk in self.blocks:
-            x = blk(x, t_emb, proj_context, context_mask, x_mask)
+            x = blk(x, t_emb, proj_context, context_mask, x_mask, train, seed)
         return self.out_proj(self.final_adaLN(x, t_emb))
 
 
@@ -140,8 +195,8 @@ class PredictorMLP(nn.Module):
 
     def __init__(self, in_dim: int, hidden: int):
         super().__init__()
-        self.fc1 = nn.Linear(in_dim, hidden)
-        self.fc2 = nn.Linear(hidden, 1)
+        self.fc1 = Linear(in_dim, hidden, promote=True)
+        self.fc2 = Linear(hidden, 1, promote=True)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.fc2(gelu(self.fc1(x)))[..., 0]

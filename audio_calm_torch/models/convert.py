@@ -13,7 +13,8 @@ the JAX Conv1d/GroupNorm wrappers disappear, `kernel` and `scale` become
   B [r, out], embeddings and bare parameters as they are.
 
 The `load_*` helpers load with `strict=True`: every key present, none
-unexpected.
+unexpected. `jax_path` maps a QwenCALM parameter name back to its path in
+the JAX tree (for optimizer labels and gradient comparisons).
 """
 
 from __future__ import annotations
@@ -24,9 +25,8 @@ from typing import Dict, Iterator, Tuple
 import numpy as np
 import torch
 
-# QwenCALM members that the TTS slice does not build yet
-ASR_COMPONENTS = ("input_proj", "asr_cross_attn", "asr_query_embed",
-                  "asr_flow_head")
+# QwenCALM members that the port does not build yet
+ASR_COMPONENTS = ("asr_cross_attn", "asr_query_embed", "asr_flow_head")
 _WRAPPERS = {"conv", "gn"}
 _RENAMES = (
     (re.compile(r"^up(\d+)_(conv|res)$"), r"up_\2.\1"),  # VAE decoder stages
@@ -70,6 +70,31 @@ def from_jax_params(tree: Dict) -> Dict[str, torch.Tensor]:
         name = ".".join([_rename(m) for m in mods] + [leaf])
         out[name] = torch.tensor(arr, dtype=torch.float32)
     return out
+
+
+def jax_path(model: torch.nn.Module, name: str) -> Tuple[str, ...]:
+    """A parameter name of the port's QwenCALM -> its path in the JAX
+    parameter tree: `name.<i>` module lists become `name_<i>`, a causal
+    conv gets back its inner `conv` module, and `weight` becomes `scale`
+    on a norm and `kernel` elsewhere."""
+    from audio_calm_torch.models.calm_heads import CausalConv1d
+    from audio_calm_torch.models.layers import GroupNorm
+    from audio_calm_torch.models.qwen2 import RMSNorm
+
+    *mods, leaf = name.split(".")
+    path, module = [], model
+    for part in mods:
+        module = getattr(module, part)
+        if part.isdigit():
+            path[-1] = f"{path[-1]}_{part}"
+        else:
+            path.append(part)
+    if isinstance(module, CausalConv1d):
+        path.append("conv")
+    if leaf == "weight":
+        norms = (RMSNorm, GroupNorm, torch.nn.LayerNorm)
+        leaf = "scale" if isinstance(module, norms) else "kernel"
+    return tuple(path + [leaf])
 
 
 def load_calm(model, tree: Dict) -> None:

@@ -15,6 +15,25 @@ import torch.nn.functional as F
 from torch import nn
 
 
+class Linear(nn.Linear):
+    """nn.Linear whose weight and bias are cast at use, as flax's `dtype=`
+    does: to the input's dtype, or with `promote=True` (a flax Dense with no
+    `dtype`) to the promotion of the input's and the weight's dtypes. fp32
+    master weights under bf16 compute then get their gradients in fp32;
+    when every dtype agrees the casts are no-ops."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 bias: bool = True, promote: bool = False):
+        super().__init__(in_features, out_features, bias=bias)
+        self.promote = promote
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = (torch.promote_types(x.dtype, self.weight.dtype) if self.promote
+              else x.dtype)
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.linear(x.to(dt), self.weight.to(dt), bias)
+
+
 def gelu(x: torch.Tensor) -> torch.Tensor:
     """Exact-erf GELU, not the tanh approximation."""
     return F.gelu(x, approximate="none")

@@ -1,29 +1,43 @@
 """LoRA over a Linear projection (counterpart of
-audio_calm_tpu/models/lora.py): y = x W^T + b + (alpha / r) * (x A) B.
+audio_calm_tpu/models/lora.py): y = x W^T + b + (alpha / r) * (drop(x) A) B.
 
-A is [in, r] and B is [r, out], the JAX package's layout. Inference only:
-no adapter dropout. int8 base weights are still to be ported.
+A is [in, r] and B is [r, out], the JAX package's layout. In train mode the
+adapter's input goes through dropout (rate `lora_dropout`, the mask fixed by
+the step's seed and this module's dropout site, ops/dropout.py); the base
+projection sees x as it is. Parameters are cast to the input's dtype at use
+(layers.Linear), so fp32 adapter masters train under bf16 compute. int8
+base weights are still to be ported.
 """
 
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
-from torch import nn
+
+from audio_calm_torch.models.layers import Linear
+from audio_calm_torch.ops.dropout import derive_seed, dropout
 
 
-class LoRADense(nn.Linear):
+class LoRADense(Linear):
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
-                 rank: int = 0, alpha: float = 1.0):
+                 rank: int = 0, alpha: float = 1.0, lora_dropout: float = 0.0):
         super().__init__(in_features, out_features, bias=bias)
         self.rank = rank
         if rank > 0:
             self.scaling = alpha / rank
-            self.lora_a = nn.Parameter(torch.zeros(in_features, rank))
-            self.lora_b = nn.Parameter(torch.zeros(rank, out_features))
+            self.lora_dropout = lora_dropout
+            self.dropout_site = 0
+            self.lora_a = torch.nn.Parameter(torch.zeros(in_features, rank))
+            self.lora_b = torch.nn.Parameter(torch.zeros(rank, out_features))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.linear(x, self.weight, self.bias)
+    def forward(self, x: torch.Tensor, train: bool = False,
+                seed: int = 0) -> torch.Tensor:
+        y = super().forward(x)
         if self.rank > 0:
-            y = y + self.scaling * ((x @ self.lora_a) @ self.lora_b)
+            xa = x
+            if train:
+                xa = dropout(x, self.lora_dropout,
+                             derive_seed(seed, self.dropout_site))
+            y = y + self.scaling * ((xa @ self.lora_a.to(x.dtype))
+                                    @ self.lora_b.to(x.dtype))
         return y
+

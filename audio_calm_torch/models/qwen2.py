@@ -1,10 +1,16 @@
 """Qwen2 decoder backbone in PyTorch (counterpart of
 audio_calm_tpu/models/qwen2.py).
 
-fp32 RMSNorm (eps 1e-6), half-split RoPE, GQA attention with QKV bias
-through `attention_fwd` (causal + key-valid mask: the CUDA kernel on the
-card), SwiGLU MLP, LoRA on the targeted projections. Only hidden states are
-computed. The `segment_ids` packing path is still to be ported (training).
+fp32 RMSNorm (eps 1e-6), half-split RoPE, GQA attention with QKV bias and
+a causal + key-valid mask, SwiGLU MLP, LoRA on the targeted projections.
+Only hidden states are computed, in the dtype of the input embeddings
+(weights are cast at use). The attention goes through `attention_fwd` (K4 on
+the card) when no gradient is needed and through `flash_attention` (K4
+forward, K5 backward) when autograd records. `train=True` turns on the LoRA
+adapter dropout. `remat_policy="full"` recomputes each block in the
+backward (`torch.utils.checkpoint`, non-reentrant); "none" keeps every
+activation; JAX's "dots" is still to be ported. The `segment_ids` packing
+path is still to be ported (packed training).
 """
 
 from __future__ import annotations
@@ -14,10 +20,13 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from audio_calm_torch.config import LoRAConfig, Qwen2Config
 from audio_calm_torch.models.lora import LoRADense
-from audio_calm_torch.ops.attention_kernel import attention_fwd
+from audio_calm_torch.ops.attention_kernel import attention_fwd, flash_attention
+
+REMAT_POLICIES = ("full", "dots", "none")
 
 
 class RMSNorm(nn.Module):
@@ -57,7 +66,7 @@ def _proj(lora: Optional[LoRAConfig], name: str, d_in: int, d_out: int,
           bias: bool) -> LoRADense:
     if lora is not None and lora.enabled and name in lora.target_modules:
         return LoRADense(d_in, d_out, bias=bias, rank=lora.rank,
-                         alpha=lora.alpha)
+                         alpha=lora.alpha, lora_dropout=lora.dropout)
     return LoRADense(d_in, d_out, bias=bias)
 
 
@@ -75,16 +84,21 @@ class Qwen2Attention(nn.Module):
         self.o_proj = _proj(lora, "o_proj", cfg.num_attention_heads * hd, D,
                             False)
 
-    def forward(self, x, cos, sin, key_valid):
+    def forward(self, x, cos, sin, key_valid, train: bool = False,
+                seed: int = 0):
         c = self.cfg
         B, T, _ = x.shape
-        q = self.q_proj(x).reshape(B, T, c.num_attention_heads, c.head_dim)
-        k = self.k_proj(x).reshape(B, T, c.num_key_value_heads, c.head_dim)
-        v = self.v_proj(x).reshape(B, T, c.num_key_value_heads, c.head_dim)
+        q = self.q_proj(x, train, seed).reshape(B, T, c.num_attention_heads,
+                                                c.head_dim)
+        k = self.k_proj(x, train, seed).reshape(B, T, c.num_key_value_heads,
+                                                c.head_dim)
+        v = self.v_proj(x, train, seed).reshape(B, T, c.num_key_value_heads,
+                                                c.head_dim)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
-        out = attention_fwd(q, k, v, key_valid=key_valid, causal=True)
-        return self.o_proj(out.reshape(B, T, -1))
+        attend = flash_attention if torch.is_grad_enabled() else attention_fwd
+        out = attend(q, k, v, key_valid, True)
+        return self.o_proj(out.reshape(B, T, -1), train, seed)
 
 
 class Qwen2MLP(nn.Module):
@@ -95,8 +109,9 @@ class Qwen2MLP(nn.Module):
         self.up_proj = _proj(lora, "up_proj", D, F_, False)
         self.down_proj = _proj(lora, "down_proj", F_, D, False)
 
-    def forward(self, x):
-        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+    def forward(self, x, train: bool = False, seed: int = 0):
+        h = F.silu(self.gate_proj(x, train, seed)) * self.up_proj(x, train, seed)
+        return self.down_proj(h, train, seed)
 
 
 class Qwen2Block(nn.Module):
@@ -108,28 +123,40 @@ class Qwen2Block(nn.Module):
                                                 cfg.rms_norm_eps)
         self.mlp = Qwen2MLP(cfg, lora)
 
-    def forward(self, x, cos, sin, key_valid):
-        x = x + self.self_attn(self.input_layernorm(x), cos, sin, key_valid)
-        return x + self.mlp(self.post_attention_layernorm(x))
+    def forward(self, x, cos, sin, key_valid, train: bool = False,
+                seed: int = 0):
+        x = x + self.self_attn(self.input_layernorm(x), cos, sin, key_valid,
+                               train, seed)
+        return x + self.mlp(self.post_attention_layernorm(x), train, seed)
 
 
 class Qwen2Model(nn.Module):
     """Decoder stack -> final-norm hidden states [B, T, hidden], computed in
-    the dtype of the weights."""
+    the dtype of `inputs_embeds`."""
 
-    def __init__(self, cfg: Qwen2Config, lora: Optional[LoRAConfig] = None):
+    def __init__(self, cfg: Qwen2Config, lora: Optional[LoRAConfig] = None,
+                 remat_policy: str = "none"):
         super().__init__()
+        if remat_policy not in REMAT_POLICIES:
+            raise ValueError(f"unknown remat_policy {remat_policy!r}; "
+                             f"expected one of {REMAT_POLICIES}")
+        if remat_policy == "dots":
+            raise NotImplementedError(
+                "remat_policy 'dots' (save the matmul outputs) is not ported "
+                "yet; use 'full' or 'none'")
         self.cfg = cfg
+        self.remat_policy = remat_policy
         self.layers = nn.ModuleList(Qwen2Block(cfg, lora)
                                     for _ in range(cfg.num_hidden_layers))
         self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps)
 
     def forward(self, inputs_embeds: torch.Tensor,
                 attention_mask: Optional[torch.Tensor] = None,
-                position_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+                position_ids: Optional[torch.Tensor] = None,
+                train: bool = False, seed: int = 0) -> torch.Tensor:
         c = self.cfg
         B, T, _ = inputs_embeds.shape
-        x = inputs_embeds.to(self.norm.weight.dtype)
+        x = inputs_embeds
         if attention_mask is None:
             attention_mask = torch.ones(B, T, dtype=torch.int32,
                                         device=x.device)
@@ -137,8 +164,15 @@ class Qwen2Model(nn.Module):
             position_ids = (attention_mask.long().cumsum(-1) - 1).clamp_min(0)
         cos, sin = make_rope_cache(position_ids, c.head_dim, c.rope_theta)
         key_valid = attention_mask != 0  # once for all layers
+        remat = self.remat_policy == "full" and torch.is_grad_enabled()
         for layer in self.layers:
-            x = layer(x, cos, sin, key_valid)
+            if remat:
+                # dropout masks come from (seed, site), not the global RNG,
+                # so the recomputation needs no RNG state restored
+                x = checkpoint(layer, x, cos, sin, key_valid, train, seed,
+                               use_reentrant=False, preserve_rng_state=False)
+            else:
+                x = layer(x, cos, sin, key_valid, train, seed)
         return self.norm(x)
 
 

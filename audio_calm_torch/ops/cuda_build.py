@@ -5,6 +5,7 @@ plain C interface, at first use, into `build/kernels/` beside the package
 (git-ignored), and loaded with ctypes. The library name carries a hash of
 its source, so an edited kernel is rebuilt and a stale one never loads.
 `build_all()` starts one nvcc per source at once and waits for all of them.
+`check` and `refuse_autograd` are the guards every kernel wrapper shares.
 
 Nothing here runs at import: the CPU tests import every module, on machines
 that have no CUDA toolkit.
@@ -18,11 +19,13 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Iterable, Optional
+
+import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "kernels"
-SOURCES = ("vocoder_stage", "attention_fwd")
+SOURCES = ("vocoder_stage", "attention_fwd", "attention_bwd")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -89,3 +92,15 @@ def check(lib: ctypes.CDLL, status: int, what: str) -> None:
         lib.cuda_error_string.argtypes = [ctypes.c_int]
         msg = lib.cuda_error_string(status).decode()
         raise RuntimeError(f"{what}: CUDA error {status} ({msg})")
+
+
+def refuse_autograd(what: str, tensors: Iterable[Optional[torch.Tensor]],
+                    route: Optional[str] = None) -> None:
+    """A kernel fills its output through ctypes, which autograd cannot see:
+    refuse inputs that would need a gradient while autograd records.
+    `route` names the differentiable alternative, where there is one."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        alt = f", or use the differentiable route {route}" if route else ""
+        raise RuntimeError(f"{what} on a CUDA tensor returns no gradient: "
+                           f"call it under torch.no_grad(){alt}")

@@ -116,6 +116,8 @@ def vocoder_stage(x: torch.Tensor, ups_w: Optional[torch.Tensor],
                                    compute_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"vocoder_stage: unsupported device {x.device}")
+    cuda_build.refuse_autograd(
+        "vocoder_stage", (x, ups_w, ups_b, *(w for b in blocks for w in b[:4])))
     ok_types = (torch.float32, torch.bfloat16)
     if x.dtype not in ok_types or compute_dtype not in ok_types:
         raise TypeError("vocoder_stage takes float32/bfloat16 activations "

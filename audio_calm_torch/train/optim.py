@@ -1,0 +1,190 @@
+"""Optimizer: the 5-group AdamW of the JAX package, with optax's semantics
+(counterpart of audio_calm_tpu/train/optim.py).
+
+  group       match (first wins)                          lr mult   wd
+  soa         soa_embed                                   soa_mult  0
+  proj        input_proj (excluding lora_*)               proj_mult wd
+  head        tts_flow_head | asr_flow_head |
+              asr_cross_attn                              head_mult wd
+  no_decay    bias / norm scales                          1         0
+  decay       everything else trainable (incl. LoRA)      1         wd
+  frozen      llm base weights, embed table, opposite-
+              task heads per task_mode, optional projector  --
+
+`freeze` marks frozen tensors `requires_grad=False` and stores them in
+`frozen_weights_dtype`; trainable ones are fp32 masters. `AdamW` is
+optax.chain(clip_by_global_norm, multi_transform(adamw per group)), wrapped
+in optax.MultiSteps when gradient_accumulation_steps > 1, written out by
+hand because torch's defaults differ from optax's:
+  - the schedule is read at the update count before the increment (the
+    first update of a warmup schedule has LR 0);
+  - clipping scales by max / norm only when norm >= max (no 1e-6 term);
+  - AdamW's epsilon sits outside the square root, after bias correction,
+    and weight decay is added to the Adam direction before the LR;
+  - MultiSteps averages k calls (running mean) and advances the schedule
+    only on real updates;
+  - a trainable tensor that got no gradient counts as a zero gradient
+    (weight decay still moves it).
+Everything stays on the device: no host round trip per step.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, Dict, Optional, Tuple
+
+import torch
+from torch import nn
+
+from audio_calm_torch.config import TrainingConfig
+from audio_calm_torch.models.convert import jax_path
+
+GROUPS = ("decay", "no_decay", "proj", "head", "soa")
+
+
+def calm_param_label(path: Tuple[str, ...], task_mode: str = "mix",
+                     freeze_projector: bool = False) -> str:
+    """A JAX parameter path -> its optimizer group (or "frozen")."""
+    joined = "/".join(path)
+    is_lora = path[-1] in ("lora_a", "lora_b")
+    if path[0] == "llm" and not is_lora:
+        return "frozen"
+    if path[0] in ("embed", "vae"):
+        return "frozen"
+    if task_mode == "tts" and path[0] in (
+            "asr_flow_head", "asr_cross_attn", "asr_query_embed"):
+        return "frozen"
+    if task_mode == "asr" and path[0] in (
+            "tts_flow_head", "tts_len_predictor", "tts_dur_predictor"):
+        return "frozen"
+    if freeze_projector and path[0] == "input_proj":
+        return "frozen"
+    if "soa_embed" in joined:
+        return "soa"
+    if path[0] == "input_proj" and not is_lora:
+        return "proj"
+    if path[0] in ("tts_flow_head", "asr_flow_head", "asr_cross_attn"):
+        return "head"
+    if path[-1] in ("bias", "scale"):
+        return "no_decay"
+    return "decay"
+
+
+def freeze(model: nn.Module, cfg: TrainingConfig, task_mode: str = "tts",
+           freeze_projector: bool = False) -> Dict[str, str]:
+    """Label every parameter of a QwenCALM by its JAX path; frozen ones
+    stop requiring gradients and are stored in `cfg.frozen_weights_dtype`,
+    trainable ones become fp32 masters. Returns {name: label}."""
+    frozen_dtype = getattr(torch, cfg.frozen_weights_dtype)
+    labels = {}
+    for name, p in model.named_parameters():
+        label = calm_param_label(jax_path(model, name), task_mode,
+                                 freeze_projector)
+        labels[name] = label
+        frozen = label == "frozen"
+        p.data = p.data.to(frozen_dtype if frozen else torch.float32)
+        p.requires_grad_(not frozen)
+    return labels
+
+
+def make_schedule(cfg: TrainingConfig, total_steps: int
+                  ) -> Callable[[int], float]:
+    """update count -> learning rate (optax's warmup_cosine_decay /
+    joined linear / constant schedules)."""
+    lr = cfg.learning_rate
+    warmup = max(int(total_steps * cfg.warmup_ratio), 1)
+
+    def linear(count, start, end, steps):
+        frac = 1.0 - min(max(count, 0), steps) / steps
+        return (start - end) * frac + end
+
+    if cfg.lr_scheduler_type == "cosine":
+        decay = max(total_steps, warmup + 1) - warmup
+
+        def schedule(count):
+            if count < warmup:
+                return linear(count, 0.0, lr, warmup)
+            c = min(count - warmup, decay)
+            return lr * 0.5 * (1.0 + math.cos(math.pi * c / decay))
+        return schedule
+    if cfg.lr_scheduler_type == "linear":
+        rest = max(total_steps - warmup, 1)
+        return lambda c: (linear(c, 0.0, lr, warmup) if c < warmup
+                          else linear(c - warmup, lr, 0.0, rest))
+    return lambda c: lr
+
+
+def global_norm(tensors) -> torch.Tensor:
+    """sqrt of the sum of squares over all tensors, fp32, on the device."""
+    return torch.sqrt(sum((t.float() ** 2).sum() for t in tensors))
+
+
+class AdamW:
+    """The JAX package's make_optimizer over named trainable tensors.
+
+    params: {name: tensor} (updated in place); labels: {name: group}.
+    `step(grads)` takes {name: gradient or None} and returns the global
+    norm of those gradients (before clipping)."""
+
+    def __init__(self, params: Dict[str, torch.Tensor], labels: Dict[str, str],
+                 cfg: TrainingConfig, total_steps: int):
+        self.params = params
+        self.schedule = make_schedule(cfg, total_steps)
+        self.hyper = {  # group -> (lr multiplier, weight decay)
+            "decay": (1.0, cfg.weight_decay), "no_decay": (1.0, 0.0),
+            "proj": (cfg.proj_lr_mult, cfg.weight_decay),
+            "head": (cfg.head_lr_mult, cfg.weight_decay),
+            "soa": (cfg.soa_lr_mult, 0.0),
+        }
+        self.group = {n: labels[n] for n in params}
+        bad = set(self.group.values()) - set(GROUPS)
+        if bad:
+            raise ValueError(f"no optimizer group for labels {sorted(bad)}")
+        self.b1, self.b2, self.eps = (cfg.adam_beta1, cfg.adam_beta2,
+                                      cfg.adam_epsilon)
+        self.max_norm = cfg.max_grad_norm
+        self.k = cfg.gradient_accumulation_steps
+        self.mu = {n: torch.zeros_like(p, dtype=torch.float32)
+                   for n, p in params.items()}
+        self.nu = {n: torch.zeros_like(p, dtype=torch.float32)
+                   for n, p in params.items()}
+        self.acc = ({n: torch.zeros_like(p, dtype=torch.float32)
+                     for n, p in params.items()} if self.k > 1 else None)
+        self.count = 0  # real updates so far (the schedule's count)
+        self.mini_step = 0
+
+    @torch.no_grad()
+    def step(self, grads: Dict[str, Optional[torch.Tensor]]) -> torch.Tensor:
+        g = {n: (grads.get(n) if grads.get(n) is not None
+                 else torch.zeros_like(p)).float()
+             for n, p in self.params.items()}
+        norm = global_norm(g.values())
+        if self.acc is None:
+            self._update(g, norm)
+            return norm
+        for n in g:  # optax.MultiSteps, running mean
+            self.acc[n] += (g[n] - self.acc[n]) / (self.mini_step + 1)
+        self.mini_step += 1
+        if self.mini_step == self.k:
+            self._update(self.acc, global_norm(self.acc.values()))
+            self.mini_step = 0
+            for a in self.acc.values():
+                a.zero_()
+        return norm
+
+    def _update(self, g: Dict[str, torch.Tensor], norm: torch.Tensor) -> None:
+        """One AdamW update from gradients `g` whose global norm is `norm`."""
+        clip = norm >= self.max_norm  # optax: scale when not norm < max
+        c = self.count + 1
+        bc1, bc2 = 1.0 - self.b1 ** c, 1.0 - self.b2 ** c
+        base_lr = self.schedule(self.count)
+        for n, p in self.params.items():
+            gn = torch.where(clip, g[n] / norm * self.max_norm, g[n])
+            mu, nu = self.mu[n], self.nu[n]
+            mu.copy_((1.0 - self.b1) * gn + self.b1 * mu)
+            nu.copy_((1.0 - self.b2) * gn * gn + self.b2 * nu)
+            u = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
+            mult, wd = self.hyper[self.group[n]]
+            u = u + wd * p.float()
+            p.add_((u * (-base_lr * mult)).to(p.dtype))
+        self.count = c

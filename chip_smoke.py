@@ -7,19 +7,34 @@ Phases, in order; any failure exits non-zero and prints no result:
   1. the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels (one nvcc per source, in parallel);
   3. each kernel against its plain PyTorch version on the card, at the main
-     path's shapes, fp32 and bf16;
-  4. the whole slice at full widths with 2 LLM layers on the 96-frame grid,
-     fp32, on the card and on the CPU, same weights and ODE noise;
-  5. the main path at full width: the flagship (28-layer Qwen2-1.5B, DiT
+     paths' shapes, fp32 and bf16 (the attention backward at the Qwen2
+     training shape, and the flash_attention Function against autograd
+     through the plain forward);
+  4. the serving slice at full widths with 2 LLM layers on the 96-frame
+     grid, fp32, on the card and on the CPU, same weights and ODE noise;
+     then one TTS training step (forward_tts + backward) at full widths
+     with 2 LLM layers, fp32, dropouts off, on both, same weights and flow
+     noise: loss terms, every trainable gradient, and the card's attention
+     kernel launches (Qwen2 and DiT attention both through K4/K5);
+  5. the serving path at full width: the flagship (28-layer Qwen2-1.5B, DiT
      1024x4, VAE, HiFi-GAN V1, random bf16 weights from a seed) serves a
      batch of 2 texts on the 384-frame grid and 1 text on the 192-frame grid
      (125 frames), midpoint-12, cfg 2.5; every kernel's launch count must
      rise as the path requires; per-phase times and the realtime factor;
-  6. per kernel: its launches on the main path, its device time per launch
+  5b. the training path at full width: the 28-layer flagship under the
+     tts.yaml plain-batch recipe (B=32 in 2 microbatch slices, texts padded
+     to 96 + SOA, the 384-frame audio grid, frozen weights bf16, fp32
+     masters, bf16 compute, full remat, LoRA and DiT dropout on) takes 5
+     steps through run_training; finite metrics, frozen tensors unchanged,
+     trainable ones unchanged after the LR-0 first step and changed after
+     the second, kernel launches as full remat requires; step time,
+     samples/s, peak memory;
+  6. per kernel: its launches on its main path, its device time per launch
      at main-path shapes, the bound, the plain version's and the library
      call's device time;
   7. the served requests once more under torch.profiler (device activity
-     only): the device's busy share and the kernels that take most time.
+     only): the device's busy share and the kernels that take most time;
+     then one more training step, the same way.
 Then the card, one `kernels` JSON line, and as the last line
 {"ok": true, "device": {...}}.
 """
@@ -38,6 +53,7 @@ import torch
 H100_BF16_FLOPS = 989e12  # dense tensor-core peak, NVIDIA H100 SXM data sheet
 H100_BYTES_PER_S = 3.35e12  # HBM3
 SEC_PER_FRAME = 4 * 256 / 16000  # one latent frame = 1024 samples at 16 kHz
+TRAIN_STEPS = 5
 
 
 def log(msg: str) -> None:
@@ -238,6 +254,68 @@ def phase_kernels(gen, card):
     return worst
 
 
+def qwen_train_inputs(B, dt, card, seed=0):
+    """Qwen2 attention operands of the training path: q/dout [B, 97, 12,
+    128], k/v [B, 97, 2, 128], the [text | pads | SOA] key mask with mixed
+    text lengths."""
+    g = torch.Generator(card).manual_seed(seed)
+    t_txt = 96
+    T = t_txt + 1
+    q, dout = (torch.randn(B, T, 12, 128, generator=g, device=card).to(dt)
+               for _ in range(2))
+    k, v = (torch.randn(B, T, 2, 128, generator=g, device=card).to(dt)
+            for _ in range(2))
+    lengths = torch.randint(4, t_txt + 1, (B,), generator=g, device=card)
+    valid = torch.arange(T, device=card)[None, :] < lengths[:, None]
+    valid[:, -1] = True  # SOA
+    return q, k, v, dout, valid
+
+
+def phase_attention_bwd(card):
+    """K5 vs its plain version at the training shape, fp32 and bf16, and the
+    flash_attention Function vs autograd through the plain forward."""
+    from audio_calm_torch.ops.attention_kernel import (attention_bwd,
+                                                       attention_bwd_plain,
+                                                       attention_fwd,
+                                                       attention_fwd_plain,
+                                                       flash_attention)
+
+    worst = 0.0
+    for dt in (torch.float32, torch.bfloat16):
+        q, k, v, dout, valid = qwen_train_inputs(16, dt, card)
+        with torch.no_grad():
+            out = attention_fwd(q, k, v, valid, True)
+            got = attention_bwd(q, k, v, out, dout, valid, True)
+            ref = attention_bwd_plain(q, k, v, out, dout, valid, True)
+        for a, b, name in zip(got, ref, ("dq", "dk", "dv")):
+            a, b = a.float(), b.float()
+            err = (a - b).abs().max().item()
+            # fp32: summation order over up to 6 heads x 97 keys; bf16:
+            # one rounding step of the largest gradient
+            bound = (2e-5 if dt == torch.float32 else 2 ** -7) * \
+                b.abs().max().item()
+            log(f"  attention_bwd Qwen2 [16, 97, 12/2, 128] {name} "
+                f"{str(dt)[6:]}: max_abs_err {err:.3e} bound {bound:.3e}")
+            check(err <= bound and a.shape == b.shape,
+                  f"attention_bwd {name} {dt}")
+            if dt == torch.bfloat16:
+                worst = max(worst, err)
+    q, k, v, dout, valid = qwen_train_inputs(4, torch.float32, card, seed=1)
+    grads = []
+    for fn in (flash_attention, attention_fwd_plain):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = fn(*leaves, valid, True)
+        (out * dout).sum().backward()
+        grads.append([out.detach()] + [t.grad for t in leaves])
+    for a, b, name in zip(*grads, ("out", "dq", "dk", "dv")):
+        err = (a - b).abs().max().item()
+        bound = 2e-5 * b.abs().max().item()
+        log(f"  flash_attention vs autograd of the plain forward {name}: "
+            f"max_abs_err {err:.3e} bound {bound:.3e}")
+        check(err <= bound, f"flash_attention {name}")
+    return worst
+
+
 def phase_reduced_depth(card):
     """Full widths, 2 LLM layers, 96-frame grid, fp32: card vs CPU."""
     import copy
@@ -271,6 +349,231 @@ def phase_reduced_depth(card):
     check(lat_err < 1e-3 and wav_err < 1e-3, "reduced-depth card vs CPU")
     check(all(w.shape == (80 * 1024,) and np.isfinite(w).all()
               for w in out["card"][1]), "reduced-depth waveform shape")
+
+
+def train_batch(B, card, gen, t_aud=384):
+    """A plain TTS batch: random token ids with mixed text lengths padded
+    to 96, latents on the t_aud grid with mixed valid lengths (the
+    flagship's latent statistics), all made on `card` from `gen`."""
+    lengths = torch.randint(8, 97, (B,), generator=gen, device=card)
+    tmask = torch.arange(96, device=card)[None, :] < lengths[:, None]
+    ids = torch.randint(10, 5000, (B, 96), generator=gen, device=card)
+    frames = torch.randint(t_aud // 8, t_aud + 1, (B,), generator=gen,
+                           device=card)
+    amask = torch.arange(t_aud, device=card)[None, :] < frames[:, None]
+    lat = 0.039775 + 1.190864 * torch.randn(B, t_aud, 128, generator=gen,
+                                            device=card)
+    return {"text_ids": ids * tmask, "attention_mask": tmask.int(),
+            "latents": lat, "audio_mask": amask.int()}
+
+
+def phase_train_step_card_vs_cpu(card):
+    """One TTS training step's loss and gradients, full widths, 2 LLM
+    layers, fp32, dropouts off (the CFG drop injected), card vs CPU. With
+    the attention dropout off, the DiT attention takes the fused route as
+    the Qwen2 attention does: K3/K4 forward, K5 backward on the card."""
+    import copy
+
+    from audio_calm_torch.config import TrainingConfig
+    from audio_calm_torch.models.calm import QwenCALM
+    from audio_calm_torch.models.flagship import flagship_config, random_normal_
+    from audio_calm_torch.ops.attention import MultiheadAttention
+    from audio_calm_torch.ops.attention_kernel import (attention_bwd,
+                                                       attention_fwd)
+    from audio_calm_torch.train.optim import freeze
+
+    cfg = flagship_config(2)
+    cfg.lora.dropout = 0.0
+    cpu = QwenCALM(cfg)
+    random_normal_(cpu, seed=3)
+    for m in cpu.modules():
+        if isinstance(m, MultiheadAttention):
+            m.dropout = 0.0
+    labels = freeze(cpu, TrainingConfig())
+    dev = copy.deepcopy(cpu).to(card)
+    g = torch.Generator(card).manual_seed(5)
+    batch = train_batch(4, card, g, t_aud=192)
+    flow = {"t": torch.rand(4, generator=g, device=card),
+            "x0": torch.randn(4, 192, 128, generator=g, device=card),
+            "drop": torch.tensor([False, True, False, False], device=card)}
+    res = {}
+    for name, model, device in (("cpu", cpu, "cpu"), ("card", dev, card)):
+        args = {k: v.to(device) for k, v in {**batch, **flow}.items()}
+        attention_fwd.launches = attention_bwd.launches = 0
+        out = model.forward_tts(train=True, seed=1, **args)
+        out["loss"].backward()
+        res[name] = ({k: float(v.detach()) for k, v in out.items()},
+                     {n: p.grad.detach().cpu() for n, p in
+                      model.named_parameters() if p.grad is not None})
+    counts = {"attention_fwd": attention_fwd.launches,
+              "attention_bwd": attention_bwd.launches}
+    L, n_dit = cfg.qwen.num_hidden_layers, 2 * cfg.tts_flow_num_layers
+    remat = 2 if cfg.remat_policy == "full" else 1
+    want = {"attention_fwd": remat * L + n_dit, "attention_bwd": L + n_dit}
+    log(f"  train step launches on the card: {counts} (expected {want}: "
+        f"{L} Qwen2 layers, {n_dit} DiT attentions)")
+    check(counts == want, "kernel launch counts of the card's training step")
+    for k, ref in res["cpu"][0].items():
+        err = abs(res["card"][0][k] - ref)
+        log(f"  train step {k}: cpu {ref:.6f} card {res['card'][0][k]:.6f}")
+        check(err <= 1e-4 * abs(ref), f"train step {k} card vs CPU")
+    grads_cpu, grads_card = res["cpu"][1], res["card"][1]
+    trainable = {n for n, lab in labels.items() if lab != "frozen"}
+    check(set(grads_card) == set(grads_cpu) and set(grads_cpu) <= trainable,
+          "the same tensors get gradients on both devices")
+    top = max(g.abs().max().item() for g in grads_cpu.values())
+    worst = 0.0
+    for n, ref in grads_cpu.items():
+        err = (grads_card[n] - ref).abs().max().item()
+        # fp32 on both, TF32 off: summation order; a floor for tensors whose
+        # gradient is zero analytically (the key biases)
+        bound = 1e-3 * max(ref.abs().max().item(), 1e-3 * top)
+        worst = max(worst, err / bound)
+        check(err <= bound, f"train step gradient of {n}")
+    log(f"  train step: {len(grads_cpu)} trainable gradients agree, worst "
+        f"error {worst:.3f} of its bound (1e-3 of the tensor's largest "
+        "value)")
+
+
+def phase_train_main_path(card):
+    """The training path at full width: 28-layer flagship, tts.yaml's
+    plain-batch recipe, TRAIN_STEPS steps through run_training."""
+    from audio_calm_torch.config import TrainingConfig
+    from audio_calm_torch.models.calm import QwenCALM
+    from audio_calm_torch.models.flagship import flagship_config, random_normal_
+    from audio_calm_torch.ops.attention_kernel import (attention_bwd,
+                                                       attention_fwd)
+    from audio_calm_torch.train.loop import run_training
+    from audio_calm_torch.train.optim import AdamW, freeze
+    from audio_calm_torch.train.steps import make_calm_step
+
+    steps = TRAIN_STEPS
+    # configs/tts.yaml, training: (plain batches)
+    tcfg = TrainingConfig(
+        per_device_train_batch_size=32, microbatch_steps=2, soa_lr_mult=3.0,
+        proj_lr_mult=1.0, head_lr_mult=3.0, learning_rate=5e-5,
+        frozen_weights_dtype="bfloat16", lr_scheduler_type="cosine",
+        warmup_ratio=0.1, max_grad_norm=1.0, logging_steps=1)
+    cfg = flagship_config()
+    t0 = time.perf_counter()
+    with torch.device(card):
+        model = QwenCALM(cfg, compute_dtype=torch.bfloat16)
+    random_normal_(model, seed=0)
+    labels = freeze(model, tcfg, task_mode="tts")
+    trainable = {n: p for n, p in model.named_parameters() if p.requires_grad}
+    frozen = {n: p.detach().clone() for n, p in model.named_parameters()
+              if not p.requires_grad}
+    start = {n: p.detach().clone() for n, p in trainable.items()}
+    opt = AdamW(trainable, labels, tcfg, total_steps=steps)
+    k = tcfg.tts_microbatch_steps or tcfg.microbatch_steps
+    step = make_calm_step(model, opt, "tts", microbatch=k, seed=tcfg.seed)
+    n_train = sum(p.numel() for p in trainable.values())
+    torch.cuda.synchronize()
+    log(f"  flagship for training built in {time.perf_counter() - t0:.1f} s: "
+        f"{sum(p.numel() for p in model.parameters()) / 1e9:.3f} B params, "
+        f"{n_train / 1e6:.1f} M trainable (fp32 masters), "
+        f"{cfg.qwen.num_hidden_layers} LLM layers, remat {cfg.remat_policy}")
+    gen = torch.Generator(card).manual_seed(11)
+    batches = [train_batch(tcfg.per_device_train_batch_size, card, gen)
+               for _ in range(steps)]
+    snaps = []
+
+    def feed():
+        for b in batches:
+            yield b
+            snaps.append({n: p.detach().clone() for n, p in trainable.items()}
+                         if len(snaps) < 2 else None)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    attention_fwd.launches = 0
+    attention_bwd.launches = 0
+    history = run_training(step, feed(), tcfg, total_steps=steps)
+    counts = {"attention_fwd": attention_fwd.launches,
+              "attention_bwd": attention_bwd.launches}
+    peak = torch.cuda.max_memory_allocated()
+    L = cfg.qwen.num_hidden_layers
+    # full remat: each block's forward runs again in the backward
+    want = {"attention_fwd": 2 * L * k * steps,
+            "attention_bwd": L * k * steps}
+    log(f"  launches on the training path: {counts} (expected {want}: K5 "
+        f"once per layer and slice, K4 twice under full remat)")
+    check(counts == want, "kernel launch counts on the training path")
+    check(len(history) == steps and all(
+        np.isfinite(v) for r in history for v in r.values()),
+        "finite training metrics")
+    for n, p in model.named_parameters():
+        if not p.requires_grad:
+            check(torch.equal(p, frozen[n]), f"frozen tensor {n} unchanged")
+    check(all(torch.equal(snaps[0][n], start[n]) for n in trainable),
+          "trainable tensors unchanged after step 1 (LR 0)")
+    still = [n for n in trainable if torch.equal(snaps[1][n], start[n])]
+    moved = len(trainable) - len(still)
+    log(f"  after step 2: {moved} of {len(trainable)} trainable tensors "
+        f"changed; unchanged: {still}")
+    # random weights put every length prediction below its clip floor
+    # (10 frames), so the length predictor gets a zero gradient; its
+    # weights still move by weight decay, its biases (no decay) cannot
+    check(all(n.startswith("tts_len_predictor.") and labels[n] == "no_decay"
+              for n in still),
+          f"every trainable tensor with a gradient or weight decay changed "
+          f"by step 2 ({still})")
+    check({labels[n] for n in trainable if n not in still}
+          == {"decay", "no_decay", "proj", "head", "soa"},
+          "every optimizer group moved by step 2")
+    for i, r in enumerate(history):
+        log(f"  step {i + 1}: " + " ".join(
+            f"{key}={r[key]:.5f}" for key in ("loss", "loss_tts", "loss_len",
+                                              "loss_dur", "grad_norm"))
+            + f" step_s={r['step_s']:.4f}")
+    steady = sorted(r["step_s"] for r in history[1:])
+    step_s = steady[len(steady) // 2]
+    B = tcfg.per_device_train_batch_size
+    summary = {"steps": steps, "batch": B, "microbatch": k,
+               "step_s_first": history[0]["step_s"],
+               "step_s_median_after_first": step_s,
+               "samples_per_s": B / step_s, "peak_mem_gb": peak / 1e9,
+               "launches": counts, "losses": [r["loss"] for r in history],
+               "grad_norms": [r["grad_norm"] for r in history]}
+    log("  training " + json.dumps(summary))
+    del frozen, start, snaps
+    torch.cuda.empty_cache()
+    return counts, summary, (model, opt, step, batches[0])
+
+
+def phase_train_profile(probe, step_s):
+    """Where a training step's time goes: the host wall of its parts (each
+    ending in a device synchronize), then one more step under the profiler
+    (device activity only): the device's busy share of the step and the
+    kernels that take the most device time."""
+    from audio_calm_torch.ops.mas import monotonic_alignment_search
+    from audio_calm_torch.train.steps import TTS_KEYS
+
+    model, opt, step, batch = probe
+    half = {k: batch[k][:16] for k in TTS_KEYS}
+    parts = {}
+    with torch.no_grad():
+        _, parts["forward_one_slice_no_grad_s"] = synced(
+            lambda: model.forward_tts(**half, train=True, seed=1))
+        log_p = torch.log_softmax(torch.randn(16, 96, 384, device="cuda"), 1)
+        _, parts["mas_one_slice_s"] = synced(
+            lambda: monotonic_alignment_search(log_p))
+    grads = {n: p.grad for n, p in opt.params.items()}
+    _, parts["optimizer_update_s"] = synced(lambda: opt.step(grads))
+    _, parts["whole_step_s"] = synced(lambda: step(batch))
+    log("  training step parts (host wall, synchronized) " + json.dumps(parts))
+    p_wall, rows = device_profile(lambda: step(batch))
+    busy = sum(r[1] for r in rows)
+    check(busy > 0, "the profiler saw device time in the training step")
+    log(f"  profiled training step: wall {p_wall:.4f} s, device busy "
+        f"{busy:.4f} s: {100 * busy / p_wall:.1f}% of the profiled wall, "
+        f"{100 * busy / step_s:.1f}% of the unprofiled step {step_s:.4f} s")
+    for name, s_, n in rows[:12]:
+        log(f"    {1e3 * s_:9.3f} ms {n:6d} calls  {name[:90]}")
+    launches = sum(r[2] for r in rows)
+    log(f"  device kernels and copies in the step: {launches}")
+    return {"profiled_step_wall_s": p_wall, "step_device_busy_s": busy,
+            "step_device_ops": launches, "parts": parts}
 
 
 def phase_main_path(card):
@@ -467,6 +770,56 @@ def phase_kernel_times(calm, voc, counts, errs, card):
     return kernels
 
 
+def kernel_time_attention_bwd(train_counts, train_steps, errs, card):
+    """K5 at the training path's shape (one microbatch slice: B=16, bf16,
+    causal, the [text | pads | SOA] key mask): device ms per launch beside
+    the bound, the plain version and autograd's backward of SDPA."""
+    import torch.nn.functional as F
+
+    from audio_calm_torch.ops.attention_kernel import (attention_bwd,
+                                                       attention_bwd_plain,
+                                                       attention_fwd)
+
+    B = 16
+    q, k, v, dout, valid = qwen_train_inputs(B, torch.bfloat16, card, seed=2)
+    _, T, Hq, d = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    with torch.no_grad():
+        out = attention_fwd(q, k, v, valid, True)
+        ms = device_ms(lambda: attention_bwd(q, k, v, out, dout, valid, True),
+                       50)
+        plain = device_ms(lambda: attention_bwd_plain(q, k, v, out, dout,
+                                                      valid, True), 20)
+    mask = (valid[:, None, None, :] & torch.ones(
+        T, S, dtype=torch.bool, device=card).tril(S - T))
+    leaves = [t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v)]
+    lib_out = F.scaled_dot_product_attention(*leaves, attn_mask=mask,
+                                             enable_gqa=True)
+    g = dout.transpose(1, 2)
+    lib = device_ms(lambda: torch.autograd.grad(lib_out, leaves, g,
+                                                retain_graph=True), 50)
+    # JAX's cost estimate of the backward: 5 products of 2*T*S*d per head;
+    # bytes: q, k, v, o, dO read once, dq, dk, dv written once, the mask
+    flops = 5 * 2.0 * B * Hq * T * S * d
+    nbytes = (4 * q.numel() + 4 * k.numel()) * 2 + valid.numel()
+    b, by = bound_ms(flops, nbytes, H100_BF16_FLOPS)
+    row = {
+        "name": "attention_bwd", "route": "cuda",
+        "source": "audio_calm_torch/csrc/attention_bwd.cu",
+        "replaces": "audio_calm_tpu/ops/pallas_attention.py:306",
+        "launches": train_counts["attention_bwd"],
+        "launches_per_step": train_counts["attention_bwd"] // train_steps,
+        "max_abs_err": errs["attention_bwd"], "ms": ms, "plain_ms": plain,
+        "bound_ms": b, "bound_by": by, "library_ms": lib,
+        "per_launch": "one Qwen2 layer's backward for one microbatch slice: "
+                      f"q [{B}, {T}, {Hq}, {d}], k/v [{B}, {S}, {Hkv}, {d}], "
+                      "bf16, causal, ragged key mask",
+        "flop": flops, "bytes": nbytes,
+    }
+    log("  attention_bwd " + json.dumps(row))
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card is available", file=sys.stderr)
@@ -500,7 +853,9 @@ def main() -> int:
     gen = build_random(lambda: HiFiGANGenerator(HiFiGANConfig()), card,
                        seed=2)
     with exact_fp32():
-        errs = phase_kernels(gen, card)
+        with torch.no_grad():  # direct kernel calls take no gradient
+            errs = phase_kernels(gen, card)
+        errs["attention_bwd"] = phase_attention_bwd(card)
     log(f"phase kernels vs plain: ok in {time.perf_counter() - t0:.1f} s")
 
     # 4. reduced depth, card vs CPU
@@ -509,6 +864,11 @@ def main() -> int:
         phase_reduced_depth(card)
     log(f"phase reduced-depth card vs CPU: ok in "
         f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    with exact_fp32():
+        phase_train_step_card_vs_cpu(card)
+    log(f"phase training step card vs CPU: ok in "
+        f"{time.perf_counter() - t0:.1f} s")
 
     # 5. main path at full width, with PyTorch's default numerics (the
     # plain fp32 convolutions of the VAE and the vocoder in TF32)
@@ -516,9 +876,18 @@ def main() -> int:
     calm, voc, counts, serve, served = phase_main_path(card)
     log(f"phase main path: ok in {time.perf_counter() - t0:.1f} s")
 
+    # 5b. the training path at full width
+    t0 = time.perf_counter()
+    train_counts, trained, train_probe = phase_train_main_path(card)
+    log(f"phase training path: ok in {time.perf_counter() - t0:.1f} s")
+
     # 6. kernel times (the plain versions as they were compared)
     with exact_fp32():
-        kernels = phase_kernel_times(calm, voc, counts, errs, card)
+        with torch.no_grad():
+            kernels = phase_kernel_times(calm, voc, counts, errs, card)
+        kernels.append(kernel_time_attention_bwd(
+            train_counts, trained["steps"], errs, card))
+    kernels[1]["training_launches"] = train_counts["attention_fwd"]
 
     # 7. where the device time of the served requests goes (last: the
     # profiler slows what runs after it)
@@ -526,6 +895,12 @@ def main() -> int:
     served.update(phase_profile(serve, served["wall_s"]))
     log(f"phase profile: ok in {time.perf_counter() - t0:.1f} s")
     log("served " + json.dumps(served))
+    t0 = time.perf_counter()
+    trained.update(phase_train_profile(
+        train_probe, trained["step_s_median_after_first"]))
+    del train_probe
+    log(f"phase training profile: ok in {time.perf_counter() - t0:.1f} s")
+    log("trained " + json.dumps(trained))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

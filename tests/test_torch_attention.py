@@ -102,3 +102,60 @@ def test_multihead_attention_matches_flax():
         out = tm(torch.from_numpy(query), torch.from_numpy(kv),
                  torch.from_numpy(kv), torch.from_numpy(pad)).numpy()
     np.testing.assert_allclose(out, ref, rtol=TOL, atol=TOL)
+
+
+def test_multihead_attention_grads_match_flax(monkeypatch):
+    """With no probability dropout, the port's MultiheadAttention is
+    differentiated through flash_attention (the attention backward's route,
+    K5 on the card); its gradients match jax.grad of the flax module's XLA
+    path. Bound 2e-4 of the largest gradient, the JAX package's bound for
+    attention gradients (tests/test_pallas_attention.py).
+
+    Not a case here: a batch row with no valid key. Its output is the mean
+    of v either way, but JAX's flash backward (which K5 follows) keeps the
+    softmax Jacobian of its uniform P, where autograd of the XLA path gives
+    q and k no gradient. The DiT never builds such a row: every text and
+    every audio clip has a valid position."""
+    from audio_calm_torch.ops import attention_kernel
+
+    rng = np.random.default_rng(5)
+    B, Tq, Tk, E, H = 3, 10, 7, 32, 4
+    query = rng.standard_normal((B, Tq, E)).astype(np.float32)
+    kv = rng.standard_normal((B, Tk, E)).astype(np.float32)
+    w = rng.standard_normal((B, Tq, E)).astype(np.float32)
+    pad = np.zeros((B, Tk), bool)
+    pad[1, -3:] = True
+    pad[2, 1:] = True  # one valid key
+    m = MultiheadAttention(E, H)
+    params = m.init(jax.random.PRNGKey(1), query, kv, kv)["params"]
+
+    def loss(p, x, c):
+        out = m.apply({"params": p}, x, c, c,
+                      key_padding_mask=jnp.asarray(pad), train=True)
+        return jnp.sum(out * w)
+
+    g_p, g_x, g_c = jax.grad(loss, argnums=(0, 1, 2))(
+        params, jnp.asarray(query), jnp.asarray(kv))
+    ref = {f"param {n}": t.numpy()
+           for n, t in from_jax_params(g_p).items()}
+    ref.update(query=np.asarray(g_x), kv=np.asarray(g_c))
+
+    calls = []
+    bwd = attention_kernel.attention_bwd
+    monkeypatch.setattr(attention_kernel, "attention_bwd",
+                        lambda *a: calls.append(1) or bwd(*a))
+    tm = TMHA(E, H)  # dropout rate 0: the fused route in train mode too
+    tm.load_state_dict(from_jax_params(params), strict=True)
+    tx, tc = (torch.from_numpy(a).requires_grad_() for a in (query, kv))
+    out = tm(tx, tc, tc, torch.from_numpy(pad), train=True)
+    (out * torch.from_numpy(w)).sum().backward()
+    assert calls == [1]
+    got = {f"param {n}": p.grad.numpy() for n, p in tm.named_parameters()}
+    got.update(query=tx.grad.numpy(), kv=tc.grad.numpy())
+    assert got.keys() == ref.keys()
+    top = max(np.max(np.abs(r)) for r in ref.values())
+    for name, r in ref.items():
+        # floor: the key bias's gradient is zero analytically (softmax is
+        # shift-invariant) and carries rounding noise only
+        bound = 2e-4 * max(np.max(np.abs(r)), 1e-3 * top)
+        assert np.max(np.abs(got[name] - r)) <= bound, name

@@ -7,7 +7,9 @@ no interpret mode). Run them on a machine with one:
 Bounds: fp32 operands 1e-4 max-abs (TF32 is off for the plain side, so
 only the fp32 summation order differs); bf16 operands or outputs 2^-7 of
 the largest output magnitude (a last-bit difference in an fp32 sum can
-round a bf16 operand, or the output, one step the other way)."""
+round a bf16 operand, or the output, one step the other way). The
+attention backward: fp32 2e-5 of the largest gradient (its sums run over
+up to 6 heads x S keys in another order), bf16 as above."""
 
 import numpy as np
 import pytest
@@ -16,8 +18,11 @@ import torch
 from audio_calm_torch.config import HiFiGANConfig
 from audio_calm_torch.models.vocoder import HiFiGANGenerator
 from audio_calm_torch.ops import cuda_build
-from audio_calm_torch.ops.attention_kernel import (attention_fwd,
-                                                   attention_fwd_plain)
+from audio_calm_torch.ops.attention_kernel import (attention_bwd,
+                                                   attention_bwd_plain,
+                                                   attention_fwd,
+                                                   attention_fwd_plain,
+                                                   flash_attention)
 from audio_calm_torch.ops.vocoder_kernel import (hifigan_apply_fused,
                                                  vocoder_stage,
                                                  vocoder_stage_plain)
@@ -170,3 +175,121 @@ def test_attention_fully_masked_row_is_uniform(card, dtype):
                                atol=tol)
     torch.testing.assert_close(out, ref, rtol=0,
                                atol=2e-5 if dtype == torch.float32 else tol)
+
+
+def _bwd_inputs(card, B, T, S, Hq, Hkv, d, dtype, seed=0):
+    g = torch.Generator(card).manual_seed(seed)
+    q = torch.randn(B, T, Hq, d, generator=g, device=card).to(dtype)
+    k = torch.randn(B, S, Hkv, d, generator=g, device=card).to(dtype)
+    v = torch.randn(B, S, Hkv, d, generator=g, device=card).to(dtype)
+    dout = torch.randn(B, T, Hq, d, generator=g, device=card).to(dtype)
+    lengths = torch.randint(S // 3, S + 1, (B,), generator=g, device=card)
+    valid = torch.arange(S, device=card)[None, :] < lengths[:, None]
+    valid[0] = True
+    if B > 1:
+        valid[1, S // 2: S // 2 + 3] = False  # mid-sequence pad
+    return q, k, v, dout, valid
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,T,S,Hq,Hkv,d,causal", [
+    (16, 97, 97, 12, 2, 128, True),     # Qwen2 training slice
+    (2, 70, 130, 8, 4, 96, True),       # S > T, other head widths
+    (2, 5, 9, 4, 1, 32, False),
+    (3, 33, 65, 4, 4, 64, False),       # ragged tiles both ways
+])
+def test_attention_bwd_matches_plain(card, B, T, S, Hq, Hkv, d, causal, dtype):
+    dtype = getattr(torch, dtype)
+    q, k, v, dout, valid = _bwd_inputs(card, B, T, S, Hq, Hkv, d, dtype)
+    out = attention_fwd(q, k, v, valid, causal)
+    launches = attention_bwd.launches
+    got = attention_bwd(q, k, v, out, dout, valid, causal)
+    ref = attention_bwd_plain(q, k, v, out, dout, valid, causal)
+    torch.cuda.synchronize()
+    assert attention_bwd.launches == launches + 1
+    for a, b, name in zip(got, ref, ("dq", "dk", "dv")):
+        assert a.dtype == b.dtype == dtype and a.shape == b.shape
+        a, b = a.float(), b.float()
+        scale = 2e-5 if dtype == torch.float32 else 2 ** -7
+        err = (a - b).abs().max().item()
+        assert err <= scale * b.abs().max().item(), (name, err)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_attention_bwd_fully_masked_row(card, dtype):
+    dtype = getattr(torch, dtype)
+    q, k, v, dout, valid = _bwd_inputs(card, 2, 7, 11, 4, 2, 64, dtype, 3)
+    valid[0] = False
+    out = attention_fwd(q, k, v, valid)
+    got = attention_bwd(q, k, v, out, dout, valid)
+    ref = attention_bwd_plain(q, k, v, out, dout, valid)
+    for a, b in zip(got, ref):
+        a, b = a.float(), b.float()
+        scale = 2e-5 if dtype == torch.float32 else 2 ** -7
+        assert (a - b).abs().max().item() <= scale * b.abs().max().item()
+
+
+def test_flash_attention_function_matches_autograd(card):
+    """flash_attention (K4 forward, K5 backward) vs autograd through the
+    plain forward, fp32, the Qwen2 training shape."""
+    q, k, v, dout, valid = _bwd_inputs(card, 4, 97, 97, 12, 2, 128,
+                                       torch.float32, 1)
+    grads = []
+    for fn in (flash_attention, attention_fwd_plain):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = fn(*leaves, valid, True)
+        (out * dout).sum().backward()
+        grads.append([out.detach()] + [t.grad for t in leaves])
+    for a, b in zip(*grads):
+        assert (a - b).abs().max().item() <= 2e-5 * b.abs().max().item()
+
+
+@pytest.mark.parametrize("Tk", [96, 384])  # DiT cross / self attention
+def test_multihead_attention_backward_runs_k5(card, Tk):
+    """With no probability dropout, the DiT attention's backward on the card
+    runs K5 (through flash_attention) and its gradients agree with the
+    CPU's (the plain forward and backward), fp32, key pads in one row."""
+    import copy
+
+    from audio_calm_torch.ops.attention import MultiheadAttention
+
+    torch.manual_seed(0)
+    cpu = MultiheadAttention(1024, 16)
+    dev = copy.deepcopy(cpu).to(card)
+    x = torch.randn(2, 384, 1024)
+    ctx = torch.randn(2, Tk, 1024)
+    w = torch.randn(2, 384, 1024)
+    pad = torch.zeros(2, Tk, dtype=torch.bool)
+    pad[1, Tk // 3:] = True
+    grads = []
+    for m, device in ((cpu, "cpu"), (dev, card)):
+        xs, cs = (t.detach().to(device).requires_grad_() for t in (x, ctx))
+        launches = attention_bwd.launches
+        out = m(xs, cs, cs, pad.to(device), train=True)
+        (out * w.to(device)).sum().backward()
+        assert attention_bwd.launches == launches + (device == card)
+        grads.append([xs.grad, cs.grad] + [p.grad for p in m.parameters()])
+    for a, b in zip(grads[1], grads[0]):
+        a = a.cpu()
+        # fp32 on both sides, TF32 off: summation order; a floor for the
+        # key bias, whose gradient is zero analytically
+        top = max(g.abs().max().item() for g in grads[0])
+        bound = 1e-4 * max(b.abs().max().item(), 1e-3 * top)
+        assert (a - b).abs().max().item() <= bound
+
+
+def test_kernels_refuse_autograd(card):
+    """A kernel's output has no grad_fn: on the card, attention_fwd and
+    vocoder_stage refuse inputs that require a gradient, unless autograd
+    is off."""
+    q, k, v, _, valid = _bwd_inputs(card, 1, 9, 9, 4, 2, 64, torch.bfloat16)
+    q.requires_grad_()
+    with pytest.raises(RuntimeError, match="flash_attention"):
+        attention_fwd(q, k, v, valid, True)
+    with torch.no_grad():
+        attention_fwd(q, k, v, valid, True)
+    x, ups_w, ups_b, blocks = _stage_inputs(64, 32, 40, True, card)
+    with pytest.raises(RuntimeError, match="no_grad"):
+        vocoder_stage(x.requires_grad_(), ups_w, ups_b, blocks)
+    with torch.no_grad():
+        vocoder_stage(x, ups_w, ups_b, blocks)
