@@ -1,7 +1,7 @@
 """Model configuration dataclasses of the PyTorch port.
 
-Field-for-field copies of the JAX package's `Qwen2Config`, `LoRAConfig`,
-`CALMModelConfig`, `VAEModelConfig` and `TrainingConfig`
+Field-for-field copies of the JAX package's `MelConfig`, `Qwen2Config`,
+`LoRAConfig`, `CALMModelConfig`, `VAEModelConfig` and `TrainingConfig`
 (audio_calm_tpu/config.py), so a
 configuration written for one package builds the same geometry in the other.
 The port keeps its own copy: it imports nothing of the JAX package.
@@ -12,6 +12,23 @@ from __future__ import annotations
 import dataclasses
 from dataclasses import dataclass, field
 from typing import Any, List, Optional
+
+
+@dataclass
+class MelConfig:
+    """The log-mel frontend (reference preprocess/core.py:33-61)."""
+
+    sample_rate: int = 16000
+    n_fft: int = 1024
+    hop_length: int = 256
+    win_length: int = 1024
+    n_mels: int = 80
+    f_min: float = 0.0
+    f_max: float = 8000.0
+    power: float = 2.0
+    log_clamp: float = 1e-5  # ln(clamp(mel, 1e-5)); floor ~= -11.5
+    center: bool = True
+    pad_mode: str = "reflect"
 
 
 @dataclass

@@ -1,16 +1,20 @@
 """Latent -> waveform rendering: masked VAE decode, mel denormalization,
-HiFi-GAN (counterpart of audio_calm_tpu/eval/render.py).
+then the vocoder, HiFi-GAN or Griffin-Lim (counterpart of
+audio_calm_tpu/eval/render.py).
 
 `render(latents, n)` takes GRID-PADDED latents and returns the valid audio:
 the decode is masked to the first n frames (the decoder's GroupNorms
 normalize over time, so unmasked padding would shift every valid frame),
 the mel beyond 4n frames is zeroed (what HiFi-GAN's conv padding reads at
-an exact-length boundary), and the waveform is cut to n frames.
+an exact-length boundary), and the waveform is cut to n frames. Griffin-Lim
+renders the same masked mel grid; its log-mel 0 past the valid frames is a
+nonzero magnitude, so its tail stays coupled to the grid, as in JAX.
 """
 
 from __future__ import annotations
 
-from typing import Callable, List, Sequence
+import itertools
+from typing import Callable, List, Sequence, Union
 
 import numpy as np
 import torch
@@ -18,15 +22,15 @@ import torch
 from audio_calm_torch import resolve_device
 from audio_calm_torch.config import VAEModelConfig
 from audio_calm_torch.models.vae import AcousticVAE, denormalize_mel
-from audio_calm_torch.models.vocoder import HiFiGANVocoder
+from audio_calm_torch.models.vocoder import GriffinLimVocoder, HiFiGANVocoder
 
 # samples of 16 kHz audio per latent frame: VAE 4x time upsample * hop 256
 SAMPLES_PER_FRAME = 4 * 256
 
 
 def make_renderer(vae: AcousticVAE, vae_cfg: VAEModelConfig,
-                  vocoder: HiFiGANVocoder, device=None
-                  ) -> Callable[[np.ndarray, int], np.ndarray]:
+                  vocoder: Union[HiFiGANVocoder, GriffinLimVocoder],
+                  device=None) -> Callable[[np.ndarray, int], np.ndarray]:
     """-> render(latents [T_grid, D], n_frames) -> wav float32 [n * 1024],
     with `render.batch(latents [B, T_grid, D], n_frames)` -> list of wavs
     and `render.decode_mel(latents, ns)` -> masked mel [B, up*T_grid, 80].
@@ -34,7 +38,7 @@ def make_renderer(vae: AcousticVAE, vae_cfg: VAEModelConfig,
     device = resolve_device(device)
     up = vae_cfg.total_stride
     for name, mod in (("vae", vae), ("vocoder", vocoder)):
-        p = next(mod.parameters())
+        p = next(itertools.chain(mod.parameters(), mod.buffers()))
         if p.device.type != device.type:
             raise ValueError(f"{name} weights are on {p.device}, the renderer "
                              f"runs on {device}")

@@ -15,10 +15,14 @@ the JAX Conv1d/GroupNorm wrappers disappear, `kernel` and `scale` become
 The `load_*` helpers load with `strict=True`: every key present, none
 unexpected. `jax_path` maps a QwenCALM parameter name back to its path in
 the JAX tree (for optimizer labels and gradient comparisons).
+
+`load_torch_state_dict` reads a torch checkpoint file (.bin / .pt / .ckpt,
+or .safetensors through the reader below) into a flat dict of tensors.
 """
 
 from __future__ import annotations
 
+import json
 import re
 from typing import Dict, Iterator, Tuple
 
@@ -29,7 +33,7 @@ import torch
 ASR_COMPONENTS = ("asr_cross_attn", "asr_query_embed", "asr_flow_head")
 _WRAPPERS = {"conv", "gn"}
 _RENAMES = (
-    (re.compile(r"^up(\d+)_(conv|res)$"), r"up_\2.\1"),  # VAE decoder stages
+    (re.compile(r"^(up|down)(\d+)_(conv|res)$"), r"\1_\3.\2"),  # VAE stages
     (re.compile(r"_(\d+)(?=_|$)"), r".\1"),  # flax module lists
 )
 
@@ -104,11 +108,58 @@ def load_calm(model, tree: Dict) -> None:
 
 
 def load_vae(vae, tree: Dict) -> None:
-    """AcousticVAE (decoder) <- the JAX AcousticVAE parameter tree."""
-    vae.load_state_dict(from_jax_params({"decoder": _unwrap(tree)["decoder"]}),
-                        strict=True)
+    """AcousticVAE (encoder and decoder) <- the JAX AcousticVAE tree."""
+    vae.load_state_dict(from_jax_params(tree), strict=True)
 
 
 def load_hifigan(generator, tree: Dict) -> None:
     """HiFiGANGenerator <- the JAX HiFiGANGenerator parameter tree."""
     generator.load_state_dict(from_jax_params(tree), strict=True)
+
+
+# safetensors dtype names -> torch dtypes (the format's own names)
+_SAFETENSORS_DTYPES = {
+    "F64": torch.float64, "F32": torch.float32, "F16": torch.float16,
+    "BF16": torch.bfloat16, "I64": torch.int64, "I32": torch.int32,
+    "I16": torch.int16, "I8": torch.int8, "U8": torch.uint8,
+    "BOOL": torch.bool,
+}
+
+
+def read_safetensors(path: str) -> Dict[str, torch.Tensor]:
+    """A .safetensors file -> {name: tensor} on the CPU, without the
+    safetensors package: an 8-byte little-endian header length, a JSON
+    header {name: {dtype, shape, data_offsets: [begin, end]}} (offsets into
+    the data after the header; "__metadata__" aside), then the raw
+    little-endian data."""
+    with open(path, "rb") as f:
+        n = int.from_bytes(f.read(8), "little")
+        header = json.loads(f.read(n))
+        data = f.read()
+    out: Dict[str, torch.Tensor] = {}
+    for name, info in header.items():
+        if name == "__metadata__":
+            continue
+        dtype = _SAFETENSORS_DTYPES.get(info["dtype"])
+        if dtype is None:
+            raise ValueError(f"{path}: {name} has dtype {info['dtype']}, "
+                             f"which this reader does not take")
+        begin, end = info["data_offsets"]
+        if begin == end:  # frombuffer refuses an empty buffer
+            out[name] = torch.empty(info["shape"], dtype=dtype)
+            continue
+        flat = torch.frombuffer(bytearray(data[begin:end]), dtype=dtype)
+        out[name] = flat.reshape(info["shape"])
+    return out
+
+
+def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
+    """A torch checkpoint file -> {name: tensor} on the CPU: .safetensors
+    through `read_safetensors`, anything else (.bin / .pt / .ckpt) through
+    torch.load(weights_only=True)."""
+    if path.endswith(".safetensors"):
+        return read_safetensors(path)
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    if hasattr(sd, "state_dict"):
+        sd = sd.state_dict()
+    return dict(sd)

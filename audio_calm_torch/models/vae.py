@@ -1,17 +1,20 @@
-"""Acoustic VAE decoder (counterpart of audio_calm_tpu/models/vae.py).
+"""Acoustic VAE (counterpart of audio_calm_tpu/models/vae.py).
 
+encoder: Conv(80->512, k3 p1); per stride s: Conv(512->512, k=2s, s, p=s//2)
++ ResBlock; GN + GELU + Conv(512->2*latent, k3 p1) -> (mu, logvar).
 decoder: Conv(latent->512, k3 p1) + ResBlock; per stride (reversed):
 ConvTranspose(512->512, k=2s, s, p=s//2) + ResBlock; Conv(512->80, k3 p1).
 
-With a validity mask [B, T', 1] the GroupNorm statistics cover valid frames
-only and activations are re-zeroed before each conv, so a grid-padded row
-decodes its valid frames exactly as the exact-length latents would. The
-encoder (ASR path) is still to be ported.
+With a validity mask [B, T, 1] the GroupNorm statistics cover valid frames
+only and activations are re-zeroed before each conv, so a padded row
+encodes (decodes) its valid frames exactly as the exact-length tensor
+would. The training losses (SSIM, multi-resolution STFT) and training-mode
+sampling are still to be ported.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -41,6 +44,43 @@ class ResBlock(nn.Module):
             h = h * mask
         out = x + self.conv2(h)
         return out * mask if mask is not None else out
+
+
+class Encoder(nn.Module):
+    def __init__(self, cfg: VAEModelConfig):
+        super().__init__()
+        self.cfg = cfg
+        C = cfg.hidden_channels
+        self.conv_in = Conv1d(cfg.in_channels, C, 3, padding=1)
+        self.down_conv = nn.ModuleList(
+            Conv1d(C, C, 2 * s, stride=s, padding=s // 2) for s in cfg.strides)
+        self.down_res = nn.ModuleList(ResBlock(C, cfg.norm_num_groups)
+                                      for _ in cfg.strides)
+        self.norm_out = GroupNorm(cfg.norm_num_groups, C)
+        self.conv_out = Conv1d(C, 2 * cfg.latent_channels, 3, padding=1)
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """x [B, T, mel], mask [B, T, 1] of valid frames (each row's length
+        a multiple of total_stride) -> (mu, logvar) [B, T / stride, latent]."""
+        if mask is not None:
+            mask = mask.to(x.dtype)
+            x = x * mask
+        x = self.conv_in(x)
+        if mask is not None:
+            x = x * mask
+        for s, down, res in zip(self.cfg.strides, self.down_conv,
+                                self.down_res):
+            x = down(x)
+            if mask is not None:
+                mask = mask[:, ::s]
+                x = x * mask
+            x = res(x, mask)
+        x = gelu(self.norm_out(x, mask))
+        if mask is not None:
+            x = x * mask
+        mu, logvar = self.conv_out(x).chunk(2, dim=-1)
+        return mu, logvar
 
 
 class Decoder(nn.Module):
@@ -77,17 +117,52 @@ class Decoder(nn.Module):
 
 
 class AcousticVAE(nn.Module):
-    """The VAE's decode side: latents [B, T', latent] -> normalized log-mel
-    [B, T' * total_stride, n_mels]."""
+    """normalized log-mel [B, T, n_mels] <-> latents [B, T / total_stride,
+    latent]; T a multiple of total_stride (see `pad_to_stride`)."""
 
     def __init__(self, cfg: VAEModelConfig = VAEModelConfig()):
         super().__init__()
         self.cfg = cfg
+        self.encoder = Encoder(cfg)
         self.decoder = Decoder(cfg)
+
+    def encode(self, mel: torch.Tensor, mask: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+        return self.encoder(mel, mask)
 
     def decode(self, z: torch.Tensor,
                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         return self.decoder(z, mask)
+
+    def reparameterize(self, mu: torch.Tensor, logvar: torch.Tensor,
+                       train: bool = False) -> torch.Tensor:
+        """Eval mode: the mean. Training-mode sampling (noise and latent
+        dropout) comes with the VAE's training step."""
+        if train:
+            raise NotImplementedError(
+                "AcousticVAE.reparameterize(train=True) is not ported yet: "
+                "ROADMAP.md Queue 1, VAE training")
+        return mu
+
+
+def pad_to_stride(mel: torch.Tensor, total_stride: int) -> torch.Tensor:
+    """Reflect-pad the time axis of [B, T, C] to a multiple of total_stride
+    (numpy's 'reflect', reference modeling_vae.py:322-327)."""
+    T = mel.shape[1]
+    rem = T % total_stride
+    if rem == 0:
+        return mel
+    # reflection without the edge sample, period 2(T-1): numpy's rule, which
+    # also holds when the pad is longer than the signal
+    n = torch.arange(T, T + total_stride - rem, device=mel.device)
+    period = max(2 * (T - 1), 1)
+    m = n % period
+    idx = torch.where(m < T, m, period - m)
+    return torch.cat([mel, mel[:, idx]], dim=1)
+
+
+def normalize_mel(mel: torch.Tensor, cfg: VAEModelConfig) -> torch.Tensor:
+    return (mel - cfg.mel_mean) / cfg.mel_std
 
 
 def denormalize_mel(mel_n: torch.Tensor, cfg: VAEModelConfig) -> torch.Tensor:

@@ -3,7 +3,8 @@
 Each source is compiled by `nvcc` for `sm_90a` into a shared library with a
 plain C interface, at first use, into `build/kernels/` beside the package
 (git-ignored), and loaded with ctypes. The library name carries a hash of
-its source, so an edited kernel is rebuilt and a stale one never loads.
+its source and of the shared headers (csrc/*.cuh), so an edited kernel is
+rebuilt and a stale one never loads.
 `build_all()` starts one nvcc per source at once and waits for all of them.
 `check` and `refuse_autograd` are the guards every kernel wrapper shares.
 
@@ -25,7 +26,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "kernels"
-SOURCES = ("vocoder_stage", "attention_fwd", "attention_bwd")
+SOURCES = ("vocoder_stage", "attention_fwd", "attention_bwd", "resblock")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -44,7 +45,10 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:12]
+    h = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    digest = h.hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

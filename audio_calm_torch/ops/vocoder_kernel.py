@@ -1,14 +1,19 @@
-"""HiFi-GAN stage kernel and the generator orchestration around it.
+"""HiFi-GAN vocoder kernels and the generator orchestration around them.
 
 Counterpart of audio_calm_tpu/ops/pallas_vocoder.py:
   - `vocoder_stage` (Pallas `fused_upsample_stage`, K1): lrelu ->
     ConvTranspose1d(stride r) -> three MRF resblocks -> mean in one launch
     of csrc/vocoder_stage.cu; `ups_w=None` groups the resblocks + mean over
-    an already-upsampled input. `vocoder_stage_plain` is the same function
-    in plain PyTorch.
+    an already-upsampled input. It takes every C <= 128 dividing 128, as
+    the JAX kernel does: below 32 the channels are zero-padded to 32.
+    `vocoder_stage_plain` is the same function in plain PyTorch.
+  - `fused_resblock` (Pallas `fused_resblock`, K6): one MRF resblock,
+    routed as JAX routes it: C < 128 dividing 128 -> `vocoder_stage` with
+    one block; any other C up to 256 -> one launch of csrc/resblock.cu.
+    `fused_resblock_plain` is the same function in plain PyTorch.
   - `hifigan_apply_fused` (the JAX orchestration, K2): conv_pre, the
-    upsamples that stay plain convolutions, the C=256 resblocks in plain
-    PyTorch, the stage kernel where the JAX package routes to Pallas, and
+    upsamples that stay plain convolutions, the C > 128 resblocks in plain
+    PyTorch, the kernels where the JAX package routes to Pallas, and
     conv_post + tanh.
 
 Weights are passed in the JAX kernel layout, [k, C_in, C_out] per conv, so
@@ -29,9 +34,16 @@ from audio_calm_torch.ops import cuda_build
 Block = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, int,
               Tuple[int, ...]]  # w1 [n_d,k,C,C], b1 [n_d,C], w2, b2, k, dils
 
-_MAX_DIL = 4  # csrc/vocoder_stage.cu kMaxDil
-# resblocks at or above this width stay plain convolutions (as in JAX)
+_MAX_DIL = 4  # csrc/vocoder_stage.cu and csrc/resblock.cu kMaxDil
+# resblocks above this width stay plain convolutions (as in JAX)
 _KERNEL_MAX_CHANNELS = 128
+# the stage kernel's smallest width; narrower stages are zero-padded to it
+_STAGE_MIN_CHANNELS = 32
+# csrc/resblock.cu: widest C, largest k, tensor-core channel granules
+_RESBLOCK_MAX_CHANNELS = 256
+_RESBLOCK_MAX_K = 11
+_RESBLOCK_GRANULES = (32, 64, 96, 128, 192, 256)
+_SMEM_BYTES = 227 * 1024  # shared memory one block may use on the H100
 
 
 def lrelu(x: torch.Tensor, slope: float = 0.1) -> torch.Tensor:
@@ -78,6 +90,29 @@ def vocoder_stage_plain(x: torch.Tensor, ups_w: Optional[torch.Tensor],
             cur = cur + h
         acc = cur if acc is None else acc + cur
     return (acc / len(blocks)).to(x.dtype)
+
+
+def _pad_to(t: torch.Tensor, sizes: Sequence[int]) -> torch.Tensor:
+    """Zero-pad the trailing len(sizes) dims of t up to `sizes`."""
+    pad: List[int] = []
+    for have, want in zip(reversed(t.shape[-len(sizes):]), reversed(sizes)):
+        pad += [0, want - have]
+    return F.pad(t, pad) if any(pad) else t
+
+
+def pad_stage(x, ups_w, ups_b, blocks: Sequence[Block], Cp: int):
+    """A stage's arguments with C zero-padded to Cp (and C_in = 2C to 2Cp):
+    zero channels with zero weights and biases stay zero through every conv
+    (lrelu(0) = 0), so out[..., :C] of the padded stage is the stage."""
+    C = blocks[0][0].shape[-1]
+    cin_p = Cp if ups_w is None else (
+        2 * Cp if x.shape[-1] == 2 * C else x.shape[-1])
+    blocks_p = [(_pad_to(w1, (Cp, Cp)), _pad_to(b1, (Cp,)),
+                 _pad_to(w2, (Cp, Cp)), _pad_to(b2, (Cp,)), k, dils)
+                for w1, b1, w2, b2, k, dils in blocks]
+    return (_pad_to(x, (cin_p,)),
+            None if ups_w is None else _pad_to(ups_w, (cin_p, Cp)),
+            None if ups_b is None else _pad_to(ups_b, (Cp,)), blocks_p)
 
 
 def _stage_lib() -> ctypes.CDLL:
@@ -133,17 +168,22 @@ def vocoder_stage(x: torch.Tensor, ups_w: Optional[torch.Tensor],
                              f"{tuple(ups_b.shape)}, C_in={C_in}")
     if not 1 <= len(blocks) <= 4:
         raise ValueError("vocoder_stage takes 1 to 4 resblocks")
+    if C < _STAGE_MIN_CHANNELS and 128 % C == 0:
+        out = vocoder_stage(*pad_stage(x, ups_w, ups_b, blocks,
+                                       _STAGE_MIN_CHANNELS),
+                            r, slope, compute_dtype)
+        return out[..., :C]
     tensor_cores = compute_dtype == torch.bfloat16
     if tensor_cores and (C not in (32, 64, 128) or (ups_w is not None and (
             C_in != 2 * C or k_up % r or k_up < r))):
-        raise ValueError("vocoder_stage with bf16 operands takes C in "
-                         "(32, 64, 128) and, with the upsample, C_in = 2C "
+        raise ValueError("vocoder_stage with bf16 operands takes C <= 128 "
+                         "dividing 128 and, with the upsample, C_in = 2C "
                          f"and r | k_up; got C={C}, C_in={C_in}, r={r}, "
                          f"k_up={k_up}")
-    if not tensor_cores and (C % 4 or C > _KERNEL_MAX_CHANNELS or 8192 % C
-                             or C < 16):
-        raise ValueError(f"vocoder_stage with fp32 operands takes "
-                         f"16 <= C <= 128 dividing 8192, got C={C}")
+    if not tensor_cores and (C % 4 or C > _KERNEL_MAX_CHANNELS or 8192 % C):
+        raise ValueError(f"vocoder_stage with fp32 operands takes C <= 128 "
+                         f"dividing 128, or a multiple of 4 dividing 8192, "
+                         f"got C={C}")
     weights: List[torch.Tensor] = []
     biases: List[torch.Tensor] = []
     if ups_w is not None:
@@ -194,17 +234,136 @@ def vocoder_stage(x: torch.Tensor, ups_w: Optional[torch.Tensor],
 vocoder_stage.launches = 0
 
 
-def fused_resblock(x: torch.Tensor, block: Block, slope: float = 0.1,
-                   compute_dtype=torch.bfloat16) -> torch.Tensor:
-    """One MRF resblock at C <= 128 that the stage kernel does not cover
-    (Pallas `fused_resblock`, K6). Not on the V1 path; on a CPU tensor its
-    plain version runs."""
-    if x.device.type != "cpu":
-        raise NotImplementedError(
-            "fused_resblock (TPU kernel K6) is not ported yet: ROADMAP.md "
-            "Queue 2, K6")
+def fused_resblock_plain(x: torch.Tensor, block: Block, slope: float = 0.1,
+                         compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """Plain PyTorch version of `fused_resblock` (same signature): the
+    stage function with one block and no upsample."""
     return vocoder_stage_plain(x, None, None, [block], slope=slope,
                                compute_dtype=compute_dtype)
+
+
+def _halo(k: int, dils: Sequence[int]) -> int:
+    """Stacked receptive margin of the resblock's conv chain, each side."""
+    c = (k - 1) // 2
+    return sum(c * d + c for d in dils)
+
+
+def _check_resblock(x: torch.Tensor, block: Block, compute_dtype) -> None:
+    """Raise ValueError, naming the limit, outside csrc/resblock.cu's domain:
+    1 <= C <= 256, odd k <= 11, 1 to 4 dilations >= 1, float32/bfloat16
+    activations and compute dtypes, weights [n_d, k, C, C] on x's device."""
+    w1, b1, w2, b2, k, dils = block
+    ok_types = (torch.float32, torch.bfloat16)
+    if x.dtype not in ok_types or compute_dtype not in ok_types:
+        raise ValueError("fused_resblock takes float32/bfloat16 activations "
+                         f"and compute dtypes, got {x.dtype}/{compute_dtype}")
+    if x.ndim != 3 or not 1 <= x.shape[-1] <= _RESBLOCK_MAX_CHANNELS:
+        raise ValueError("fused_resblock takes x [B, T, C] with 1 <= C <= "
+                         f"{_RESBLOCK_MAX_CHANNELS}, got {tuple(x.shape)}")
+    if k % 2 == 0 or not 1 <= k <= _RESBLOCK_MAX_K:
+        raise ValueError(f"fused_resblock takes an odd k <= {_RESBLOCK_MAX_K}"
+                         f", got k={k}")
+    n_d = len(dils)
+    if not 1 <= n_d <= _MAX_DIL or any(int(d) < 1 for d in dils):
+        raise ValueError(f"fused_resblock takes 1 to {_MAX_DIL} dilations "
+                         f">= 1, got {tuple(dils)}")
+    C = x.shape[-1]
+    if (tuple(w1.shape) != (n_d, k, C, C) or w2.shape != w1.shape
+            or tuple(b1.shape) != (n_d, C) or b2.shape != b1.shape):
+        raise ValueError("fused_resblock: weights must be [n_d, k, C, C] and "
+                         f"biases [n_d, C] for C={C}, k={k}, n_d={n_d}")
+    if any(t.device != x.device for t in (w1, b1, w2, b2)):
+        raise ValueError("fused_resblock: weights must be on x's device")
+
+
+def _resblock_plan(C: int, k: int, dils: Sequence[int], T: int,
+                   tensor_cores: bool) -> Tuple[int, int, int, bool]:
+    """csrc/resblock.cu's launch shape -> (C_k, Lp, tile, scratch): the
+    kernel's channel count (C zero-padded to a granule: a width of 32
+    channel groups for the tensor cores, a multiple of 4 on the CUDA cores),
+    the window rows Lp = tile + 2H (the most that fit in shared memory,
+    fewer for a short T; a multiple of 16 for the tensor cores), and whether
+    the fp32 residual lives in a device-memory scratch (C_k > 64) rather
+    than in shared memory. Raises ValueError when the halo leaves no tile."""
+    if tensor_cores:
+        C_k = next(g for g in _RESBLOCK_GRANULES if g >= C)
+    else:
+        C_k = -(-C // 4) * 4
+    scratch = C_k > 64
+    if tensor_cores:  # two bf16 operand buffers (+ the fp32 residual)
+        row, unit = (C_k + 8) * 4 * (1 if scratch else 2), 16
+    else:  # conv1's fp32 output (+ the fp32 residual)
+        row, unit = (C_k + 1) * 4 * (1 if scratch else 2), 1
+    H = _halo(k, dils)
+    lp_max = _SMEM_BYTES // row // unit * unit
+    if lp_max - 2 * H < 1:
+        raise ValueError(
+            f"fused_resblock: the halo of k={k}, dilations={tuple(dils)} "
+            f"(H={H}) leaves no tile in shared memory at C={C}: the window "
+            f"holds {lp_max} rows, so H <= {(lp_max - 1) // 2}")
+    Lp = min(lp_max, -(-(T + 2 * H) // unit) * unit)
+    return C_k, Lp, Lp - 2 * H, scratch
+
+
+def _resblock_lib() -> ctypes.CDLL:
+    lib = cuda_build.load("resblock")
+    if not getattr(lib, "_argtypes_set", False):
+        P, I = ctypes.c_void_p, ctypes.c_int
+        lib.fused_resblock.argtypes = [P, P, P, P, P, I, I, I, I, I, I, I, P,
+                                       ctypes.c_float, I, P]
+        lib.fused_resblock.restype = I
+        lib._argtypes_set = True
+    return lib
+
+
+def fused_resblock(x: torch.Tensor, block: Block, slope: float = 0.1,
+                   compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """One MRF resblock (Pallas `fused_resblock`): x [B, T, C] -> per
+    dilation d, x + conv_k,1(lrelu(conv_k,d(lrelu(x)))), in x's dtype.
+    Routed as in JAX: C < 128 dividing 128 -> the stage kernel with this
+    one block (K1); any other C -> csrc/resblock.cu (K6). CPU tensors take
+    the plain version; on a CUDA tensor a kernel runs or the call raises."""
+    if x.device.type == "cpu":
+        return fused_resblock_plain(x, block, slope, compute_dtype)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_resblock: unsupported device {x.device}")
+    C = x.shape[-1]
+    if C < 128 and 128 % C == 0:
+        return vocoder_stage(x, None, None, [block], slope=slope,
+                             compute_dtype=compute_dtype)
+    cuda_build.refuse_autograd("fused_resblock", (x, *block[:4]))
+    _check_resblock(x, block, compute_dtype)
+    w1, b1, w2, b2, k, dils = block
+    B, T, _ = x.shape
+    tensor_cores = compute_dtype == torch.bfloat16
+    C_k, Lp, tile, in_scratch = _resblock_plan(C, k, dils, T, tensor_cores)
+    if C_k > C:  # zero channels stay zero: exact, sliced off below
+        x = _pad_to(x, (C_k,))
+        w1, w2 = _pad_to(w1, (C_k, C_k)), _pad_to(w2, (C_k, C_k))
+        b1, b2 = _pad_to(b1, (C_k,)), _pad_to(b2, (C_k,))
+    layout = _mma_fragments if tensor_cores else (
+        lambda t: t.float().reshape(-1))
+    n_d = len(dils)
+    w = torch.cat([layout(t) for i in range(n_d) for t in (w1[i], w2[i])])
+    bias = torch.cat([t.float() for i in range(n_d) for t in (b1[i], b2[i])])
+    x = x.contiguous()
+    out = torch.empty(B, T, C_k, dtype=x.dtype, device=x.device)
+    scratch = (torch.empty(-(-T // tile) * B * Lp * C_k, dtype=torch.float32,
+                           device=x.device) if in_scratch else None)
+    lib = _resblock_lib()
+    status = lib.fused_resblock(
+        x.data_ptr(), w.data_ptr(), bias.data_ptr(),
+        out.data_ptr(), None if scratch is None else scratch.data_ptr(),
+        int(x.dtype == torch.bfloat16), int(tensor_cores), B, T, C_k, k, n_d,
+        (ctypes.c_int * n_d)(*[int(d) for d in dils]), float(slope), Lp,
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    cuda_build.check(lib, status, "fused_resblock")
+    fused_resblock.launches += 1
+    return out[..., :C] if C_k > C else out
+
+
+fused_resblock.launches = 0
 
 
 def _conv1d(x, weight, bias, pad: int, dilation: int = 1):

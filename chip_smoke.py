@@ -9,7 +9,10 @@ Phases, in order; any failure exits non-zero and prints no result:
   3. each kernel against its plain PyTorch version on the card, at the main
      paths' shapes, fp32 and bf16 (the attention backward at the Qwen2
      training shape, and the flash_attention Function against autograd
-     through the plain forward);
+     through the plain forward; the resblock kernel at C = 12, 24, 48, 96,
+     128, 256 and k = 3, 7, 11 with a ragged last tile, the sequence
+     edges held on their own; the stage kernel at HiFi-GAN V2's C = 16
+     and C = 8);
   4. the serving slice at full widths with 2 LLM layers on the 96-frame
      grid, fp32, on the card and on the CPU, same weights and ODE noise;
      then one TTS training step (forward_tts + backward) at full widths
@@ -29,6 +32,18 @@ Phases, in order; any failure exits non-zero and prints no result:
      trainable ones unchanged after the LR-0 first step and changed after
      the second, kernel launches as full remat requires; step time,
      samples/s, peak memory;
+  5c. the vocoder layer as the product loads it: weight-normed torch
+     checkpoints of two generators made from a seed (odd widths: V1's rates
+     with 384 initial channels, whose resblocks at C = 96, 48, 24 take the
+     resblock kernel; HiFi-GAN V2, C = 64..8, the stage kernel) go through
+     load_vocoder onto the card and are held against the same files loaded
+     on the CPU; then make_renderer renders a B=2 batch on the 384-frame
+     grid with the flagship VAE through each of them and through the
+     Griffin-Lim vocoder the shipped configs use: launch counts, finite
+     waveforms of n * 1024 samples, the time of each;
+  5d. VAE reconstruction: 8 s of a seeded synthetic signal through the mel
+     frontend and eval/reconstruct at the flagship VAE's width, on the card
+     and on the CPU, fp32: log-mel, latent means and reconstruction agree;
   6. per kernel: its launches on its main path, its device time per launch
      at main-path shapes, the bound, the plain version's and the library
      call's device time;
@@ -43,8 +58,11 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
+import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -134,6 +152,56 @@ def build_models(device, num_llm_layers=None, calm_dtype=torch.bfloat16,
     return calm, vae, vae_cfg, HiFiGANVocoder(gen, compute_dtype=compute_dtype)
 
 
+def odd_width_config():
+    """V1's rates, kernels and dilations at 384 initial channels: widths
+    192 (plain resblocks), 96, 48, 24 (neither above 128 nor dividing it:
+    the resblock kernel, 3 launches a stage)."""
+    from audio_calm_torch.config import HiFiGANConfig
+
+    return HiFiGANConfig(upsample_initial_channel=384)
+
+
+def v2_config():
+    """HiFi-GAN V2 (jik876/hifi-gan config_v2.json): 128 initial channels,
+    rates 8, 8, 2, 2; widths 64, 32, 16, 8, all through the stage kernel."""
+    from audio_calm_torch.config import HiFiGANConfig
+
+    return HiFiGANConfig(upsample_initial_channel=128)
+
+
+def seeded_generator(cfg, seed):
+    """HiFiGANGenerator(cfg) on the CPU with torch's default (fan-in scaled)
+    initialization under `seed`: a live waveform at every width."""
+    from audio_calm_torch.models.vocoder import HiFiGANGenerator
+
+    with torch.random.fork_rng():
+        torch.manual_seed(seed)
+        return HiFiGANGenerator(cfg).eval().requires_grad_(False)
+
+
+def weight_normed_state_dict(gen, seed):
+    """A torch checkpoint of `gen` in the official HiFi-GAN layout: every
+    weight as weight_g / weight_v (v each output row of W rescaled by a
+    random positive factor, g = ||W|| over all dims but the first, so that
+    folding gives W back), resblocks flattened to resblocks.{i * n_k + j}."""
+    g = torch.Generator().manual_seed(seed)
+    n_k = len(gen.cfg.resblock_kernel_sizes)
+    sd = {}
+    for name, t in gen.state_dict().items():
+        t = t.detach().float().cpu()
+        m = re.match(r"resblocks\.(\d+)\.(\d+)\.(.*)", name)
+        if m:
+            name = f"resblocks.{int(m[1]) * n_k + int(m[2])}.{m[3]}"
+        if name.endswith(".weight"):
+            row = (t.shape[0],) + (1,) * (t.ndim - 1)
+            sd[name + "_v"] = t * (0.5 + torch.rand(row, generator=g))
+            sd[name + "_g"] = t.norm(dim=tuple(range(1, t.ndim)),
+                                     keepdim=True)
+        else:
+            sd[name] = t
+    return sd
+
+
 def text_batch(lengths, seed=0):
     """Random token ids (as bench.py: ids in [10, 5000)), right-padded."""
     T = max(lengths)
@@ -145,11 +213,12 @@ def text_batch(lengths, seed=0):
 
 def stage_args(gen, index, x):
     """The stage kernel's arguments for HiFi-GAN stage `index` on input x,
-    as hifigan_apply_fused routes them (index 1: grouped, 2/3: upsample)."""
+    as hifigan_apply_fused routes them (index 0, 1: the grouped resblocks
+    after a plain upsample; 2, 3: with the r=2 upsample)."""
     from audio_calm_torch.ops.vocoder_kernel import stack_resblock
 
     blocks = [stack_resblock(rb) for rb in gen.resblocks[index]]
-    if index == 1:
+    if index < 2:
         return (x, None, None, blocks)
     up = gen.ups[index]
     return (x, up.weight.permute(2, 0, 1), up.bias, blocks)
@@ -251,6 +320,91 @@ def phase_kernels(gen, card):
             check(err <= bound, f"attention_fwd {label} {dt}")
             if dt == torch.bfloat16:
                 worst["attention_fwd"] = max(worst["attention_fwd"], err)
+    return worst
+
+
+def resblock_inputs(C, k, T, card, g):
+    """x [2, T, C] and one resblock's weights (dilations 1, 3, 5; weights
+    N(0, 1/(k C)), biases N(0, 0.01)) made on the card from `g`."""
+    def w(*shape, scale):
+        return scale * torch.randn(*shape, generator=g, device=card)
+
+    s = 1.0 / np.sqrt(k * C)
+    x = torch.randn(2, T, C, generator=g, device=card)
+    return x, (w(3, k, C, C, scale=s), w(3, C, scale=0.1),
+               w(3, k, C, C, scale=s), w(3, C, scale=0.1), k, (1, 3, 5))
+
+
+def vocoder_kernel_bound(out, ref, cdt):
+    """The JAX vocoder kernels' bounds -> (error, bound, held): fp32 rtol/
+    atol 1e-5 (error = the largest |out - ref| - 1e-5 |ref| excess over
+    1e-5); bf16 operands 5e-3 max-abs, relative to the output's largest
+    magnitude where that exceeds 1 (JAX sets it on a waveform in [-1, 1];
+    a resblock's output is not squashed, and a flipped bf16 operand moves
+    it in proportion)."""
+    out, ref = out.float(), ref.float()
+    err = (out - ref).abs().max().item()
+    if cdt == torch.float32:
+        excess = ((out - ref).abs() - 1e-5 * ref.abs()).max().item()
+        return err, 1e-5 + err - excess, excess <= 1e-5
+    bound = 5e-3 * max(1.0, ref.abs().max().item())
+    return err, bound, err < bound
+
+
+def phase_vocoder_kernels(v2_gen, card):
+    """The resblock kernel (K6) against its plain version at the odd widths
+    and V1's C=128 and C=256, k = 3, 7, 11, with several tiles and a
+    ragged last one, the first and last H frames held on their own; the
+    stage kernel (K1) at V2's C=16 and C=8 stages, with the upsample.
+    Returns the worst bf16 errors."""
+    from audio_calm_torch.ops.vocoder_kernel import (_halo, _resblock_plan,
+                                                     fused_resblock,
+                                                     fused_resblock_plain,
+                                                     vocoder_stage,
+                                                     vocoder_stage_plain)
+
+    g = torch.Generator(card).manual_seed(4)
+    worst = {"fused_resblock": 0.0, "vocoder_stage_narrow": 0.0}
+    for C in (12, 24, 48, 96, 128, 256):
+        for k in (3, 7, 11):
+            # two of the larger of the two paths' tiles and a ragged third
+            tile = max(_resblock_plan(C, k, (1, 3, 5), 10 ** 7, tc)[2]
+                       for tc in (True, False))
+            T = 2 * tile + tile // 3 + 1
+            H = _halo(k, (1, 3, 5))
+            x, block = resblock_inputs(C, k, T, card, g)
+            for cdt in (torch.float32, torch.bfloat16):
+                out = fused_resblock(x, block, compute_dtype=cdt)
+                ref = fused_resblock_plain(x, block, compute_dtype=cdt)
+                res = [vocoder_kernel_bound(out[:, sl], ref[:, sl], cdt)
+                       for sl in (slice(None), slice(0, H), slice(-H, None))]
+                log(f"  fused_resblock C={C} k={k} T={T} {str(cdt)[6:]}: "
+                    f"max_abs_err {res[0][0]:.3e} bound {res[0][1]:.3e}; "
+                    f"edges {res[1][0]:.3e} / {res[2][0]:.3e}")
+                check(out.shape == ref.shape and all(r[2] for r in res),
+                      f"fused_resblock C={C} k={k} {cdt}")
+                if cdt == torch.bfloat16:
+                    worst["fused_resblock"] = max(worst["fused_resblock"],
+                                                  res[0][0])
+    # V2's last two stages: C_in 32 -> C 16 and 16 -> 8, full 384-grid
+    # lengths at B=1 and a ragged short one
+    for index, C_in, t_full, t_short in ((2, 32, 98304, 1201),
+                                         (3, 16, 196608, 777)):
+        for T in (t_short, t_full):
+            x = torch.randn(1, T, C_in, generator=g, device=card)
+            args = stage_args(v2_gen, index, x)
+            for cdt in (torch.float32, torch.bfloat16):
+                out = vocoder_stage(*args, compute_dtype=cdt)
+                ref = vocoder_stage_plain(*args, compute_dtype=cdt)
+                err, bound, held = vocoder_kernel_bound(out, ref, cdt)
+                log(f"  vocoder_stage V2 stage={index} T_in={T} C_in={C_in} "
+                    f"C={C_in // 2} {str(cdt)[6:]}: max_abs_err {err:.3e} "
+                    f"bound {bound:.3e}")
+                check(held and out.shape == ref.shape == (1, 2 * T, C_in // 2),
+                      f"vocoder_stage V2 stage {index} T={T} {cdt}")
+                if cdt == torch.bfloat16:
+                    worst["vocoder_stage_narrow"] = max(
+                        worst["vocoder_stage_narrow"], err)
     return worst
 
 
@@ -670,6 +824,234 @@ def phase_profile(serve, wall):
     return {"profiled_wall_s": p_wall, "device_busy_s": busy}
 
 
+def phase_load_vocoders(gens, card, tmp):
+    """Each seeded generator saved as a weight-normed torch checkpoint in a
+    directory of its own, loaded by load_vocoder onto the card and onto the
+    CPU, and held card against CPU on one mel: fp32 operands within 1e-4
+    (the JAX package's test_hifigan_torch_parity bound), the default bf16
+    operands within 5e-3 (its bf16 vocoder bound)."""
+    from audio_calm_torch.models.vocoder import HiFiGANVocoder, load_vocoder
+
+    mel = torch.randn(2, 48, 80, generator=torch.Generator().manual_seed(9))
+    loaded = {}
+    for (name, (cfg, gen)), fname in zip(gens.items(),
+                                         ("generator.ckpt", "generator.bin")):
+        d = os.path.join(tmp, name)
+        os.makedirs(d)
+        torch.save(weight_normed_state_dict(gen, seed=len(loaded)),
+                   os.path.join(d, fname))
+        voc, load_s = synced(lambda: load_vocoder(d, cfg))
+        cpu = load_vocoder(d, cfg, device="cpu")
+        check(isinstance(voc, HiFiGANVocoder) and isinstance(cpu,
+                                                            HiFiGANVocoder),
+              f"load_vocoder({name}) gives HiFi-GAN")
+        for cdt, bound in ((torch.float32, 1e-4), (torch.bfloat16, 5e-3)):
+            with exact_fp32(), torch.no_grad():
+                a = HiFiGANVocoder(voc.generator, compute_dtype=cdt)(
+                    mel.to(card)).cpu()
+                b = HiFiGANVocoder(cpu.generator, compute_dtype=cdt)(mel)
+            err = (a - b).abs().max().item()
+            log(f"  load_vocoder {name} ({fname}, loaded in {load_s:.2f} s) "
+                f"{str(cdt)[6:]}: card vs CPU max_abs_err {err:.3e} bound "
+                f"{bound:.0e}; |wav| max {b.abs().max().item():.3f}")
+            check(err < bound and a.shape == (2, 48 * 256)
+                  and b.abs().max().item() > 0.05,
+                  f"loaded {name} card vs CPU {cdt}")
+        loaded[name] = voc
+    return loaded
+
+
+def phase_vocoder_path(vocs, card):
+    """The product's render with each vocoder, at full width on the
+    384-frame grid, B=2 (one row 384 frames, one 311): the flagship VAE's
+    masked decode, then the vocoder; launch counts, waveforms, times."""
+    from audio_calm_torch.config import VAEModelConfig
+    from audio_calm_torch.eval.render import make_renderer
+    from audio_calm_torch.models.flagship import build_random
+    from audio_calm_torch.models.vae import AcousticVAE
+    from audio_calm_torch.models.vocoder import load_vocoder
+    from audio_calm_torch.ops.vocoder_kernel import (fused_resblock,
+                                                     vocoder_stage)
+
+    vae_cfg = VAEModelConfig()
+    vae = build_random(lambda: AcousticVAE(vae_cfg), card, seed=1)
+    g = torch.Generator(card).manual_seed(3)
+    lat = (0.039775 + 1.190864 * torch.randn(2, 384, 128, generator=g,
+                                             device=card)).cpu().numpy()
+    ns = [384, 311]
+    variants = [  # (name, vocoder, launches per render call)
+        ("odd_width_hifigan", vocs["odd_width"],
+         {"fused_resblock": 9, "vocoder_stage": 0}),
+        ("v2_hifigan", vocs["v2"], {"fused_resblock": 0, "vocoder_stage": 4}),
+        ("griffin_lim_32", load_vocoder(None),
+         {"fused_resblock": 0, "vocoder_stage": 0}),
+    ]
+    rows, counts_all, calls = [], {}, 2
+    for name, voc, per_call in variants:
+        render = make_renderer(vae, vae_cfg, voc, device=card)
+        synced(lambda: render.batch(lat, ns))  # warm-up: plans, allocator
+        fused_resblock.launches = vocoder_stage.launches = 0
+        times = []
+        for _ in range(calls):
+            wavs, t = synced(lambda: render.batch(lat, ns))
+            times.append(t)
+        counts = {"fused_resblock": fused_resblock.launches,
+                  "vocoder_stage": vocoder_stage.launches}
+        want = {k: v * calls for k, v in per_call.items()}
+        log(f"  render {name}: launches {counts} (expected {want}); "
+            f"{calls} calls of B=2, {[f'{t:.4f}' for t in times]} s")
+        check(counts == want, f"launch counts of the {name} render")
+        for w, n in zip(wavs, ns):
+            check(w.shape == (n * 1024,) and np.isfinite(w).all(),
+                  f"{name} waveform of {n} frames")
+        audio_s = sum(ns) * SEC_PER_FRAME
+        rows.append({"vocoder": name, "render_s": min(times),
+                     "render_s_all": times, "audio_s": audio_s,
+                     "realtime_factor": audio_s / min(times),
+                     "launches": counts, "wav_abs_max": float(
+                         max(np.abs(w).max() for w in wavs))})
+        counts_all[name] = counts
+    log("  vocoder path " + json.dumps(rows))
+    return counts_all, rows
+
+
+def phase_reconstruct(card):
+    """8 s of a seeded synthetic signal (three sines and noise, 16 kHz)
+    through MelFrontend and eval/reconstruct at the flagship VAE's width
+    (512 hidden channels, random weights from a seed), fp32, on the card
+    and on the CPU; the card also renders both mels with Griffin-Lim."""
+    import copy
+
+    from audio_calm_torch.config import MelConfig, VAEModelConfig
+    from audio_calm_torch.eval.reconstruct import reconstruct
+    from audio_calm_torch.models.flagship import build_random
+    from audio_calm_torch.models.vae import AcousticVAE
+    from audio_calm_torch.models.vocoder import GriffinLimVocoder
+    from audio_calm_torch.ops.mel import MelFrontend
+
+    sr = 16000
+    t = np.arange(8 * sr) / sr
+    rng = np.random.default_rng(5)
+    wav = (0.3 * np.sin(2 * np.pi * 220 * t) + 0.2 * np.sin(2 * np.pi * 1375 * t)
+           + 0.1 * np.sin(2 * np.pi * 3600 * t)
+           + 0.05 * rng.standard_normal(t.size)).astype(np.float32)
+    cpu_vae = build_random(lambda: AcousticVAE(VAEModelConfig()), "cpu",
+                           seed=1)
+    res = {}
+    for name, vae, device in (("cpu", cpu_vae, "cpu"),
+                              ("card", copy.deepcopy(cpu_vae).to(card), card)):
+        mel, mel_s = synced(lambda: MelFrontend(MelConfig(), device=device)(wav))
+        voc = GriffinLimVocoder(device=device) if name == "card" else None
+        out, rec_s = synced(lambda: reconstruct(
+            vae, [mel[0].cpu().numpy()], device=device, vocoder=voc))
+        res[name] = (mel[0].cpu().numpy(), out, mel_s, rec_s)
+    (mel_c, out_c, _, _), (mel_d, out_d, mel_s, rec_s) = res["cpu"], res["card"]
+    # fp32 both sides, TF32 off: log-mel within 1e-3 (the JAX frontend's
+    # mel-L1 bound, here max-abs), latent means within 2e-4 of their scale
+    # (PARITY.md's VAE bound), the denormalized reconstruction within 1e-3
+    # (that bound times the mel std 3.86)
+    errs = {"log_mel": float(np.abs(mel_d - mel_c).max()),
+            "mu": float(np.abs(out_d["mu"][0] - out_c["mu"][0]).max()),
+            "recon_mel": float(np.abs(out_d["recons"][0][1]
+                                      - out_c["recons"][0][1]).max())}
+    bounds = {"log_mel": 1e-3,
+              "mu": 2e-4 * max(1.0, float(np.abs(out_c["mu"][0]).max())),
+              "recon_mel": 1e-3}
+    stats = {k: (out_c[k], out_d[k]) for k in ("mse", "l1", "kl_mean",
+                                              "mu_std", "var_mean")}
+    log(f"  reconstruction of {mel_c.shape[0]} mel frames: card vs CPU "
+        f"max_abs_err {errs} bounds {bounds}; stats (cpu, card) {stats}; "
+        f"card: mel {mel_s:.4f} s, reconstruct + 2 Griffin-Lim renders "
+        f"{rec_s:.4f} s")
+    check(all(errs[k] < bounds[k] for k in errs),
+          "reconstruction card vs CPU")
+    check(all(abs(a - b) <= 1e-3 * abs(a) + 1e-6 for a, b in stats.values()),
+          "reconstruction statistics card vs CPU")
+    T_pad = out_d["recons"][0][0].shape[0]
+    for w in out_d["wavs"][0]:
+        check(w.shape == (T_pad * 256,) and np.isfinite(w).all(),
+              "Griffin-Lim render of the reconstruction")
+    return {"frames": int(mel_c.shape[0]), "errors": errs,
+            "stats_card": {k: out_d[k] for k in stats}, "mel_s": mel_s,
+            "reconstruct_with_gl_s": rec_s}
+
+
+def kernel_time_resblock(vocs, v1_gen, launches, worst, card):
+    """K6 per launch at the odd-width render's resblock shapes (B=2,
+    384-frame grid: [2, 98304, 96], [2, 196608, 48], [2, 393216, 24], k =
+    3, 7, 11) and at V1's C=128 and C=256 resblock shapes, fp32
+    activations and bf16 operands as the render runs it, beside the bound,
+    the plain version; no single library call computes a resblock."""
+    from audio_calm_torch.ops.vocoder_kernel import (fused_resblock,
+                                                     fused_resblock_plain,
+                                                     stack_resblock)
+
+    g = torch.Generator(card).manual_seed(6)
+    odd = vocs["odd_width"].generator
+    rows = []
+    for label, gen, index, T in (("odd-width C=96", odd, 1, 98304),
+                                 ("odd-width C=48", odd, 2, 196608),
+                                 ("odd-width C=24", odd, 3, 393216),
+                                 ("V1 C=128", v1_gen, 1, 98304),
+                                 ("V1 C=256", v1_gen, 0, 12288)):
+        for rb in gen.resblocks[index]:
+            block = stack_resblock(rb)
+            k, n_d, C = block[4], len(block[5]), block[0].shape[-1]
+            x = torch.randn(2, T, C, generator=g, device=card)
+            ms = device_ms(lambda: fused_resblock(x, block), 3)
+            plain = device_ms(lambda: fused_resblock_plain(x, block), 3)
+            flops = 2.0 * 2 * n_d * x.shape[0] * T * k * C * C
+            nbytes = 2 * x.numel() * 4 + 2 * n_d * (k * C * C * 2 + C * 4)
+            b, by = bound_ms(flops, nbytes, H100_BF16_FLOPS)
+            rows.append({"shape": label, "x": list(x.shape), "k": k,
+                         "ms": ms, "plain_ms": plain, "bound_ms": b,
+                         "bound_by": by, "flop": flops, "bytes": nbytes})
+            log("  fused_resblock " + json.dumps(rows[-1]))
+    path = [r for r in rows if r["shape"].startswith("odd-width")]
+
+    def mean(key):
+        return float(np.mean([r[key] for r in path]))
+
+    bound_by = max(("operations", "bytes"),
+                   key=lambda b: sum(r["bound_by"] == b for r in path))
+    return {
+        "name": "fused_resblock", "route": "cuda",
+        "source": "audio_calm_torch/csrc/resblock.cu",
+        "replaces": "audio_calm_tpu/ops/pallas_vocoder.py:249",
+        "launches": launches, "max_abs_err": worst,
+        "ms": mean("ms"), "plain_ms": mean("plain_ms"),
+        "bound_ms": mean("bound_ms"), "bound_by": bound_by,
+        "library_ms": None, "library": "none (no single call computes a "
+                                       "resblock)",
+        "per_launch": "mean over the odd-width render's 9 resblock shapes "
+                      "(B=2, 384-frame grid: C=96, 48, 24 x k=3, 7, 11); "
+                      "V1's C=128 and C=256 shapes listed beside",
+        "shapes": rows,
+    }
+
+
+def kernel_time_narrow_stages(v2_gen, card):
+    """K1 at HiFi-GAN V2's two narrowest stages (B=2, 384-frame grid):
+    C_in 32 -> C 16 and 16 -> 8, channels zero-padded to 32 inside."""
+    from audio_calm_torch.ops.vocoder_kernel import (vocoder_stage,
+                                                     vocoder_stage_plain)
+
+    g = torch.Generator(card).manual_seed(7)
+    rows = []
+    for index, C_in, T in ((2, 32, 98304), (3, 16, 196608)):
+        args = stage_args(v2_gen, index, torch.randn(2, T, C_in, generator=g,
+                                                     device=card))
+        ms = device_ms(lambda: vocoder_stage(*args), 3)
+        plain = device_ms(lambda: vocoder_stage_plain(*args), 3)
+        flops, nbytes = stage_cost(args, 4, 2)
+        b, by = bound_ms(flops, nbytes, H100_BF16_FLOPS)
+        rows.append({"stage": f"V2 {index}", "x": list(args[0].shape),
+                     "C": C_in // 2, "ms": ms, "plain_ms": plain,
+                     "bound_ms": b, "bound_by": by})
+        log("  vocoder_stage " + json.dumps(rows[-1]))
+    return rows
+
+
 def phase_kernel_times(calm, voc, counts, errs, card):
     """ms per launch at main-path shapes, beside bound, plain and library."""
     import torch.nn.functional as F
@@ -852,9 +1234,14 @@ def main() -> int:
 
     gen = build_random(lambda: HiFiGANGenerator(HiFiGANConfig()), card,
                        seed=2)
+    gens = {"odd_width": (odd_width_config(),
+                          seeded_generator(odd_width_config(), 21)),
+            "v2": (v2_config(), seeded_generator(v2_config(), 22))}
+    v2_card = seeded_generator(v2_config(), 22).to(card)
     with exact_fp32():
         with torch.no_grad():  # direct kernel calls take no gradient
             errs = phase_kernels(gen, card)
+            errs.update(phase_vocoder_kernels(v2_card, card))
         errs["attention_bwd"] = phase_attention_bwd(card)
     log(f"phase kernels vs plain: ok in {time.perf_counter() - t0:.1f} s")
 
@@ -881,12 +1268,33 @@ def main() -> int:
     train_counts, trained, train_probe = phase_train_main_path(card)
     log(f"phase training path: ok in {time.perf_counter() - t0:.1f} s")
 
+    # 5c. the vocoder layer as the product loads it
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        vocs = phase_load_vocoders(gens, card, tmp)
+    voc_counts, voc_path = phase_vocoder_path(vocs, card)
+    log(f"phase vocoder layer: ok in {time.perf_counter() - t0:.1f} s")
+
+    # 5d. VAE reconstruction, card vs CPU
+    t0 = time.perf_counter()
+    with exact_fp32():
+        recon = phase_reconstruct(card)
+    log(f"phase reconstruction: ok in {time.perf_counter() - t0:.1f} s")
+
     # 6. kernel times (the plain versions as they were compared)
     with exact_fp32():
         with torch.no_grad():
             kernels = phase_kernel_times(calm, voc, counts, errs, card)
+            kernels[0]["v2_stages"] = kernel_time_narrow_stages(v2_card, card)
+            kernels[0]["v2_render_launches"] = \
+                voc_counts["v2_hifigan"]["vocoder_stage"]
+            kernels[0]["max_abs_err_v2_stages"] = errs["vocoder_stage_narrow"]
         kernels.append(kernel_time_attention_bwd(
             train_counts, trained["steps"], errs, card))
+        with torch.no_grad():
+            kernels.append(kernel_time_resblock(
+                vocs, gen, voc_counts["odd_width_hifigan"]["fused_resblock"],
+                errs["fused_resblock"], card))
     kernels[1]["training_launches"] = train_counts["attention_fwd"]
 
     # 7. where the device time of the served requests goes (last: the
@@ -901,6 +1309,8 @@ def main() -> int:
     del train_probe
     log(f"phase training profile: ok in {time.perf_counter() - t0:.1f} s")
     log("trained " + json.dumps(trained))
+    log("vocoder_path " + json.dumps(voc_path))
+    log("reconstruction " + json.dumps(recon))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

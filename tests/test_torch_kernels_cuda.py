@@ -8,8 +8,14 @@ Bounds: fp32 operands 1e-4 max-abs (TF32 is off for the plain side, so
 only the fp32 summation order differs); bf16 operands or outputs 2^-7 of
 the largest output magnitude (a last-bit difference in an fp32 sum can
 round a bf16 operand, or the output, one step the other way). The
-attention backward: fp32 2e-5 of the largest gradient (its sums run over
-up to 6 heads x S keys in another order), bf16 as above."""
+resblock kernel (K6) and the stage kernel at the padded widths C=16 and
+C=8 are held to the JAX vocoder kernels' own bounds: fp32 rtol/atol 1e-5;
+bf16 operands on fp32 activations 5e-3 max-abs, a bound the JAX package
+sets on a waveform in [-1, 1] and taken here relative to the output's
+largest magnitude where that exceeds 1 (a resblock's output is not
+squashed; a flipped bf16 operand moves it in proportion). The attention backward:
+fp32 2e-5 of the largest gradient (its sums run over up to 6 heads x S
+keys in another order), bf16 as above."""
 
 import numpy as np
 import pytest
@@ -23,7 +29,9 @@ from audio_calm_torch.ops.attention_kernel import (attention_bwd,
                                                    attention_fwd,
                                                    attention_fwd_plain,
                                                    flash_attention)
-from audio_calm_torch.ops.vocoder_kernel import (hifigan_apply_fused,
+from audio_calm_torch.ops.vocoder_kernel import (_halo, fused_resblock,
+                                                 fused_resblock_plain,
+                                                 hifigan_apply_fused,
                                                  vocoder_stage,
                                                  vocoder_stage_plain)
 
@@ -97,6 +105,110 @@ def test_vocoder_stage_bf16_io(card, cdt):
     assert out.dtype == ref.dtype == torch.bfloat16
     out, ref = out.float(), ref.float()
     assert (out - ref).abs().max().item() <= 2 ** -7 * ref.abs().max().item()
+
+
+def _held(out, ref, cdt):
+    """The JAX vocoder kernels' bounds: fp32 rtol/atol 1e-5; bf16 operands
+    5e-3 max-abs, relative to the output's largest magnitude above 1."""
+    out, ref = out.float(), ref.float()
+    if cdt == torch.float32:
+        return bool(((out - ref).abs() <= 1e-5 + 1e-5 * ref.abs()).all())
+    scale = max(1.0, ref.abs().max().item())
+    return (out - ref).abs().max().item() < 5e-3 * scale
+
+
+@pytest.mark.parametrize("cdt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("C_in,C,T", [(32, 16, 1201), (16, 8, 777),
+                                      (16, 8, 5)])
+def test_vocoder_stage_narrow_widths(card, C_in, C, T, cdt):
+    """V2's last two stages (C=16, C=8, with the upsample): the wrapper
+    pads the channels to 32 and slices the output back."""
+    cdt = getattr(torch, cdt)
+    x, ups_w, ups_b, blocks = _stage_inputs(C_in, C, T, True, card, seed=2)
+    launches = vocoder_stage.launches
+    out = vocoder_stage(x, ups_w, ups_b, blocks, compute_dtype=cdt)
+    ref = vocoder_stage_plain(x, ups_w, ups_b, blocks, compute_dtype=cdt)
+    torch.cuda.synchronize()
+    assert vocoder_stage.launches == launches + 1
+    assert out.shape == ref.shape == (2, 2 * T, C)
+    assert _held(out, ref, cdt), (out - ref).abs().max().item()
+
+
+def _resblock_inputs(C, k, T, device, dils=(1, 3, 5), seed=0):
+    g = torch.Generator(device).manual_seed(seed)
+    n, s = len(dils), 1.0 / np.sqrt(k * C)
+
+    def w(*shape, scale):
+        return scale * torch.randn(*shape, generator=g, device=device)
+
+    x = torch.randn(2, T, C, generator=g, device=device)
+    block = (w(n, k, C, C, scale=s), w(n, C, scale=0.1),
+             w(n, k, C, C, scale=s), w(n, C, scale=0.1), k, dils)
+    return x, block
+
+
+@pytest.mark.parametrize("cdt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("k", [3, 7, 11])
+@pytest.mark.parametrize("C", [12, 24, 48, 96, 128, 256])
+def test_fused_resblock_matches_plain(card, C, k, cdt):
+    """K6 at the odd widths, V1's C=128 and C=256; T gives several tiles
+    and a ragged last one on both paths; the first and last H frames (the
+    sequence edges) are held on their own too."""
+    cdt = getattr(torch, cdt)
+    x, block = _resblock_inputs(C, k, 2500, card)
+    launches = fused_resblock.launches
+    out = fused_resblock(x, block, compute_dtype=cdt)
+    ref = fused_resblock_plain(x, block, compute_dtype=cdt)
+    torch.cuda.synchronize()
+    assert fused_resblock.launches == launches + 1
+    assert out.shape == ref.shape == x.shape
+    H = _halo(k, (1, 3, 5))
+    for sl in (slice(None), slice(0, H), slice(-H, None)):
+        assert _held(out[:, sl], ref[:, sl], cdt), (sl, (out - ref).abs().max())
+
+
+@pytest.mark.parametrize("cdt", ["float32", "bfloat16"])
+def test_fused_resblock_bf16_io_and_short_rows(card, cdt):
+    """bf16 activations in and out (one output rounding step, 2^-7), a
+    sequence shorter than the halo, and four dilations."""
+    cdt = getattr(torch, cdt)
+    for C, k, T, dils in ((96, 11, 999, (1, 3, 5)), (24, 3, 7, (1, 3, 5)),
+                          (48, 5, 300, (1, 2, 4, 8))):
+        x, block = _resblock_inputs(C, k, T, card, dils=dils, seed=3)
+        x = x.bfloat16()
+        out = fused_resblock(x, block, compute_dtype=cdt)
+        ref = fused_resblock_plain(x, block, compute_dtype=cdt)
+        assert out.dtype == ref.dtype == torch.bfloat16
+        out, ref = out.float(), ref.float()
+        assert (out - ref).abs().max().item() <= \
+            2 ** -7 * ref.abs().max().item(), (C, k, T)
+
+
+def test_fused_resblock_routes_as_jax(card):
+    """C=64 divides 128: the stage kernel (K1) runs, not K6; C=96 runs K6.
+    Outside K6's domain the wrapper raises ValueError naming the limit."""
+    x, block = _resblock_inputs(64, 3, 300, card)
+    k1, k6 = vocoder_stage.launches, fused_resblock.launches
+    out = fused_resblock(x, block)
+    assert (vocoder_stage.launches, fused_resblock.launches) == (k1 + 1, k6)
+    assert _held(out, fused_resblock_plain(x, block), torch.bfloat16)
+    x, block = _resblock_inputs(96, 3, 300, card)
+    fused_resblock(x, block)
+    assert (vocoder_stage.launches, fused_resblock.launches) == (k1 + 1,
+                                                                 k6 + 1)
+    for bad, match in (((300, 3, (1, 3, 5)), "C <= 256"),
+                       ((96, 13, (1, 3, 5)), "k <= 11"),
+                       ((96, 3, (1, 2, 3, 4, 5)), "dilations")):
+        C, k, dils = bad
+        x, block = _resblock_inputs(C, k, 50, card, dils=dils)
+        with pytest.raises(ValueError, match=match):
+            fused_resblock(x, block)
+    x, block = _resblock_inputs(96, 3, 50, card)
+    with pytest.raises(ValueError, match="float32/bfloat16"):
+        fused_resblock(x.half(), block)
+    x, block = _resblock_inputs(256, 11, 50, card, dils=(1, 9, 11, 13))
+    with pytest.raises(ValueError, match="halo"):
+        fused_resblock(x, block)
 
 
 def test_hifigan_apply_fused_card_matches_cpu(card):
@@ -293,3 +405,8 @@ def test_kernels_refuse_autograd(card):
         vocoder_stage(x.requires_grad_(), ups_w, ups_b, blocks)
     with torch.no_grad():
         vocoder_stage(x, ups_w, ups_b, blocks)
+    x, block = _resblock_inputs(96, 3, 40, card)
+    with pytest.raises(RuntimeError, match="no_grad"):
+        fused_resblock(x.requires_grad_(), block)
+    with torch.no_grad():
+        fused_resblock(x, block)

@@ -195,15 +195,17 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "audio_calm_torch." + ".".join(p.relative_to(pkg).with_suffix("")
                                        .parts).replace(".__init__", "")
         for p in pkg.rglob("*.py"))
-    # the training slice's modules and the kernel wrappers are covered
+    # the training and vocoder slices' modules and the kernel wrappers
+    # are covered
     for name in ("train.optim", "train.steps", "train.loop", "ops.mas",
                  "ops.flow", "ops.dropout", "ops.attention_kernel",
-                 "ops.cuda_build"):
+                 "ops.cuda_build", "ops.mel", "ops.vocoder_kernel",
+                 "models.vocoder", "eval.reconstruct"):
         assert f"audio_calm_torch.{name}" in modules, name
     from audio_calm_torch.ops import cuda_build
     for src in cuda_build.SOURCES:
         assert (pkg / "csrc" / f"{src}.cu").exists(), src
-    assert "attention_bwd" in cuda_build.SOURCES
+    assert {"attention_bwd", "resblock"} <= set(cuda_build.SOURCES)
     code = ("import sys\n"
             + "".join(f"import {m.removesuffix('.__init__')}\n"
                       for m in modules)
