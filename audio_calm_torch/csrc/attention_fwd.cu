@@ -12,11 +12,14 @@
 // A fully masked row gets a uniform average over all S keys, as with -1e30
 // in the reference.
 //
-// What bounds it on this card: at the main path's shapes (T, S <= 512,
-// d = 64 or 128) the work is small, 4*T*S*d FLOP per (batch, head), and
-// each launch moves under a few MB; the kernel is latency- and
-// launch-bound, not bandwidth- or FLOP-bound. What it must avoid is the
-// reference's [B, H, T, S] score and mask tensors in device memory.
+// What bounds it on this card: at the main path's shapes the work is
+// small and the bytes few. DiT self-attention, the serving path's largest
+// (q/k/v [4, 384, 16, 64] bf16, the CFG batch of a 2-text request): 2.4 GFLOP
+// and 12.6 MB, 2.4 us at 989 TFLOP/s against 3.8 us at 3.35 TB/s; DiT
+// cross-attention (S = 24) and the Qwen2 encode (T = S = 25, d = 128) are
+// smaller still. So the kernel is latency-bound: what it must avoid is the
+// reference's [B, H, T, S] score and mask tensors in device memory, and
+// stalls on loads that nothing overlaps.
 //
 // Design. One block of 128 threads per (query tile, head, batch); keys and
 // values stream through shared memory in tiles of 64 under an online
@@ -28,10 +31,16 @@
 // accumulators, as FlashAttention-2 does it. A query tile of 64 rows, 16
 // per warp; the warp keeps its Q fragments in registers, computes its
 // 16 x 64 scores with K read by ldmatrix, masks and exponentiates them in
-// registers, and feeds the probabilities straight back as the A operand of
-// P @ V (V read by ldmatrix.trans). P is rounded to bf16 for that product,
-// as the TPU kernel casts probs to v's dtype. Rows are padded by 8
-// elements in shared memory so that ldmatrix hits distinct banks.
+// registers (exp2f, with log2 e folded into the scale), and feeds the
+// probabilities straight back as the A operand of P @ V (V read by
+// ldmatrix.trans). P is rounded to bf16 for that product, as the TPU
+// kernel casts probs to v's dtype. K/V tiles come through a two-stage ring
+// of cp.async 16-byte copies: tile i + 1 is in flight while tile i's
+// products and softmax run, one barrier a tile (at the DiT self shape
+// about 3 blocks of 4 warps share an SM: too few to hide a load that is
+// waited on before any product). Rows are padded by 8
+// elements in shared memory so that ldmatrix hits distinct banks; at
+// d = 128 the ring and the Q tile take 87 KB, 2 blocks an SM.
 //
 // fp32 (parity runs): a query tile of 32 rows in shared memory, four
 // threads a row, each scoring 16 of the tile's 64 keys with fp32
@@ -39,12 +48,12 @@
 // shuffles, and each thread accumulates d/4 output columns in registers.
 //
 // Layouts as in JAX: q [B, T, Hq, d], k/v [B, S, Hkv, d], out [B, T, Hq, d],
-// key_valid [B, S] uint8. d is a template parameter (32, 64, 96, 128).
+// key_valid [B, S] uint8; rows 16-byte aligned (the wrapper realigns). d is
+// a template parameter (32, 64, 96, 128).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "common.cuh"
+
 #include <math.h>
-#include <stdint.h>
 
 namespace {
 
@@ -164,51 +173,22 @@ size_t smem_bytes() {
 // ---------------------------------------------------------------------------
 namespace tc {
 
-using bf16 = __nv_bfloat16;
 constexpr int kWarps = kThreads / 32;
 constexpr int kBQ = 16 * kWarps;  // query rows per block, 16 per warp
 constexpr int kPad = 8;           // row padding of the shared tiles, in elements
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const bf16* p) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4], const bf16* p) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void mma(float c[4], const uint32_t a[4], uint32_t b0,
-                                    uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (lo) = low 16 bits
-  return *reinterpret_cast<uint32_t*>(&v);
-}
+constexpr float kLog2e = 1.4426950408889634f;
 
 // 64 rows [r0, r0 + 64) of one head (row stride `stride` elements) ->
-// shared [64][D + kPad]; rows at or past `limit` are zero.
+// shared [64][D + kPad], asynchronously; rows at or past `limit` are zero.
 template <int D>
-__device__ void load_rows(bf16* dst, const bf16* __restrict__ src, size_t stride,
-                          int r0, int limit) {
+__device__ __forceinline__ void copy_rows(bf16* dst, const bf16* __restrict__ src,
+                                          size_t stride, int r0, int limit) {
   constexpr int CH = D / 8;  // 16-byte chunks a row
   for (int e = threadIdx.x; e < 64 * CH; e += kThreads) {
     const int r = e / CH, ch = e % CH;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < limit)
-      val = __ldg(reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * stride) + ch);
-    *reinterpret_cast<uint4*>(dst + r * (D + kPad) + ch * 8) = val;
+    const bool ok = r0 + r < limit;
+    cp_async16(dst + r * (D + kPad) + ch * 8,
+               ok ? src + (size_t)(r0 + r) * stride + ch * 8 : src, ok);
   }
 }
 
@@ -221,37 +201,49 @@ attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   constexpr int LD = D + kPad, KD = D / 16, ND = D / 8, NS = kBK / 8;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* Qs = reinterpret_cast<bf16*>(smem);  // [kBQ][LD]
-  bf16* Ks = Qs + kBQ * LD;                   // [kBK][LD]
-  bf16* Vs = Ks + kBK * LD;                   // [kBK][LD]
+  bf16* Ks = Qs + kBQ * LD;                   // [2 stages][kBK][LD]
+  bf16* Vs = Ks + 2 * kBK * LD;               // [2 stages][kBK][LD]
 
   const int q0 = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (Hq / Hkv);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, qd = lane & 3;
   const int shift = S - Tq;
+  const float sl2 = scale * kLog2e;  // scores in log2 units: exp2f below
+  const size_t kstride = (size_t)Hkv * D;
   const bf16* kb = k + ((size_t)b * S * Hkv + hk) * D;
   const bf16* vb = v + ((size_t)b * S * Hkv + hk) * D;
   const uint8_t* valid = key_valid + (size_t)b * S;
   // this thread's two query rows: g and g + 8 of the warp's 16
   const int qrow[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
 
-  load_rows<D>(Qs, q + ((size_t)b * Tq * Hq + h) * D, (size_t)Hq * D, q0, Tq);
-  __syncthreads();
-  uint32_t qf[KD][4];
-#pragma unroll
-  for (int kk = 0; kk < KD; ++kk)
-    ldmatrix_x4(qf[kk], Qs + (warp * 16 + (lane & 15)) * LD + kk * 16 + (lane >> 4) * 8);
+  copy_rows<D>(Qs, q + ((size_t)b * Tq * Hq + h) * D, (size_t)Hq * D, q0, Tq);
+  copy_rows<D>(Ks, kb, kstride, 0, S);
+  copy_rows<D>(Vs, vb, kstride, 0, S);
+  cp_async_commit();
 
+  uint32_t qf[KD][4];
   float o[ND][4];
 #pragma unroll
   for (int j = 0; j < ND; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
 
-  for (int k0 = 0; k0 < S; k0 += kBK) {
-    __syncthreads();  // the previous tile is consumed
-    load_rows<D>(Ks, kb, (size_t)Hkv * D, k0, S);
-    load_rows<D>(Vs, vb, (size_t)Hkv * D, k0, S);
-    __syncthreads();
+  for (int k0 = 0, i = 0; k0 < S; k0 += kBK, ++i) {
+    cp_async_wait<0>();
+    __syncthreads();  // tile i visible to all; tile i - 1 consumed by all
+    if (k0 + kBK < S) {  // tile i + 1 into the other stage, in flight meanwhile
+      const int nx = ((i + 1) & 1) * kBK * LD;
+      copy_rows<D>(Ks + nx, kb, kstride, k0 + kBK, S);
+      copy_rows<D>(Vs + nx, vb, kstride, k0 + kBK, S);
+      cp_async_commit();
+    }
+    if (i == 0) {
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk)
+        ldmatrix_x4(qf[kk], Qs + (warp * 16 + (lane & 15)) * LD + kk * 16 + (lane >> 4) * 8);
+    }
+    const bf16* Kt = Ks + (i & 1) * kBK * LD;
+    const bf16* Vt = Vs + (i & 1) * kBK * LD;
 
     // scores: s[nt] is the m16 x n8 tile of keys k0 + 8 nt ..
     float s[NS][4];
@@ -262,7 +254,7 @@ attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int np = 0; np < NS / 2; ++np) {
         uint32_t kf[4];
-        ldmatrix_x4(kf, Ks + (np * 16 + (lane >> 4) * 8 + (lane & 7)) * LD + kk * 16 +
+        ldmatrix_x4(kf, Kt + (np * 16 + (lane >> 4) * 8 + (lane & 7)) * LD + kk * 16 +
                             ((lane >> 3) & 1) * 8);
         mma(s[2 * np], qf[kk], kf[0], kf[1]);
         mma(s[2 * np + 1], qf[kk], kf[2], kf[3]);
@@ -279,7 +271,7 @@ attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         float val = -INFINITY;  // beyond the sequence: no weight at all
         if (key < S) {
           const bool ok = valid[key] != 0 && (!causal || key <= qrow[hr] + shift);
-          val = ok ? s[nt][e] * scale : kMasked;
+          val = ok ? s[nt][e] * sl2 : kMasked;
         }
         s[nt][e] = val;
         mx[hr] = fmaxf(mx[hr], val);
@@ -291,7 +283,7 @@ attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       mx[hr] = fmaxf(mx[hr], __shfl_xor_sync(0xffffffffu, mx[hr], 1));
       mx[hr] = fmaxf(mx[hr], __shfl_xor_sync(0xffffffffu, mx[hr], 2));
       const float m_new = fmaxf(m[hr], mx[hr]);
-      alpha[hr] = expf(m[hr] - m_new);  // 0 on the first tile
+      alpha[hr] = exp2f(m[hr] - m_new);  // 0 on the first tile
       m[hr] = m_new;
       l[hr] *= alpha[hr];
     }
@@ -300,7 +292,7 @@ attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int hr = e >> 1;
-        const float p = s[nt][e] == -INFINITY ? 0.f : expf(s[nt][e] - m[hr]);
+        const float p = exp2f(s[nt][e] - m[hr]);  // 0 beyond the sequence
         s[nt][e] = p;
         l[hr] += p;  // this thread's share; the quad is summed at the end
       }
@@ -322,7 +314,7 @@ attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int dp = 0; dp < KD; ++dp) {
         uint32_t vf[4];
-        ldmatrix_x4_trans(vf, Vs + (kp * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * LD +
+        ldmatrix_x4_trans(vf, Vt + (kp * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * LD +
                                   dp * 16 + (lane >> 4) * 8);
         mma(o[2 * dp], pa, vf[0], vf[1]);
         mma(o[2 * dp + 1], pa, vf[2], vf[3]);
@@ -347,7 +339,7 @@ attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 template <int D>
 size_t smem_bytes() {
-  return sizeof(bf16) * (kBQ + 2 * kBK) * (D + kPad);
+  return sizeof(bf16) * (kBQ + 4 * kBK) * (D + kPad);
 }
 
 }  // namespace tc
@@ -356,9 +348,8 @@ template <typename T, int D, typename K>
 int launch(K kern, size_t smem, int bq, const void* q, const void* k, const void* v,
            const uint8_t* valid, void* out, int B, int Tq, int S, int Hq, int Hkv,
            int causal, cudaStream_t stream) {
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
+  static const int attr = set_smem(kern, smem);  // once per instantiation
+  if (attr != 0) return attr;
   const dim3 grid((Tq + bq - 1) / bq, Hq, B);
   kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),

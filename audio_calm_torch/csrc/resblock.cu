@@ -54,7 +54,7 @@
 // (ops/vocoder_kernel.py `_mma_fragments`); biases one fp32 buffer, C per
 // conv in the same order.
 
-#include "common.cuh"
+#include "vocoder_common.cuh"
 
 namespace {
 

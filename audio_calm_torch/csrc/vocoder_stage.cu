@@ -61,7 +61,7 @@
 // each conv in mma B-fragment order (see ops/vocoder_kernel.py
 // `_mma_fragments`). Biases are one fp32 buffer in the same order.
 
-#include "common.cuh"
+#include "vocoder_common.cuh"
 
 namespace {
 

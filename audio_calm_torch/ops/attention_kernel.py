@@ -95,7 +95,7 @@ def _check_qkv(name, q, k, v) -> None:
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
     """Contiguous, and copied when a contiguous view starts off a 16-byte
-    boundary (the bf16 forward reads rows with 16-byte loads)."""
+    boundary (both kernels' bf16 paths copy rows in 16-byte pieces)."""
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone(
         memory_format=torch.contiguous_format)
@@ -208,8 +208,8 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     B, T, Hq, d = q.shape
     S, Hkv = k.shape[1], k.shape[2]
     valid = _valid_bytes(key_valid, B, S, q.device)
-    q, k, v, out = (t.contiguous() for t in (q, k, v, out))
-    dout = dout.to(q.dtype).contiguous()
+    q, k, v, out = (_aligned(t) for t in (q, k, v, out))
+    dout = _aligned(dout.to(q.dtype))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     # per query row: the softmax max, 1 / sum and delta = rowsum(dO * O)
     stats = torch.empty(B, Hq, T, 4, dtype=torch.float32, device=q.device)

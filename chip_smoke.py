@@ -8,7 +8,8 @@ Phases, in order; any failure exits non-zero and prints no result:
   2. build the CUDA kernels (one nvcc per source, in parallel);
   3. each kernel against its plain PyTorch version on the card, at the main
      paths' shapes, fp32 and bf16 (the attention backward at the Qwen2
-     training shape, and the flash_attention Function against autograd
+     training shape and the DiT self-attention shape, two launches giving
+     the same bits, and the flash_attention Function against autograd
      through the plain forward; the resblock kernel at C = 12, 24, 48, 96,
      128, 256 and k = 3, 7, 11 with a ragged last tile, the sequence
      edges held on their own; the stage kernel at HiFi-GAN V2's C = 16
@@ -49,7 +50,7 @@ Phases, in order; any failure exits non-zero and prints no result:
      call's device time;
   7. the served requests once more under torch.profiler (device activity
      only): the device's busy share and the kernels that take most time;
-     then one more training step, the same way.
+     then one more training step, the same way, with K5's share of it.
 Then the card, one `kernels` JSON line, and as the last line
 {"ok": true, "device": {...}}.
 """
@@ -425,9 +426,22 @@ def qwen_train_inputs(B, dt, card, seed=0):
     return q, k, v, dout, valid
 
 
+def dit_train_inputs(B, dt, card, seed=0):
+    """DiT self-attention operands of a dropout-off training slice: q/k/v/
+    dout [B, 384, 16, 64], the audio-frame key mask (48-384 valid frames)."""
+    g = torch.Generator(card).manual_seed(seed)
+    q, k, v, dout = (torch.randn(B, 384, 16, 64, generator=g,
+                                 device=card).to(dt) for _ in range(4))
+    frames = torch.randint(48, 385, (B,), generator=g, device=card)
+    valid = torch.arange(384, device=card)[None, :] < frames[:, None]
+    return q, k, v, dout, valid
+
+
 def phase_attention_bwd(card):
-    """K5 vs its plain version at the training shape, fp32 and bf16, and the
-    flash_attention Function vs autograd through the plain forward."""
+    """K5 vs its plain version at the Qwen2 training shape and the DiT
+    self-attention shape, fp32 and bf16; two bf16 launches give the same
+    bits; the flash_attention Function vs autograd through the plain
+    forward."""
     from audio_calm_torch.ops.attention_kernel import (attention_bwd,
                                                        attention_bwd_plain,
                                                        attention_fwd,
@@ -435,25 +449,31 @@ def phase_attention_bwd(card):
                                                        flash_attention)
 
     worst = 0.0
-    for dt in (torch.float32, torch.bfloat16):
-        q, k, v, dout, valid = qwen_train_inputs(16, dt, card)
-        with torch.no_grad():
-            out = attention_fwd(q, k, v, valid, True)
-            got = attention_bwd(q, k, v, out, dout, valid, True)
-            ref = attention_bwd_plain(q, k, v, out, dout, valid, True)
-        for a, b, name in zip(got, ref, ("dq", "dk", "dv")):
-            a, b = a.float(), b.float()
-            err = (a - b).abs().max().item()
-            # fp32: summation order over up to 6 heads x 97 keys; bf16:
-            # one rounding step of the largest gradient
-            bound = (2e-5 if dt == torch.float32 else 2 ** -7) * \
-                b.abs().max().item()
-            log(f"  attention_bwd Qwen2 [16, 97, 12/2, 128] {name} "
-                f"{str(dt)[6:]}: max_abs_err {err:.3e} bound {bound:.3e}")
-            check(err <= bound and a.shape == b.shape,
-                  f"attention_bwd {name} {dt}")
-            if dt == torch.bfloat16:
-                worst = max(worst, err)
+    cases = [("Qwen2 [16, 97, 12/2, 128]", qwen_train_inputs, 16, True),
+             ("DiT self [4, 384, 16, 64]", dit_train_inputs, 4, False)]
+    for label, inputs, B, causal in cases:
+        for dt in (torch.float32, torch.bfloat16):
+            q, k, v, dout, valid = inputs(B, dt, card)
+            with torch.no_grad():
+                out = attention_fwd(q, k, v, valid, causal)
+                got = attention_bwd(q, k, v, out, dout, valid, causal)
+                ref = attention_bwd_plain(q, k, v, out, dout, valid, causal)
+                again = attention_bwd(q, k, v, out, dout, valid, causal)
+            check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                  f"attention_bwd {label} {dt}: two launches, same bits")
+            for a, b, name in zip(got, ref, ("dq", "dk", "dv")):
+                a, b = a.float(), b.float()
+                err = (a - b).abs().max().item()
+                # fp32: summation order over up to 6 heads x S keys; bf16:
+                # one rounding step of the largest gradient
+                bound = (2e-5 if dt == torch.float32 else 2 ** -7) * \
+                    b.abs().max().item()
+                log(f"  attention_bwd {label} {name} {str(dt)[6:]}: "
+                    f"max_abs_err {err:.3e} bound {bound:.3e}")
+                check(err <= bound and a.shape == b.shape,
+                      f"attention_bwd {label} {name} {dt}")
+                if dt == torch.bfloat16:
+                    worst = max(worst, err)
     q, k, v, dout, valid = qwen_train_inputs(4, torch.float32, card, seed=1)
     grads = []
     for fn in (flash_attention, attention_fwd_plain):
@@ -726,8 +746,16 @@ def phase_train_profile(probe, step_s):
         log(f"    {1e3 * s_:9.3f} ms {n:6d} calls  {name[:90]}")
     launches = sum(r[2] for r in rows)
     log(f"  device kernels and copies in the step: {launches}")
+    # K5's two passes (csrc/attention_bwd.cu: dq_kernel, dkv_kernel)
+    k5 = [r for r in rows if re.search(r"\bd(q|kv)_kernel<", r[0])]
+    k5_s = sum(r[1] for r in k5)
+    check(sum(r[2] for r in k5) > 0, "the profiler saw K5 in the step")
+    log(f"  K5 in the step: {1e3 * k5_s:.3f} ms device time in "
+        f"{sum(r[2] for r in k5)} kernel calls, {100 * k5_s / busy:.1f}% of "
+        f"the step's device time")
     return {"profiled_step_wall_s": p_wall, "step_device_busy_s": busy,
-            "step_device_ops": launches, "parts": parts}
+            "step_device_ops": launches, "k5_device_s": k5_s,
+            "k5_share_of_device": k5_s / busy, "parts": parts}
 
 
 def phase_main_path(card):
@@ -1153,53 +1181,72 @@ def phase_kernel_times(calm, voc, counts, errs, card):
 
 
 def kernel_time_attention_bwd(train_counts, train_steps, errs, card):
-    """K5 at the training path's shape (one microbatch slice: B=16, bf16,
-    causal, the [text | pads | SOA] key mask): device ms per launch beside
-    the bound, the plain version and autograd's backward of SDPA."""
+    """K5 at the training path's shape (one Qwen2 layer of one microbatch
+    slice: B=16, bf16, causal, the [text | pads | SOA] key mask) and at the
+    DiT self-attention shape of a dropout-off training slice (B=16, 384
+    frames, the audio-frame key mask): device ms per launch beside the
+    bound, the plain version and autograd's backward of SDPA. The row's
+    top-level numbers are the Qwen2 shape's, the path's K5 launches."""
     import torch.nn.functional as F
 
     from audio_calm_torch.ops.attention_kernel import (attention_bwd,
                                                        attention_bwd_plain,
                                                        attention_fwd)
 
-    B = 16
-    q, k, v, dout, valid = qwen_train_inputs(B, torch.bfloat16, card, seed=2)
-    _, T, Hq, d = q.shape
-    S, Hkv = k.shape[1], k.shape[2]
-    with torch.no_grad():
-        out = attention_fwd(q, k, v, valid, True)
-        ms = device_ms(lambda: attention_bwd(q, k, v, out, dout, valid, True),
-                       50)
-        plain = device_ms(lambda: attention_bwd_plain(q, k, v, out, dout,
-                                                      valid, True), 20)
-    mask = (valid[:, None, None, :] & torch.ones(
-        T, S, dtype=torch.bool, device=card).tril(S - T))
-    leaves = [t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v)]
-    lib_out = F.scaled_dot_product_attention(*leaves, attn_mask=mask,
-                                             enable_gqa=True)
-    g = dout.transpose(1, 2)
-    lib = device_ms(lambda: torch.autograd.grad(lib_out, leaves, g,
-                                                retain_graph=True), 50)
-    # JAX's cost estimate of the backward: 5 products of 2*T*S*d per head;
-    # bytes: q, k, v, o, dO read once, dq, dk, dv written once, the mask
-    flops = 5 * 2.0 * B * Hq * T * S * d
-    nbytes = (4 * q.numel() + 4 * k.numel()) * 2 + valid.numel()
-    b, by = bound_ms(flops, nbytes, H100_BF16_FLOPS)
-    row = {
+    rows = []
+    for label, inputs, causal in (
+            ("Qwen2 training slice", qwen_train_inputs, True),
+            ("DiT self training slice", dit_train_inputs, False)):
+        q, k, v, dout, valid = inputs(16, torch.bfloat16, card, seed=2)
+        B, T, Hq, d = q.shape
+        S, Hkv = k.shape[1], k.shape[2]
+        with torch.no_grad():
+            out = attention_fwd(q, k, v, valid, causal)
+            bwd = lambda: attention_bwd(q, k, v, out, dout, valid, causal)
+            bwd()
+            _, prof = device_profile(bwd, 50)
+            passes = {f"pass_{name}_ms": 1e3 / 50 * sum(
+                r[1] for r in prof if re.search(rf"\b{kern}_kernel<", r[0]))
+                for name, kern in (("a", "dq"), ("b", "dkv"))}
+            ms = 1e3 / 50 * sum(r[1] for r in prof)
+            plain = device_ms(lambda: attention_bwd_plain(
+                q, k, v, out, dout, valid, causal), 10)
+        mask = valid[:, None, None, :]
+        if causal:
+            mask = mask & torch.ones(T, S, dtype=torch.bool,
+                                     device=card).tril(S - T)
+        leaves = [t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v)]
+        lib_out = F.scaled_dot_product_attention(
+            *leaves, attn_mask=mask, enable_gqa=Hq != Hkv)
+        g = dout.transpose(1, 2)
+        lib = device_ms(lambda: torch.autograd.grad(lib_out, leaves, g,
+                                                    retain_graph=True), 50)
+        # five products of 2*d per attended (query, key) pair and head;
+        # bytes: q, k, v, o, dO read once, dq, dk, dv written once, the mask
+        flops = 2.5 * attn_cost(q, k, valid, causal, 2)[0]
+        nbytes = (4 * q.numel() + 4 * k.numel()) * 2 + valid.numel()
+        b, by = bound_ms(flops, nbytes, H100_BF16_FLOPS)
+        rows.append({"shape": label, "q": [B, T, Hq, d], "kv": [B, S, Hkv, d],
+                     "causal": causal, "ms": ms, **passes, "plain_ms": plain,
+                     "library_ms": lib, "bound_ms": b, "bound_by": by,
+                     "flop": flops, "bytes": nbytes})
+        log("  attention_bwd " + json.dumps(rows[-1]))
+    top = rows[0]
+    return {
         "name": "attention_bwd", "route": "cuda",
         "source": "audio_calm_torch/csrc/attention_bwd.cu",
         "replaces": "audio_calm_tpu/ops/pallas_attention.py:306",
         "launches": train_counts["attention_bwd"],
         "launches_per_step": train_counts["attention_bwd"] // train_steps,
-        "max_abs_err": errs["attention_bwd"], "ms": ms, "plain_ms": plain,
-        "bound_ms": b, "bound_by": by, "library_ms": lib,
+        "max_abs_err": errs["attention_bwd"],
+        **{key: top[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                     "library_ms")},
         "per_launch": "one Qwen2 layer's backward for one microbatch slice: "
-                      f"q [{B}, {T}, {Hq}, {d}], k/v [{B}, {S}, {Hkv}, {d}], "
-                      "bf16, causal, ragged key mask",
-        "flop": flops, "bytes": nbytes,
+                      "q [16, 97, 12, 128], k/v [16, 97, 2, 128], bf16, "
+                      "causal, ragged key mask; the DiT self shape beside",
+        "shapes": rows,
     }
-    log("  attention_bwd " + json.dumps(row))
-    return row
 
 
 def main() -> int:

@@ -92,3 +92,67 @@ def test_grads_fully_masked_row_and_qwen_layout(causal):
     valid[0] = False
     valid[1, 8:12] = False
     _check(q, k, v, w, valid, causal)
+
+
+def _bf16(x):
+    return x.to(torch.bfloat16).float()
+
+
+def _bwd_bf16_operands(q, k, v, out, dout, valid, causal):
+    """attention_bwd_plain with P and dS rounded to bf16 as the operands of
+    dV = P^T dO, dQ = dS K and dK = dS^T Q, all else fp32: the numeric
+    design of K5's bf16 path on the tensor cores."""
+    B, T, Hq, d = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    group = Hq // Hkv
+    scale = 1.0 / np.sqrt(d)
+    kf = k.repeat_interleave(group, dim=2)
+    vf = v.repeat_interleave(group, dim=2)
+    scores = torch.einsum("bthd,bshd->bhts", q, kf) * scale
+    mask = valid[:, None, None, :].expand(B, 1, T, S)
+    if causal:
+        mask = mask & torch.ones(T, S, dtype=torch.bool).tril(S - T)
+    p = torch.softmax(scores.masked_fill(~mask, -1e30), dim=-1)
+    dv = torch.einsum("bhts,bthd->bshd", _bf16(p), dout)
+    dp = torch.einsum("bthd,bshd->bhts", dout, vf)
+    delta = (dout * out).sum(dim=-1).transpose(1, 2)[..., None]
+    ds = _bf16(p * (dp - delta))
+    dq = torch.einsum("bhts,bshd->bthd", ds, kf) * scale
+    dk = torch.einsum("bhts,bthd->bshd", ds, q) * scale
+    return (dq, dk.reshape(B, S, Hkv, group, d).sum(3),
+            dv.reshape(B, S, Hkv, group, d).sum(3))
+
+
+@pytest.mark.parametrize("shape", [
+    "qwen2_training",   # [B, 97, 12/2, 128], causal, [text | pads | SOA]
+    "dit_self",         # [B, 384, H, 64], S 384, key pads
+    "dit_cross",        # [B, 384, H, 64], S 25
+])
+def test_bf16_operand_rounding_meets_the_card_bound(shape):
+    """Rounding P and dS to bf16 only as product operands keeps every
+    gradient within 2^-7 of its largest magnitude of the fp32 plain
+    backward (the card tests' bf16 bound), on bf16-representable inputs:
+    the bound is reachable before the kernel runs. Shapes as on the
+    training paths, at a reduced batch and head count."""
+    B, T, S, Hq, Hkv, d, causal = {
+        "qwen2_training": (2, 97, 97, 12, 2, 128, True),
+        "dit_self": (2, 384, 384, 2, 2, 64, False),
+        "dit_cross": (2, 384, 25, 2, 2, 64, False),
+    }[shape]
+    rng = np.random.default_rng(11)
+    q, k, v, dout = (_bf16(torch.from_numpy(
+        rng.standard_normal(s).astype(np.float32)))
+        for s in ((B, T, Hq, d), (B, S, Hkv, d), (B, S, Hkv, d),
+                  (B, T, Hq, d)))
+    valid = torch.ones(B, S, dtype=torch.bool)
+    if causal:
+        valid[1, 40:S - 1] = False  # a 40-token text, pads, SOA
+    else:
+        valid[1, S // 2:] = False
+    out = _bf16(attention_fwd_plain(q, k, v, valid, causal))
+    ref = attention_bwd_plain(q, k, v, out, dout, valid, causal)
+    got = _bwd_bf16_operands(q, k, v, out, dout, valid, causal)
+    for a, b, name in zip(got, ref, ("dq", "dk", "dv")):
+        err = (a - b).abs().max().item()
+        bound = 2 ** -7 * b.abs().max().item()
+        assert err <= bound, (name, err, bound)

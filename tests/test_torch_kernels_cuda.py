@@ -306,6 +306,8 @@ def _bwd_inputs(card, B, T, S, Hq, Hkv, d, dtype, seed=0):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("B,T,S,Hq,Hkv,d,causal", [
     (16, 97, 97, 12, 2, 128, True),     # Qwen2 training slice
+    (2, 384, 384, 16, 16, 64, False),   # DiT self-attention, dropout off
+    (2, 384, 25, 16, 16, 64, False),    # DiT cross-attention
     (2, 70, 130, 8, 4, 96, True),       # S > T, other head widths
     (2, 5, 9, 4, 1, 32, False),
     (3, 33, 65, 4, 4, 64, False),       # ragged tiles both ways
@@ -339,6 +341,48 @@ def test_attention_bwd_fully_masked_row(card, dtype):
         a, b = a.float(), b.float()
         scale = 2e-5 if dtype == torch.float32 else 2 ** -7
         assert (a - b).abs().max().item() <= scale * b.abs().max().item()
+
+
+@pytest.mark.parametrize("B,T,S,Hq,Hkv,d,causal", [
+    (16, 97, 97, 12, 2, 128, True),     # Qwen2 training slice
+    (2, 384, 384, 16, 16, 64, False),   # DiT self-attention
+])
+def test_attention_bwd_is_deterministic(card, B, T, S, Hq, Hkv, d, causal):
+    """No atomics: two launches on the same inputs give the same bits (the
+    query heads of a kv head sum into dK/dV in a fixed order)."""
+    q, k, v, dout, valid = _bwd_inputs(card, B, T, S, Hq, Hkv, d,
+                                       torch.bfloat16, 4)
+    out = attention_fwd(q, k, v, valid, causal)
+    first = attention_bwd(q, k, v, out, dout, valid, causal)
+    second = attention_bwd(q, k, v, out, dout, valid, causal)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def _off_boundary(t):
+    """The same values in a contiguous view that starts one element past a
+    16-byte boundary."""
+    buf = torch.empty(t.numel() + 8, dtype=t.dtype, device=t.device)
+    view = buf[1:1 + t.numel()].view(t.shape)
+    view.copy_(t)
+    assert view.data_ptr() % 16 != 0 and view.is_contiguous()
+    return view
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_attention_misaligned_views_match_aligned(card, dtype):
+    """Views that start off a 16-byte boundary (the kernels copy rows in
+    16-byte pieces): the wrappers realign them, and forward and backward
+    give exactly the aligned inputs' results."""
+    dtype = getattr(torch, dtype)
+    q, k, v, dout, valid = _bwd_inputs(card, 2, 97, 97, 12, 2, 128, dtype, 5)
+    out = attention_fwd(q, k, v, valid, True)
+    grads = attention_bwd(q, k, v, out, dout, valid, True)
+    mq, mk, mv, mdout, mout = (_off_boundary(t) for t in (q, k, v, dout, out))
+    assert torch.equal(attention_fwd(mq, mk, mv, valid, True), out)
+    for a, b in zip(attention_bwd(mq, mk, mv, mout, mdout, valid, True),
+                    grads):
+        assert torch.equal(a, b)
 
 
 def test_flash_attention_function_matches_autograd(card):
