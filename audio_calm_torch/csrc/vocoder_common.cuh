@@ -1,7 +1,7 @@
-// Tiling shared by the HiFi-GAN kernels (vocoder_stage.cu, resblock.cu):
-// the block size, lrelu, and the per-warp tap loop of bf16 tensor-core
-// products over weights packed in mma B-fragment order (see
-// ops/vocoder_kernel.py `_mma_fragments`).
+// Tiling of the HiFi-GAN kernels: the block size, lrelu and the shared
+// buffers' row padding (vocoder_stage.cu and resblock.cu), and resblock.cu's
+// per-warp tap loop of bf16 tensor-core products over weights packed in mma
+// B-fragment order (see ops/vocoder_kernel.py `_mma_fragments`).
 #pragma once
 
 #include "common.cuh"

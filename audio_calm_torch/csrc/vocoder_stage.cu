@@ -8,58 +8,91 @@
 //   out = mean over the resblocks of cur
 // with every conv zero-padded exactly at the sequence edges [0, T_out).
 //
-// What bounds it on this card: operations. The resblocks do 126*C^2
-// multiply-adds per output sample; at the V1 384-frame grid the three stages
-// are about 7.2e11 FLOP against about 1e8 bytes of stage input and output,
-// far above the H100's ~295 FLOP/byte ridge. The chain's intermediates are
-// what must stay out of device memory: they are 126 convolutions' worth of
-// [T, C] tensors.
+// Its bound is operations: the resblocks do 126*C^2 multiply-adds per output
+// sample. At the V1 384-frame grid the three stages are about 7.2e11 FLOP
+// against about 1e8 bytes of stage input and output, far above the H100's
+// ~295 FLOP/byte ridge. The chain's intermediates must stay out of device
+// memory: they are 126 convolutions' worth of [T, C] tensors.
 //
-// Design. One block per (time tile, batch row) with 256 threads. The tile's
-// residual stream `cur` (fp32) and the conv operands (compute dtype) live in
-// shared memory over the tile plus a halo each side: the stacked receptive
-// field of the widest resblock, sum over d of (k-1)/2*(d+1) = 60 samples for
-// k=11, dilations 1/3/5. Each conv shrinks the window of rows that feed the
-// tile, and only those rows are computed. `cur` is zero outside [0, T_out)
-// and each conv's output is zeroed there, which reproduces the reference's
-// per-conv zero padding. Operands are rounded to the compute dtype and the
-// products accumulate in fp32, as the TPU kernel feeds bf16 to the MXU. The
-// TPU kernel's lane packing and block-Toeplitz weights are a VMEM/MXU device
-// and are not carried over. Two paths, by compute dtype:
+// Layout. One block per (time tile, batch row). The tile's residual stream
+// `cur` (fp32) and one bf16 operand buffer `ab1` live in shared memory over
+// the tile plus a halo on each side. The halo is the stacked receptive field
+// of the widest resblock, sum over d of (k-1)/2*(d+1) = 60 samples for k=11,
+// dilations 1/3/5. Each conv shrinks the window of rows that feed the tile,
+// and only those rows are computed. `cur` is zero outside [0, T_out) and each
+// conv's output is zeroed there, which reproduces the reference's per-conv
+// zero padding. Operands are rounded to the compute dtype and the products
+// accumulate in fp32, as the TPU kernel feeds bf16 to the MXU. The TPU
+// kernel's lane packing and block-Toeplitz weights are a VMEM/MXU device and
+// are not carried over. There are two paths, by compute dtype.
 //
-// bf16 operands (the serving path): tensor cores, mma.sync m16n8k16. A conv
-// is a sum over taps j of [rows x C] @ W_j [C x C]; the A tile of tap j is
-// the operand buffer shifted by (j - c) * d rows, read with ldmatrix (row
-// addresses once a tap, the k16 slices unrolled). Eight warps split the
-// output as C/32 channel groups x 8/(C/32) row groups; a warp holds 4 x 4
-// accumulator tiles (64 rows x 32 channels). The weights do not fit in
-// shared memory next to the window (one k=11 conv at C=128 is 352 KB), so
-// the wrapper packs them into the mma B-fragment order and each warp reads
-// its fragments from L2 with 16-byte loads, one k16 slice ahead. Two bf16
-// operand buffers ping-pong: conv1 reads lrelu(cur) from ab0 and writes
-// lrelu(conv1) to ab1; conv2 reads ab1, adds into cur and refreshes ab0.
-// The upsample is a polyphase product (per output phase, k_up/r taps of
-// C_in = 2C channels) on the tensor cores too, recomputed from the stage
-// input per resblock (about 3% of the work) rather than held in a third
-// buffer; its input tile is staged in ab1. Shared memory is Lp * (C+8) * 8 bytes
-// (cur fp32 + two bf16 buffers, rows padded by 8 elements so that ldmatrix
-// and the epilogue stores hit distinct banks); Lp is the largest multiple
-// of 16*r that fits the 227 KB a block may use: 208 rows at C=128 (tile 88),
-// 384 at C=64 (tile 264), 704 at C=32 (tile 584). The resblock sum lives in
-// device memory (`acc`, fp32: the output itself when it is fp32), read and
-// written once per resblock per tile.
+// bf16 operands (the serving path) run on the tensor cores, mma.sync
+// m16n8k16 (namespace tc). A conv is a sum over taps j of [rows x C] @ W_j
+// [C x C]. The A tile of tap j is `ab1` shifted by (j - c) * d rows, read
+// with ldmatrix.
+//  - Warps. At C = 128 and C = 64, eight warps each hold 128 fp32
+//    accumulators, 4 m16 tiles x 64 channels (C = 128: 2 channel groups x 4
+//    row groups). At C = 32, twelve warps each hold 96, 6 m16 tiles x 32
+//    channels: three warps to a scheduler hide more latency, and 96
+//    accumulators fit the 168 registers a thread of a 384-thread block may
+//    hold. Together the warps cover every output row of a conv in one pass,
+//    so each staged weight slice is applied to all of the block's rows. The
+//    row groups split a conv's m16 tiles evenly, dealt so that each
+//    scheduler mixes heavier and lighter groups (`warp_tiles`).
+//  - Weights, through shared memory once a block and conv. The wrapper packs
+//    every k16 slice of the launch, a [16 x C] bf16 image that ldmatrix.trans
+//    reads without bank conflicts (`slice_chunk`), into one stream in the
+//    order the warps consume them. A ring of n stages holds a pair of slices
+//    each (64*C bytes, one cp.async.bulk with mbarrier completion). The last
+//    warp to release a stage refills it (`Ring`). Each slice crosses L2 once
+//    a block: the L2 weight traffic of the three V1 stages at B=2 on the
+//    384-frame grid is 5.97 / 1.23 / 0.30 GB a launch. The earlier design
+//    streamed each warp's B fragments from L2 for every 64-row chunk, about
+//    28 / 11.2 / 5.2 GB.
+//  - One operand buffer. conv1's operand bf16(lrelu(cur)) is staged into
+//    `ab1` before conv1 (`stage_lrelu`). Because the warps hold the whole
+//    conv in registers, conv1 overwrites `ab1` with its output
+//    mask(lrelu(conv1)) once every warp has read it. conv2 reads `ab1` and
+//    adds into `cur`. The upsample is a polyphase product (per output phase,
+//    k_up/r taps of C_in = 2C channels). It is recomputed from the stage
+//    input per resblock (about 3% of the work) and its input tile is staged
+//    in `ab1`.
+//  - Window budget (`stage_plan` in ops/vocoder_kernel.py computes it and
+//    launch_tc_c checks it). A row costs (C + 8) * 6 bytes: `cur` and `ab1`
+//    are padded by 8 elements so that ldmatrix and the epilogues hit distinct
+//    banks. Lp is the most rows, a multiple of 16*r, that fit 227 KB beside
+//    a ring of 2 stages, capped at one pass of the accumulators. The ring
+//    takes the rest. At the V1 widths this gives:
+//      C=128: window 256, tile 136, 2 stages (16 KB);
+//      C=64:  window 512, tile 392, 2 stages (8 KB);
+//      C=32:  window 928, tile 808, 4 stages (8 KB).
+//    The products executed are 1.46 / 1.17 / 1.08 times the useful ones,
+//    against 1.71 / 1.24 / 1.11 with the earlier three buffers.
+//  - The resblock sum lives in device memory (`acc`, fp32; the output itself
+//    when it is fp32). It is read and written once per resblock per tile.
+//  - What bounds it now. The mma.sync issue of eight or twelve warps, two
+//    or three to a scheduler, at about a quarter of the dense bf16 peak
+//    (PERF.md section 6 has the rates), and the halo's
+//    recompute. L2 no longer does: in probe builds of an earlier version
+//    of this ring, clusters of 2 and 4 blocks that multicast each slice to
+//    all of them (one L2 read for the cluster) did not make it faster, so
+//    no cluster is kept.
+//  - Why not wgmma. Its 64-row granularity on a window whose conv extents
+//    shrink by 10-60 rows per conv would execute about 1.88x the useful
+//    products at C = 128, against 1.46x with m16 tiles (both reckoned from
+//    the tile walk).
 //
-// fp32 operands (parity runs): direct per-tap multiply-adds on CUDA cores,
-// a tile of 8192 samples*channels (64 rows at C=128) so that each thread
-// keeps its 32 accumulators of the resblock mean in registers; shared memory
-// (tile + 2*halo) * (C+1) * 8 bytes, at most 190 KB.
+// fp32 operands (the parity runs) use direct per-tap multiply-adds on the
+// CUDA cores (namespace simt). The tile is 8192 samples*channels (64 rows at
+// C=128), so that each thread keeps its 32 accumulators of the resblock mean
+// in registers. Shared memory is (tile + 2*halo) * (C+1) * 8 bytes, at most
+// 190 KB.
 //
-// Layouts: x [B, T_in, C_in] and out [B, T_out, C] channels-last; the
-// weights are one packed buffer in the compute dtype, per conv k*C_in*C
-// elements: the upsample first (if any), then per resblock and dilation
-// conv1, conv2. fp32: each conv [k][C_in][C] (the JAX kernel layout); bf16:
-// each conv in mma B-fragment order (see ops/vocoder_kernel.py
-// `_mma_fragments`). Biases are one fp32 buffer in the same order.
+// Layouts: x [B, T_in, C_in] and out [B, T_out, C], channels-last. fp32
+// weights are one buffer, per conv [k][C_in][C] (the JAX kernel layout): the
+// upsample first (if any), then per resblock and dilation conv1, conv2. bf16
+// weights are the slice stream above (ops/vocoder_kernel.py
+// `weight_stream`). Biases are one fp32 buffer in the fp32 weights' order.
 
 #include "vocoder_common.cuh"
 
@@ -70,7 +103,7 @@ constexpr int kMaxDil = 4;
 
 struct StageArgs {
   int B, T_in, T_out, C_in, C, r, k_up, p_up;
-  int tile, halo, ldc, ldh, Lp;
+  int tile, halo, ldc, ldh, Lp, n_stages, n_slices;
   float slope;
   int n_blocks;
   int ksize[kMaxBlocks];
@@ -260,131 +293,361 @@ stage_kernel(const IO* __restrict__ x, const float* __restrict__ w,
 // ---------------------------------------------------------------------------
 namespace tc {
 
-// This warp's channel group and its share [lo, hi) of m-tiles [mt_lo, mt_hi).
+constexpr int kMaxStages = 16;    // weight ring stages at most
+constexpr int kBarBytes = 256;    // full[kMaxStages] mbarriers + release counters
+
+// The warp layout of width C: kWarps warps in NG channel groups of NW
+// output channels x MW row groups; a warp holds MT x NT accumulator tiles
+// (m16 x n8) for all of its rows of a conv, so one pass covers kRows rows.
+// C >= 64: 8 warps of 128 accumulators (4 m-tiles x 64 channels). C = 32:
+// 12 warps of 96 (6 m-tiles x 32 channels), three to a scheduler, within
+// the 168 registers a thread may hold in a block of 384 (at C >= 64 the
+// 12-warp layout spills and runs slower).
 template <int C>
-__device__ __forceinline__ void warp_share(int mt_lo, int mt_hi, int& ng, int& lo,
-                                           int& hi) {
-  constexpr int NG = C / 32, MW = kWarps / NG;
-  const int warp = threadIdx.x >> 5;
-  ng = warp % NG;
-  const int per = (mt_hi - mt_lo + MW - 1) / MW;
-  lo = mt_lo + (warp / NG) * per;
-  hi = min(lo + per, mt_hi);
+struct Layout {
+  static constexpr int kWarps = C == 32 ? 12 : 8;
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int NW = C >= 64 ? 64 : 32;
+  static constexpr int NG = C / NW;
+  static constexpr int MW = kWarps / NG;
+  static constexpr int NT = NW / 8;
+  static constexpr int MT = (C == 32 ? 96 : 128) / (4 * NT);
+  static constexpr int kRows = MT * MW * 16;
+};
+
+// Shared-memory image of one k16 weight slice, [16][C] bf16: row kr holds
+// input channel 16*s + kr; its 16-byte chunk `ch` (output channels 8*ch ..
+// 8*ch + 7) sits at chunk position slice_chunk(kr, ch), so that the eight
+// rows one ldmatrix.trans matrix reads fall in eight distinct bank groups.
+// ops/vocoder_kernel.py `_smem_slices` packs this image.
+template <int C>
+__device__ __forceinline__ int slice_chunk(int kr, int ch) {
+  return C >= 64 ? ch ^ (kr & 7) : ch ^ ((kr >> 1) & 3);
 }
 
-// One dilated conv whose output rows cover [rlo, rhi) (rounded out to m16
-// tiles; rows outside the exact window are never used).
-//   kFirst: src = ab0 (lrelu(cur)), dst = ab1 <- mask(lrelu(conv))
-//   else:   src = ab1, cur += conv inside [0, T_out), dst = ab0 <- lrelu(cur)
-template <int C, bool kFirst>
-__device__ void conv(float* cur, const bf16* src, bf16* dst,
-                     const bf16* __restrict__ w, const float* __restrict__ bias,
-                     const StageArgs& a, int k, int d, int rlo, int rhi, int s0) {
-  constexpr int LD = C + kPad, LDC = C + kPad, NG = C / 32;
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+// `bytes` contiguous bytes global -> shared by the copy engine; completion
+// is counted on the mbarrier `bar`.
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// Arrive on a counter in shared memory with acquire-release order; the
+// count before the arrival.
+__device__ __forceinline__ uint32_t count_arrival(uint32_t addr) {
+  uint32_t old;
+  asm volatile("atom.acq_rel.cta.shared::cta.add.u32 %0, [%1], 1;\n"
+               : "=r"(old)
+               : "r"(addr)
+               : "memory");
+  return old;
+}
+
+// The weight ring. The wrapper lays every k16 weight slice of the launch
+// out in the order the warps consume them (per resblock: the upsample's
+// slices, per output phase its taps' kernel rows, then per dilation conv1's
+// and conv2's, per tap and k16), 32*C bytes a slice. The warps take the
+// slices in pairs, and a ring stage holds one pair: stage j % n holds pair
+// j, the 64*C bytes at w + j*32*C, in one bulk copy; full[s] completes on
+// the issuing thread's expect_tx and the copy's bytes. Thread 0 fills the
+// ring before the first pair. After that no thread waits to refill: each
+// warp counts its release of a stage on the stage's counter, and the warp
+// whose release is the last of the block's (the last reader) issues pair
+// j + n into it.
+// It reads the count only after the next pair's fragments have loaded
+// (`flush`), so the atomic's latency overlaps them; the next pair is never
+// the one refilled (n >= 2).
+template <int C>
+struct Ring {
+  static constexpr uint32_t kBytes = 64 * C;  // one pair of k16 slices
+  uint32_t bars, addr;                        // mbarriers, stage 0 (shared)
+  const bf16* data;                           // stage 0 (generic)
+  const char* src;                            // the weight stream
+  int n, total;                               // stages; pairs in the stream
+  int j, stage;                               // the warps' next pair and its stage
+  uint32_t phase;
+  int pend_j = -1, pend_s = 0;                // lane 0: the pair released last
+  uint32_t pend_count = 0;                    // lane 0: its count before the arrival
+
+  __device__ __forceinline__ uint32_t full(int s) const { return bars + 8 * s; }
+  __device__ __forceinline__ uint32_t count(int s) const {
+    return bars + 8 * kMaxStages + 4 * s;
+  }
+  __device__ __forceinline__ void issue(int pair, int s) const {
+    mbar_expect_tx(full(s), kBytes);
+    bulk_copy(addr + s * kBytes, src + (size_t)pair * kBytes, kBytes, full(s));
+  }
+  // the slices of pair j, once they have landed
+  __device__ __forceinline__ void wait2(const bf16*& w0, const bf16*& w1) const {
+    mbar_wait(full(stage), phase);
+    w0 = data + (size_t)stage * 32 * C;
+    w1 = w0 + 16 * C;
+  }
+  // the refill of the pair released last, if this warp read it last
+  __device__ __forceinline__ void flush() {
+    if ((threadIdx.x & 31) == 0 && pend_j >= 0) {
+      if ((pend_count + 1) % Layout<C>::kWarps == 0 && pend_j + n < total) {
+        // every warp has read the pair: order those reads before the copy
+        // engine's writes
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        issue(pend_j + n, pend_s);
+      }
+      pend_j = -1;
+    }
+  }
+  __device__ __forceinline__ void release2() {
+    __syncwarp();
+    if ((threadIdx.x & 31) == 0) {
+      pend_count = count_arrival(count(stage));
+      pend_j = j;
+      pend_s = stage;
+    }
+    ++j;
+    if (++stage == n) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+};
+
+template <int C>
+using Accs = float[Layout<C>::MT][Layout<C>::NT][4];
+
+template <int C>
+__device__ __forceinline__ void init_bias(Accs<C>& acc, const float* __restrict__ bias,
+                                          int n0) {
+  using L = Layout<C>;
   const int lane = threadIdx.x & 31;
-  int ng, my_lo, my_hi;
-  warp_share<C>(rlo / 16, (rhi + 15) / 16, ng, my_lo, my_hi);
-  const int c = (k - 1) / 2;
-  const uint4* wq = reinterpret_cast<const uint4*>(w) + ng * 64 + lane;
-  for (int m0 = my_lo; m0 < my_hi; m0 += kMT) {
-    const int nm = min(kMT, my_hi - m0);
-    Acc acc;
-    init_acc(acc, bias, ng * 32);
-    const int row0 = m0 * 16 + (lane & 15);
-    mma_taps<C / 16>(acc, src, LD, wq, NG * 64, k, 1, nm, [&](int mt, int tap) {
-      return min(max(row0 + mt * 16 + (tap - c) * d, 0), a.Lp - 1);
-    });
 #pragma unroll
-    for (int mt = 0; mt < kMT; ++mt) {
-      if (mt >= nm) break;
+  for (int nt = 0; nt < L::NT; ++nt) {
+    const int col = n0 + nt * 8 + 2 * (lane & 3);
+    const float b0 = bias[col], b1 = bias[col + 1];
+#pragma unroll
+    for (int mt = 0; mt < L::MT; ++mt) {
+      acc[mt][nt][0] = b0; acc[mt][nt][1] = b1;
+      acc[mt][nt][2] = b0; acc[mt][nt][3] = b1;
+    }
+  }
+}
+
+// B fragments of this warp's NW channels from a staged k16 slice.
+template <int C>
+__device__ __forceinline__ void load_b(uint32_t (&b)[Layout<C>::NT][2], const bf16* ws,
+                                       int n0) {
+  using L = Layout<C>;
+  const int lane = threadIdx.x & 31;
+  const int kr = lane & 15;
+#pragma unroll
+  for (int np = 0; np < L::NT / 2; ++np) {
+    const int ch = n0 / 8 + 2 * np + (lane >> 4);
+    uint32_t r[4];
+    ldmatrix_x4_trans(r, ws + kr * C + slice_chunk<C>(kr, ch) * 8);
+    b[2 * np][0] = r[0]; b[2 * np][1] = r[1];
+    b[2 * np + 1][0] = r[2]; b[2 * np + 1][1] = r[3];
+  }
+}
+
+// acc += sum over n_taps taps of A_tap @ W_tap for this warp's m-tiles
+// mt < nm and channels [n0, n0 + NW), K = 16*KK deep a tap (KK even), one
+// ring slice per (tap, k16), taken two at a time. A_tap's m16 tile mt is
+// read with ldmatrix from the bf16 buffer `src` (row stride lds) from
+// window row row_of(mt, tap) on (each row clamped into [0, Lp)).
+template <int C, typename RowFn>
+__device__ __forceinline__ void product(Accs<C>& acc, Ring<C>& ring, const bf16* src,
+                                        int lds, int KK, int n_taps, int nm, int n0,
+                                        int Lp, RowFn row_of) {
+  using L = Layout<C>;
+  const int lane = threadIdx.x & 31;
+  for (int t = 0; t < n_taps; ++t) {
+    const bf16* rows[L::MT];
+#pragma unroll
+    for (int mt = 0; mt < L::MT; ++mt)
+      rows[mt] = src + min(max(row_of(mt, t) + (lane & 15), 0), Lp - 1) * lds +
+                 (lane >> 4) * 8;
+#pragma unroll 1
+    for (int kk = 0; kk < KK; kk += 2) {
+      const bf16 *w0, *w1;
+      ring.wait2(w0, w1);
+      uint32_t b0[L::NT][2], b1[L::NT][2];
+      load_b<C>(b0, w0, n0);
+      load_b<C>(b1, w1, n0);
+      ring.flush();
+#pragma unroll
+      for (int mt = 0; mt < L::MT; ++mt) {
+        if (mt < nm) {
+          uint32_t a0[4], a1[4];
+          ldmatrix_x4(a0, rows[mt] + kk * 16);
+          ldmatrix_x4(a1, rows[mt] + kk * 16 + 16);
+#pragma unroll
+          for (int nt = 0; nt < L::NT; ++nt) mma(acc[mt][nt], a0, b0[nt][0], b0[nt][1]);
+#pragma unroll
+          for (int nt = 0; nt < L::NT; ++nt) mma(acc[mt][nt], a1, b1[nt][0], b1[nt][1]);
+        }
+      }
+      ring.release2();
+    }
+  }
+}
+
+// This warp's channel base n0 and its m-tiles [m0, m0 + nm) of
+// [mt_lo, mt_hi): the tiles are split evenly over the MW row groups (their
+// counts differ by at most one). Warps w, w + 4 (and w + 8) share a
+// scheduler, so warps 4-7 take their slots in reverse and each scheduler
+// mixes heavier and lighter row groups.
+template <int C>
+__device__ __forceinline__ void warp_tiles(int mt_lo, int mt_hi, int& n0, int& m0,
+                                           int& nm) {
+  using L = Layout<C>;
+  const int warp = threadIdx.x >> 5;
+  const int slot = warp >= 4 && warp < 8 ? 11 - warp : warp;  // 0-3 | 7-4 | 8-11
+  n0 = (slot % L::NG) * L::NW;
+  const int rg = slot / L::NG, n = mt_hi - mt_lo;
+  m0 = mt_lo + rg * n / L::MW;
+  nm = mt_lo + (rg + 1) * n / L::MW - m0;
+}
+
+// acc's rows through f(p, col, v0, v1): window row p = row_of(m-tile index,
+// row in the tile), channels col and col + 1.
+template <int C, typename RowFn, typename F>
+__device__ __forceinline__ void epilogue(const Accs<C>& acc, int nm, int n0,
+                                         RowFn row_of, F f) {
+  using L = Layout<C>;
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int mt = 0; mt < L::MT; ++mt) {
+    if (mt < nm) {
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const int p = (m0 + mt) * 16 + (lane >> 2) + 8 * h;
-        const int pos = s0 + p;
-        const bool inside = pos >= 0 && pos < a.T_out;
+        const int p = row_of(mt, (lane >> 2) + 8 * h);
 #pragma unroll
-        for (int nt = 0; nt < kNT; ++nt) {
-          const int col = ng * 32 + nt * 8 + 2 * (lane & 3);
-          const float v0 = acc.v[mt][nt][2 * h], v1 = acc.v[mt][nt][2 * h + 1];
-          uint32_t packed = 0u;
-          if (kFirst) {
-            if (inside) packed = pack2(lrelu(v0, a.slope), lrelu(v1, a.slope));
-          } else if (inside) {
-            float2* cp = reinterpret_cast<float2*>(cur + p * LDC + col);
-            float2 cv = *cp;
-            cv.x += v0;
-            cv.y += v1;
-            *cp = cv;
-            packed = pack2(lrelu(cv.x, a.slope), lrelu(cv.y, a.slope));
-          }
-          *reinterpret_cast<uint32_t*>(dst + p * LD + col) = packed;
-        }
+        for (int nt = 0; nt < L::NT; ++nt)
+          f(p, n0 + nt * 8 + 2 * (lane & 3), acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
       }
     }
   }
+}
+
+// ab1 rows [lo, hi) <- bf16(lrelu(cur)): conv1's A operand.
+template <int C>
+__device__ void stage_lrelu(const float* cur, bf16* ab1, int lo, int hi, float slope) {
+  constexpr int LD = C + kPad, HALF = C / 2;
+  for (int e = threadIdx.x; e < (hi - lo) * HALF; e += Layout<C>::kThreads) {
+    const int p = lo + e / HALF, col = 2 * (e % HALF);
+    const float2 v = *reinterpret_cast<const float2*>(cur + p * LD + col);
+    *reinterpret_cast<uint32_t*>(ab1 + p * LD + col) =
+        pack2(lrelu(v.x, slope), lrelu(v.y, slope));
+  }
+}
+
+// One dilated conv whose output rows cover [rlo, rhi) (rounded out to m16
+// tiles; rows outside the exact window are never used), its A operand read
+// from ab1. The warps hold the whole conv in their accumulators, so ab1 may
+// take the output once every warp has read its operand:
+//   kFirst: ab1 (bf16(lrelu(cur))) -> ab1 <- mask(lrelu(conv))
+//   else:   ab1 (lrelu(conv1)) -> cur += conv inside [0, T_out)
+template <int C, bool kFirst>
+__device__ void conv(float* cur, bf16* ab1, const float* __restrict__ bias,
+                     const StageArgs& a, int k, int d, int rlo, int rhi, int s0,
+                     Ring<C>& ring) {
+  constexpr int LD = C + kPad;
+  int n0, m0, nm;
+  warp_tiles<C>(rlo / 16, (rhi + 15) / 16, n0, m0, nm);
+  const int c = (k - 1) / 2;
+  Accs<C> acc;
+  init_bias<C>(acc, bias, n0);
+  product<C>(acc, ring, ab1, LD, C / 16, k, nm, n0, a.Lp,
+             [&](int mt, int tap) { return (m0 + mt) * 16 + (tap - c) * d; });
+  if (kFirst) __syncthreads();  // every warp has read ab1
+  epilogue<C>(acc, nm, n0, [&](int mt, int row) { return (m0 + mt) * 16 + row; },
+              [&](int p, int col, float v0, float v1) {
+                const int pos = s0 + p;
+                const bool inside = pos >= 0 && pos < a.T_out;
+                if (kFirst) {
+                  *reinterpret_cast<uint32_t*>(ab1 + p * LD + col) =
+                      inside ? pack2(lrelu(v0, a.slope), lrelu(v1, a.slope)) : 0u;
+                } else if (inside) {
+                  float2* cp = reinterpret_cast<float2*>(cur + p * LD + col);
+                  float2 cv = *cp;
+                  cv.x += v0;
+                  cv.y += v1;
+                  *cp = cv;
+                }
+              });
 }
 
 // Upsample rows [0, Lp) of the window: base = ConvTranspose1d_r(lrelu(x)),
 // one polyphase product per output phase ph (rows p = r*u + ph; tap i uses
 // kernel row kappa0(ph) + r*i and staged input row u + shift(ph) - i).
 // stg holds lrelu(x) in bf16 for x rows t_base .. t_base + n_stage - 1.
-// Writes cur <- base (zero outside [0, T_out)) and ab0 <- lrelu(base).
+// Writes cur <- base (zero outside [0, T_out)).
 template <int C>
-__device__ void upsample(float* cur, const bf16* stg, bf16* ab0,
-                         const bf16* __restrict__ w, const float* __restrict__ bias,
-                         const StageArgs& a, int s0) {
-  constexpr int LD = C + kPad, LDC = C + kPad, NG = C / 32;
+__device__ void upsample(float* cur, const bf16* stg, const float* __restrict__ bias,
+                         const StageArgs& a, int s0, Ring<C>& ring) {
+  constexpr int LDC = C + kPad;
   constexpr int CIN = 2 * C, LDS = CIN + kPad;  // HiFi-GAN halves the width
-  const int lane = threadIdx.x & 31;
   const int n_taps = a.k_up / a.r;
-  int ng, my_lo, my_hi;
-  warp_share<C>(0, a.Lp / a.r / 16, ng, my_lo, my_hi);
-  const uint4* wbase = reinterpret_cast<const uint4*>(w) + ng * 64 + lane;
+  int n0, m0, nm;
+  warp_tiles<C>(0, a.Lp / a.r / 16, n0, m0, nm);
   for (int ph = 0; ph < a.r; ++ph) {
-    // taps of this phase: kernel rows kappa0 + r*i, input rows u + shift - i
-    const int kappa0 = (ph + a.p_up) % a.r;
     const int shift = (ph + a.p_up) / a.r - a.p_up / a.r + n_taps - 1;
-    const uint4* wq = wbase + (size_t)kappa0 * (CIN / 16) * NG * 64;
-    for (int m0 = my_lo; m0 < my_hi; m0 += kMT) {
-      const int nm = min(kMT, my_hi - m0);
-      Acc acc;
-      init_acc(acc, bias, ng * 32);
-      const int row0 = m0 * 16 + (lane & 15) + shift;
-      mma_taps<CIN / 16>(acc, stg, LDS, wq, NG * 64, n_taps, a.r, nm,
-                         [&](int mt, int i) { return row0 + mt * 16 - i; });
-#pragma unroll
-      for (int mt = 0; mt < kMT; ++mt) {
-        if (mt >= nm) break;
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int p = a.r * ((m0 + mt) * 16 + (lane >> 2) + 8 * h) + ph;
-          const int pos = s0 + p;
-          const bool inside = pos >= 0 && pos < a.T_out;
-#pragma unroll
-          for (int nt = 0; nt < kNT; ++nt) {
-            const int col = ng * 32 + nt * 8 + 2 * (lane & 3);
-            const float v0 = inside ? acc.v[mt][nt][2 * h] : 0.f;
-            const float v1 = inside ? acc.v[mt][nt][2 * h + 1] : 0.f;
-            *reinterpret_cast<float2*>(cur + p * LDC + col) = make_float2(v0, v1);
-            *reinterpret_cast<uint32_t*>(ab0 + p * LD + col) =
-                pack2(lrelu(v0, a.slope), lrelu(v1, a.slope));
-          }
-        }
-      }
-    }
+    Accs<C> acc;
+    init_bias<C>(acc, bias, n0);
+    product<C>(acc, ring, stg, LDS, CIN / 16, n_taps, nm, n0, a.Lp,
+               [&](int mt, int i) { return (m0 + mt) * 16 + shift - i; });
+    epilogue<C>(acc, nm, n0,
+                [&](int mt, int row) { return a.r * ((m0 + mt) * 16 + row) + ph; },
+                [&](int p, int col, float v0, float v1) {
+                  const int pos = s0 + p;
+                  const bool inside = pos >= 0 && pos < a.T_out;
+                  *reinterpret_cast<float2*>(cur + p * LDC + col) =
+                      inside ? make_float2(v0, v1) : make_float2(0.f, 0.f);
+                });
   }
 }
 
 // Staged upsample input: stg[sr] = bf16(lrelu(x[t_base + sr])), zero
 // outside [0, T_in).
-template <typename IO>
+template <typename IO, int C>
 __device__ void stage_input(bf16* stg, const IO* __restrict__ x, const StageArgs& a,
                             int b, int s0) {
   const int n_taps = a.k_up / a.r;
   const int t_base = s0 / a.r + a.p_up / a.r - (n_taps - 1);
   const int n_stage = a.Lp / a.r + (a.r - 1 + a.p_up) / a.r - a.p_up / a.r + n_taps - 1;
   const int lds = a.C_in + kPad, half = a.C_in / 2;
-  for (int e = threadIdx.x; e < n_stage * half; e += kThreads) {
+  for (int e = threadIdx.x; e < n_stage * half; e += Layout<C>::kThreads) {
     const int sr = e / half, ci = 2 * (e % half);
     const int t = t_base + sr;
     float v0 = 0.f, v1 = 0.f;
@@ -397,13 +660,12 @@ __device__ void stage_input(bf16* stg, const IO* __restrict__ x, const StageArgs
   }
 }
 
-// Grouped variant: cur rows [lo, hi) <- x (zero outside [0, T_out)),
-// ab0 <- lrelu(cur).
+// Grouped variant: cur rows [lo, hi) <- x (zero outside [0, T_out)).
 template <typename IO, int C>
-__device__ void load_grouped(float* cur, bf16* ab0, const IO* __restrict__ x,
-                             const StageArgs& a, int b, int lo, int hi, int s0) {
-  constexpr int LD = C + kPad, LDC = C + kPad, HALF = C / 2;
-  for (int e = threadIdx.x; e < (hi - lo) * HALF; e += kThreads) {
+__device__ void load_grouped(float* cur, const IO* __restrict__ x, const StageArgs& a,
+                             int b, int lo, int hi, int s0) {
+  constexpr int LDC = C + kPad, HALF = C / 2;
+  for (int e = threadIdx.x; e < (hi - lo) * HALF; e += Layout<C>::kThreads) {
     const int p = lo + e / HALF, col = 2 * (e % HALF);
     const int m = s0 + p;
     float v0 = 0.f, v1 = 0.f;
@@ -413,21 +675,33 @@ __device__ void load_grouped(float* cur, bf16* ab0, const IO* __restrict__ x,
       v1 = to_f(xr[1]);
     }
     *reinterpret_cast<float2*>(cur + p * LDC + col) = make_float2(v0, v1);
-    *reinterpret_cast<uint32_t*>(ab0 + p * LD + col) =
-        pack2(lrelu(v0, a.slope), lrelu(v1, a.slope));
   }
 }
 
+// Shared memory: [mbarriers + release counters | weight ring: n_stages
+// pairs of k16 slices | cur fp32 Lp x (C + kPad) | ab1 bf16 Lp x (C + kPad)].
 template <typename IO, int C>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(Layout<C>::kThreads, 1)
 stage_kernel(const IO* __restrict__ x, const bf16* __restrict__ w,
              const float* __restrict__ bias, IO* __restrict__ out,
              float* __restrict__ acc_buf, StageArgs a) {
-  constexpr int LD = C + kPad, LDC = C + kPad;
+  constexpr int LDC = C + kPad;
   extern __shared__ __align__(16) unsigned char smem[];
-  float* cur = reinterpret_cast<float*>(smem);
-  bf16* ab0 = reinterpret_cast<bf16*>(cur + (size_t)a.Lp * LDC);
-  bf16* ab1 = ab0 + (size_t)a.Lp * LD;
+  const uint32_t bars = smem_addr(smem);
+  const bf16* ring_data = reinterpret_cast<const bf16*>(smem + kBarBytes);
+  float* cur = reinterpret_cast<float*>(smem + kBarBytes + (size_t)a.n_stages * 64 * C);
+  bf16* ab1 = reinterpret_cast<bf16*>(cur + (size_t)a.Lp * LDC);
+  Ring<C> ring{bars, smem_addr(ring_data), ring_data, reinterpret_cast<const char*>(w),
+               a.n_stages, a.n_slices / 2, 0, 0, 0u};
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < a.n_stages; ++s) {
+      mbar_init(ring.full(s), 1);
+      asm volatile("st.shared.u32 [%0], 0;\n" ::"r"(ring.count(s)) : "memory");
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int s = 0; s < min(a.n_stages, a.n_slices / 2); ++s) ring.issue(s, s);
+  }
+  __syncthreads();
   const int b = blockIdx.y;
   const int t0 = blockIdx.x * a.tile;
   const int s0 = t0 - a.halo;  // sequence position of buffer row 0
@@ -437,29 +711,30 @@ stage_kernel(const IO* __restrict__ x, const bf16* __restrict__ w,
     const int hblk = block_halo(a, blk);
     const int lo = a.halo - hblk, hi = a.halo + a.tile + hblk;
     if (a.k_up > 0) {
-      stage_input<IO>(ab1, x, a, b, s0);
+      stage_input<IO, C>(ab1, x, a, b, s0);
       __syncthreads();
-      upsample<C>(cur, ab1, ab0, w, bias, a, s0);
+      upsample<C>(cur, ab1, bias, a, s0, ring);
     } else {
-      load_grouped<IO, C>(cur, ab0, x, a, b, lo, hi, s0);
+      load_grouped<IO, C>(cur, x, a, b, lo, hi, s0);
     }
     __syncthreads();
     int consumed = 0;
     for (int i = 0; i < a.n_dil[blk]; ++i) {
       const int d = a.dil[blk][i];
       const int r1lo = lo + consumed + c * d, r1hi = hi - consumed - c * d;
-      conv<C, true>(cur, ab0, ab1, w + a.w1[blk][i], bias + a.b1[blk][i], a, k,
-                    d, r1lo, r1hi, s0);
+      stage_lrelu<C>(cur, ab1, lo + consumed, hi - consumed, a.slope);
       __syncthreads();
-      conv<C, false>(cur, ab1, ab0, w + a.w2[blk][i], bias + a.b2[blk][i], a, k,
-                     1, r1lo + c, r1hi - c, s0);
+      conv<C, true>(cur, ab1, bias + a.b1[blk][i], a, k, d, r1lo, r1hi, s0, ring);
+      __syncthreads();
+      conv<C, false>(cur, ab1, bias + a.b2[blk][i], a, k, 1, r1lo + c, r1hi - c, s0,
+                     ring);
       __syncthreads();
       consumed += c * d + c;
     }
     // resblock sum over the tile's rows, in fp32 device memory
     const bool last = blk == a.n_blocks - 1;
     const int rows = min(a.tile, a.T_out - t0);
-    for (int e = threadIdx.x; e < rows * (C / 2); e += kThreads) {
+    for (int e = threadIdx.x; e < rows * (C / 2); e += Layout<C>::kThreads) {
       const int row = e / (C / 2), col = 2 * (e % (C / 2));
       const float2 v = *reinterpret_cast<const float2*>(cur + (a.halo + row) * LDC + col);
       const size_t idx = ((size_t)b * a.T_out + t0 + row) * C + col;
@@ -507,11 +782,13 @@ int launch_simt(const void* x, const void* w, const float* bias, void* out,
 template <typename IO, int C>
 int launch_tc_c(const void* x, const void* w, const float* bias, void* out,
                 float* acc, StageArgs a, cudaStream_t stream) {
-  const size_t per_row = (size_t)(C + tc::kPad) * 8;  // cur fp32 + 2 x bf16
+  // The plan (Lp, tile, n_stages) comes from the wrapper
+  // (ops/vocoder_kernel.py `stage_plan`); refuse one the kernel cannot run.
+  const size_t per_row = (size_t)(C + tc::kPad) * 6;  // cur fp32 + ab1 bf16
   const int unit = 16 * a.r;
-  a.Lp = (int)(kMaxSmem / per_row) / unit * unit;
-  a.tile = a.Lp - 2 * a.halo;
-  if (a.tile < unit) return (int)cudaErrorInvalidValue;
+  if (a.Lp % unit != 0 || a.Lp > tc::Layout<C>::kRows || a.tile != a.Lp - 2 * a.halo ||
+      a.tile < unit || a.n_stages < 2 || a.n_stages > tc::kMaxStages)
+    return (int)cudaErrorInvalidValue;
   if (a.k_up > 0) {
     const int n_taps = a.k_up / a.r;
     const int n_stage = a.Lp / a.r + (a.r - 1 + a.p_up) / a.r - a.p_up / a.r + n_taps - 1;
@@ -519,12 +796,17 @@ int launch_tc_c(const void* x, const void* w, const float* bias, void* out,
         (size_t)n_stage * (a.C_in + tc::kPad) > (size_t)a.Lp * (C + tc::kPad))
       return (int)cudaErrorInvalidValue;
   }
-  const size_t smem = a.Lp * per_row;
+  a.n_slices = 0;  // the weight stream's k16 slices (see tc::Ring)
+  for (int blk = 0; blk < a.n_blocks; ++blk)
+    a.n_slices += a.k_up * a.C_in / 16 + 2 * a.n_dil[blk] * a.ksize[blk] * C / 16;
+  const size_t smem = tc::kBarBytes + (size_t)a.n_stages * 64 * C + a.Lp * per_row;
+  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
   auto kern = tc::stage_kernel<IO, C>;
-  int e = set_smem(kern, smem);
-  if (e) return e;
+  static const int attr = set_smem(kern, kMaxSmem);
+  if (attr) return attr;
   const dim3 grid((a.T_out + a.tile - 1) / a.tile, a.B);
-  kern<<<grid, kThreads, smem, stream>>>(
+  constexpr int kBlock = tc::Layout<C>::kThreads;
+  kern<<<grid, kBlock, smem, stream>>>(
       static_cast<const IO*>(x), static_cast<const __nv_bfloat16*>(w), bias,
       static_cast<IO*>(out), acc, a);
   return (int)cudaGetLastError();
@@ -551,11 +833,14 @@ extern "C" const char* cuda_error_string(int e) {
 // ksize[n_blocks], n_dil[n_blocks], dil[n_blocks * 4] (row-major, padded).
 // acc: fp32 [B, T_out, C] resblock-sum scratch for the bf16-operand path
 // (the output itself when io is fp32); unused with fp32 operands.
+// Lp, tile, n_stages: the bf16 path's tile plan (window rows, output rows a
+// block, weight ring stages); unused with fp32 operands.
 extern "C" int vocoder_stage(const void* x, const void* w, const float* bias,
                              void* out, void* acc, int io_bf16, int ct_bf16,
                              int B, int T_in, int C_in, int C, int r, int k_up,
                              int n_blocks, const int* ksize, const int* n_dil,
-                             const int* dil, float slope, void* stream) {
+                             const int* dil, float slope, int Lp, int tile,
+                             int n_stages, void* stream) {
   if (n_blocks < 1 || n_blocks > kMaxBlocks || B < 1 || T_in < 1 || C < 1)
     return (int)cudaErrorInvalidValue;
   StageArgs a = {};
@@ -599,6 +884,7 @@ extern "C" int vocoder_stage(const void* x, const void* w, const float* bias,
   if (ct_bf16) {
     float* accp = static_cast<float*>(io_bf16 ? acc : out);
     if (accp == nullptr) return (int)cudaErrorInvalidValue;
+    a.Lp = Lp; a.tile = tile; a.n_stages = n_stages;
     return io_bf16 ? launch_tc<__nv_bfloat16>(x, w, bias, out, accp, a, st)
                    : launch_tc<float>(x, w, bias, out, accp, a, st);
   }

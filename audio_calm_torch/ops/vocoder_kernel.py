@@ -24,7 +24,7 @@ and accumulated in fp32, as the TPU kernel feeds its MXU.
 from __future__ import annotations
 
 import ctypes
-from typing import List, Optional, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -120,18 +120,144 @@ def _stage_lib() -> ctypes.CDLL:
     if not getattr(lib, "_argtypes_set", False):
         P, I = ctypes.c_void_p, ctypes.c_int
         lib.vocoder_stage.argtypes = [P, P, P, P, P, I, I, I, I, I, I, I, I,
-                                      I, P, P, P, ctypes.c_float, P]
+                                      I, P, P, P, ctypes.c_float, I, I, I, P]
         lib.vocoder_stage.restype = I
         lib._argtypes_set = True
     return lib
 
 
+# csrc/vocoder_stage.cu, bf16 path: window rows one pass of the warps'
+# accumulators covers (Layout<C>::kRows), the mbarrier and counter header
+# (kBarBytes), the ring's stage limit (kMaxStages); the fewest stages a
+# plan keeps
+_STAGE_PASS_ROWS = {32: 1152, 64: 512, 128: 256}
+_STAGE_BAR_BYTES = 256
+_STAGE_MAX_RING = 16
+_STAGE_MIN_RING = 2
+
+
+class StagePlan(NamedTuple):
+    """Launch shape of the bf16 stage kernel."""
+    Lp: int          # window rows in shared memory (a multiple of 16 r)
+    tile: int        # output rows a block: Lp - 2 halo
+    halo: int        # rows each side: the widest resblock's, rounded to r
+    stages: int      # weight ring stages of a k16 slice pair (64 C bytes)
+    smem: int        # dynamic shared memory bytes
+    grid: Tuple[int, int]  # (time tiles, batch rows)
+
+
+def stage_halo(geom: Sequence[Tuple[int, Sequence[int]]], r: int) -> int:
+    """The stage's halo: the widest resblock's (k, dilations) margin,
+    rounded up to a multiple of r so the upsample's phases line up."""
+    h = max(_halo(k, dils) for k, dils in geom)
+    return -(-h // r) * r
+
+
+def stage_plan(C: int, r: int, geom: Sequence[Tuple[int, Sequence[int]]],
+               T_out: int, B: int = 1) -> StagePlan:
+    """The bf16 kernel's tile plan at width C (32, 64 or 128) and upsample
+    rate r (1: grouped): the window Lp is the most rows whose fp32 residual
+    and bf16 operand ((C + 8) * 6 bytes a row) fit in 227 KB beside the
+    mbarriers and a ring of at least 2 stages (a pair of weight slices
+    each), capped at one pass of the warps' accumulators and, for a short
+    T_out, at what the tile needs; the ring then takes the shared memory
+    left, up to 16 stages. Raises ValueError when the halo leaves less
+    than one m16 unit of tile."""
+    unit = 16 * r
+    row, slice_bytes = (C + 8) * 6, 64 * C
+    halo = stage_halo(geom, r)
+    room = _SMEM_BYTES - _STAGE_BAR_BYTES
+    lp_max = min((room - _STAGE_MIN_RING * slice_bytes) // row,
+                 _STAGE_PASS_ROWS[C]) // unit * unit
+    Lp = min(lp_max, -(-(max(T_out, unit) + 2 * halo) // unit) * unit)
+    if Lp - 2 * halo < unit:
+        raise ValueError(f"vocoder_stage: a halo of {halo} rows leaves no "
+                         f"tile in a {Lp}-row window at C={C}")
+    stages = min(_STAGE_MAX_RING, (room - Lp * row) // slice_bytes)
+    smem = _STAGE_BAR_BYTES + stages * slice_bytes + Lp * row
+    tile = Lp - 2 * halo
+    return StagePlan(Lp, tile, halo, stages, smem, (-(-T_out // tile), B))
+
+
+def stage_reckoning(plan: StagePlan, C: int, C_in: int, r: int, k_up: int,
+                    geom: Sequence[Tuple[int, Sequence[int]]],
+                    T_out: int) -> Tuple[float, int]:
+    """(executed / useful products, L2 weight bytes) of one launch of the
+    bf16 kernel under `plan`, reckoned from the tile walk, not measured.
+    Executed: per block and resblock, the upsample over the whole window
+    and each conv over its output rows rounded out to m16 tiles; useful:
+    the same products over the rows inside [0, T_out). Weights: each block
+    reads every slice of each resblock (the upsample again per resblock)
+    once, in bf16."""
+    halo, tile = plan.halo, plan.tile
+    ups = (k_up // r) * C_in * C if k_up else 0  # MACs an output row
+    executed = useful = 0
+    for blk in range(plan.grid[0]):
+        rows = max(0, min(tile, T_out - blk * tile))
+        for k, dils in geom:
+            c, hb = (k - 1) // 2, _halo(k, dils)
+            lo, hi = halo - hb, halo + tile + hb
+            executed += plan.Lp * ups
+            useful += rows * (ups + 2 * len(dils) * k * C * C)
+            consumed = 0
+            for d in dils:
+                r1lo, r1hi = lo + consumed + c * d, hi - consumed - c * d
+                for a, b in ((r1lo, r1hi), (r1lo + c, r1hi - c)):
+                    executed += (-(-b // 16) - a // 16) * 16 * k * C * C
+                consumed += c * d + c
+    per_block = sum(k_up * C_in * C + 2 * len(dils) * k * C * C
+                    for k, dils in geom) * 2
+    return executed / useful, plan.grid[0] * plan.grid[1] * per_block
+
+
+def _smem_slices(w: torch.Tensor) -> torch.Tensor:
+    """Conv weight [k, C_in, C_out] -> flat bf16: per tap and k16 slice the
+    [16, C_out] image the stage kernel copies into shared memory as it is
+    (csrc/vocoder_stage.cu `slice_chunk`). Element (j, ci, co) sits at
+    ((j * C_in/16 + ci // 16) * 16 + kr) * C_out + pos * 8 + co % 8, with
+    kr = ci % 16 and pos = co // 8 XOR (kr % 8 for C_out >= 64, (kr // 2) %
+    4 for C_out = 32): the eight rows an ldmatrix.trans reads fall in eight
+    distinct bank groups."""
+    k, c_in, c_out = w.shape
+    n_ch = c_out // 8
+    kr = torch.arange(16, device=w.device)[:, None]
+    swz = kr % 8 if c_out >= 64 else (kr // 2) % 4
+    pos = torch.arange(n_ch, device=w.device)[None, :] ^ swz  # pos <-> ch
+    w = w.to(torch.bfloat16).reshape(k, c_in // 16, 16, n_ch, 8)
+    return w[:, :, kr, pos].reshape(-1)
+
+
+def weight_stream(ups_w: Optional[torch.Tensor], blocks: Sequence[Block],
+                  r: int) -> torch.Tensor:
+    """The bf16 stage kernel's weights: every k16 slice image
+    (`_smem_slices`) of one launch in the order its warps consume them
+    (csrc/vocoder_stage.cu `Ring`): per resblock, the upsample's slices
+    (per output phase ph, the kernel rows (ph + p) % r + r*i, i < k_up/r,
+    p = (k_up - r) / 2; the upsample is recomputed per resblock, so its
+    slices recur), then per dilation conv1's and conv2's."""
+    ups: List[torch.Tensor] = []
+    if ups_w is not None:
+        k_up = ups_w.shape[0]
+        p = (k_up - r) // 2
+        rows = [(ph + p) % r + r * i for ph in range(r)
+                for i in range(k_up // r)]
+        ups = [_smem_slices(ups_w[rows])]
+    parts: List[torch.Tensor] = []
+    for w1, _, w2, _, _, _ in blocks:
+        parts += ups
+        # per dilation conv1's taps, then conv2's: one image for the block
+        C = w1.shape[-1]
+        parts.append(_smem_slices(torch.stack((w1, w2), dim=1)
+                                  .reshape(-1, C, C)))
+    return torch.cat(parts).contiguous()
+
+
 def _mma_fragments(w: torch.Tensor) -> torch.Tensor:
-    """Conv weight [k, C_in, C_out] -> flat bf16 in the order the tensor-core
-    path reads it: per (tap, 16-row k slice, 32-channel group, half) the 32
-    lanes' mma.m16n8k16 B fragments, 4 words a lane (n8 tiles 2*half and
-    2*half+1, registers b0 and b1 each), a word holding the bf16 pair
-    (k, k+1). Lane 4n+q of register b_i holds B[k = 8i + 2q + e][n]."""
+    """Conv weight [k, C_in, C_out] -> flat bf16 in the order the resblock
+    kernel's tensor-core path (csrc/resblock.cu) reads it: per (tap, 16-row
+    k slice, 32-channel group, half) the 32 lanes' mma.m16n8k16 B
+    fragments, 4 words a lane (n8 tiles 2*half and 2*half+1, registers b0
+    and b1 each), a word holding the bf16 pair (k, k+1). Lane 4n+q of register b_i holds B[k = 8i + 2q + e][n]."""
     k, c_in, c_out = w.shape
     w = w.to(torch.bfloat16).reshape(k, c_in // 16, 2, 4, 2, c_out // 32, 2,
                                      2, 8)
@@ -206,9 +332,12 @@ def vocoder_stage(x: torch.Tensor, ups_w: Optional[torch.Tensor],
     for t in weights + biases:
         if t.device != x.device:
             raise ValueError("vocoder_stage: weights must be on x's device")
-    layout = _mma_fragments if tensor_cores else (
-        lambda t: t.float().reshape(-1))
-    w = torch.cat([layout(t) for t in weights]).contiguous()
+    if tensor_cores:
+        w = weight_stream(ups_w, blocks, r)
+        plan = stage_plan(C, r, [(b[4], b[5]) for b in blocks], T_in * r, B)
+    else:
+        w = torch.cat([t.float().reshape(-1) for t in weights]).contiguous()
+        plan = StagePlan(0, 0, 0, 0, 0, (0, 0))
     bias = torch.cat([t.float() for t in biases]).contiguous()
     x = x.contiguous()
     out = torch.empty(B, T_in * r, C, dtype=x.dtype, device=x.device)
@@ -223,8 +352,8 @@ def vocoder_stage(x: torch.Tensor, ups_w: Optional[torch.Tensor],
         None if acc is None else acc.data_ptr(),
         int(x.dtype == torch.bfloat16), int(tensor_cores),
         B, T_in, C_in, C, r, k_up, len(blocks), ints(*ksize), ints(*n_dil),
-        (ctypes.c_int * len(dil))(*dil), float(slope),
-        torch.cuda.current_stream(x.device).cuda_stream,
+        (ctypes.c_int * len(dil))(*dil), float(slope), plan.Lp, plan.tile,
+        plan.stages, torch.cuda.current_stream(x.device).cuda_stream,
     )
     cuda_build.check(lib, status, "vocoder_stage")
     vocoder_stage.launches += 1

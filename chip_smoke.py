@@ -47,9 +47,12 @@ Phases, in order; any failure exits non-zero and prints no result:
      and on the CPU, fp32: log-mel, latent means and reconstruction agree;
   6. per kernel: its launches on its main path, its device time per launch
      at main-path shapes, the bound, the plain version's and the library
-     call's device time;
+     call's device time; for the stage kernel, per V1 stage, the tile, the
+     executed/useful product ratio and the L2 weight bytes its tile plan
+     reckons, beside the earlier three-buffer design's time;
   7. the served requests once more under torch.profiler (device activity
-     only): the device's busy share and the kernels that take most time;
+     only): the device's busy share, the kernels that take most time and
+     the stage kernel's device time;
      then one more training step, the same way, with K5's share of it.
 Then the card, one `kernels` JSON line, and as the last line
 {"ok": true, "device": {...}}.
@@ -72,6 +75,10 @@ import torch
 H100_BF16_FLOPS = 989e12  # dense tensor-core peak, NVIDIA H100 SXM data sheet
 H100_BYTES_PER_S = 3.35e12  # HBM3
 SEC_PER_FRAME = 4 * 256 / 16000  # one latent frame = 1024 samples at 16 kHz
+# the stage kernel's earlier design (three shared buffers, weights streamed
+# per warp from L2) at V1's three stages, B=2 on the 384-frame grid: PERF.md
+# section 6, kernel table, run C
+K1_THREE_BUFFER_MS = {1: 5.321, 2: 3.622, 3: 2.368}
 TRAIN_STEPS = 5
 
 
@@ -849,7 +856,12 @@ def phase_profile(serve, wall):
         f"{100 * busy / wall:.1f}% of the unprofiled wall {wall:.4f} s")
     for name, s, n in top:
         log(f"    {1e3 * s:9.3f} ms {n:6d} calls  {name[:90]}")
-    return {"profiled_wall_s": p_wall, "device_busy_s": busy}
+    # the stage kernel's share (its template instantiations, one per width)
+    k1 = sum(r[1] for r in rows if "stage_kernel" in r[0])
+    log(f"  vocoder_stage in the served requests: {1e3 * k1:.3f} ms device "
+        f"time, {100 * k1 / busy:.1f}% of the device time")
+    return {"profiled_wall_s": p_wall, "device_busy_s": busy,
+            "vocoder_stage_device_s": k1}
 
 
 def phase_load_vocoders(gens, card, tmp):
@@ -1086,7 +1098,9 @@ def phase_kernel_times(calm, voc, counts, errs, card):
 
     from audio_calm_torch.ops.attention_kernel import (attention_fwd,
                                                        attention_fwd_plain)
-    from audio_calm_torch.ops.vocoder_kernel import (vocoder_stage,
+    from audio_calm_torch.ops.vocoder_kernel import (stage_plan,
+                                                     stage_reckoning,
+                                                     vocoder_stage,
                                                      vocoder_stage_plain)
 
     g = torch.Generator(card).manual_seed(1)
@@ -1104,10 +1118,25 @@ def phase_kernel_times(calm, voc, counts, errs, card):
             lambda: vocoder_stage_plain(*args, compute_dtype=cdt), 3)
         flops, nbytes = stage_cost(args, 4, 2 if cdt == torch.bfloat16 else 4)
         b, by = bound_ms(flops, nbytes, H100_BF16_FLOPS)
-        rows.append({"stage": index, "x": list(args[0].shape), "ms": ms,
+        # the bf16 kernel's tile plan and what it reckons (not measured)
+        x, ups_w, _, blocks = args
+        B, T_in, C_in = x.shape
+        C, r = blocks[0][0].shape[-1], (1 if ups_w is None else 2)
+        geom = [(blk[4], blk[5]) for blk in blocks]
+        plan = stage_plan(C, r, geom, T_in * r, B)
+        ratio, l2 = stage_reckoning(plan, C, C_in, r,
+                                    0 if ups_w is None else ups_w.shape[0],
+                                    geom, T_in * r)
+        rows.append({"stage": index, "x": list(x.shape), "ms": ms,
                      "plain_ms": plain, "bound_ms": b, "bound_by": by,
-                     "flop": flops, "bytes": nbytes})
-        log("  vocoder_stage " + json.dumps(rows[-1]))
+                     "flop": flops, "bytes": nbytes, "tile": plan.tile,
+                     "window": plan.Lp, "ring_stages": plan.stages,
+                     "executed_over_useful": ratio, "l2_weight_bytes": l2,
+                     "three_buffer_design_ms": K1_THREE_BUFFER_MS[index]})
+        log(f"  vocoder_stage stage {index}: {ms:.3f} ms (bound {b:.3f}, "
+            f"plain {plain:.3f}, three-buffer design "
+            f"{K1_THREE_BUFFER_MS[index]:.3f}); tile {plan.tile}, "
+            f"executed/useful {ratio:.3f}, L2 weight bytes {l2:.4g}")
     kernels.append({
         "name": "vocoder_stage", "route": "cuda",
         "source": "audio_calm_torch/csrc/vocoder_stage.cu",

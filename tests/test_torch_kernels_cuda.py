@@ -32,7 +32,7 @@ from audio_calm_torch.ops.attention_kernel import (attention_bwd,
 from audio_calm_torch.ops.vocoder_kernel import (_halo, fused_resblock,
                                                  fused_resblock_plain,
                                                  hifigan_apply_fused,
-                                                 vocoder_stage,
+                                                 stage_plan, vocoder_stage,
                                                  vocoder_stage_plain)
 
 pytestmark = pytest.mark.cuda
@@ -105,6 +105,47 @@ def test_vocoder_stage_bf16_io(card, cdt):
     assert out.dtype == ref.dtype == torch.bfloat16
     out, ref = out.float(), ref.float()
     assert (out - ref).abs().max().item() <= 2 ** -7 * ref.abs().max().item()
+
+
+V1_STAGES = [(128, 128, False), (128, 64, True),  # C_in, C, ups
+             (64, 32, True)]
+
+
+def _edge_length(C, ups, edge):
+    """An output length at the edge of the bf16 tile plan of V1's stage:
+    a tile less or more one input row (r output rows), one tile, a length
+    under one halo, and a ragged length over several tiles."""
+    r = 2 if ups else 1
+    tile = stage_plan(C, r, V1_BLOCKS, 1 << 20).tile
+    return {"tile-1": tile - r, "tile": tile, "tile+1": tile + r,
+            "under-halo": 40, "ragged": 3 * tile + 38}[edge]
+
+
+@pytest.mark.parametrize("edge", ["tile-1", "tile", "tile+1", "under-halo",
+                                  "ragged"])
+@pytest.mark.parametrize("C_in,C,ups", V1_STAGES)
+def test_vocoder_stage_tile_edges(card, C_in, C, ups, edge):
+    T_out = _edge_length(C, ups, edge)
+    T_in = T_out // (2 if ups else 1)
+    x, ups_w, ups_b, blocks = _stage_inputs(C_in, C, T_in, ups, card, seed=3)
+    out = vocoder_stage(x, ups_w, ups_b, blocks, compute_dtype=torch.bfloat16)
+    ref = vocoder_stage_plain(x, ups_w, ups_b, blocks,
+                              compute_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert out.shape == ref.shape == (2, T_out, C)
+    err = (out - ref).abs().max().item()
+    assert err <= 2 ** -7 * ref.abs().max().item(), err
+
+
+@pytest.mark.parametrize("C_in,C,ups", V1_STAGES)
+def test_vocoder_stage_is_deterministic(card, C_in, C, ups):
+    """The weight ring changes no order of any sum and no output is summed
+    by atomics: two launches give the same bits."""
+    T_in = _edge_length(C, ups, "ragged") // (2 if ups else 1)
+    args = _stage_inputs(C_in, C, T_in, ups, card, seed=4)
+    first = vocoder_stage(*args, compute_dtype=torch.bfloat16)
+    second = vocoder_stage(*args, compute_dtype=torch.bfloat16)
+    assert torch.equal(first, second)
 
 
 def _held(out, ref, cdt):
