@@ -70,13 +70,15 @@
 //    against 1.71 / 1.24 / 1.11 with the earlier three buffers.
 //  - The resblock sum lives in device memory (`acc`, fp32; the output itself
 //    when it is fp32). It is read and written once per resblock per tile.
-//  - What bounds it now. The mma.sync issue of eight or twelve warps, two
-//    or three to a scheduler, at about a quarter of the dense bf16 peak
-//    (PERF.md section 6 has the rates), and the halo's
-//    recompute. L2 no longer does: in probe builds of an earlier version
-//    of this ring, clusters of 2 and 4 blocks that multicast each slice to
-//    all of them (one L2 read for the cluster) did not make it faster, so
-//    no cluster is kept.
+//  - What bounds it now. Mostly the mma.sync issue of eight or twelve warps,
+//    two or three to a scheduler, at about a quarter of the dense bf16 peak,
+//    and the halo's recompute. The ring's waits take a smaller part: in the
+//    probe builds of audio_calm_torch/tools/vocoder_stage_probe.py the warps
+//    wait for a stage to fill in about 13% of their cycles at C = 128 (7% at
+//    C = 64, 2% at C = 32), and a ring that reads no weight bytes at all
+//    runs about 10% faster at C = 128 (PERF.md section 6). No cluster is
+//    kept: a 2-block multicast halves the weight reads instead of removing
+//    them, so it could save at most that 10%. It was not timed on this ring.
 //  - Why not wgmma. Its 64-row granularity on a window whose conv extents
 //    shrink by 10-60 rows per conv would execute about 1.88x the useful
 //    products at C = 128, against 1.46x with m16 tiles (both reckoned from
@@ -295,6 +297,15 @@ namespace tc {
 
 constexpr int kMaxStages = 16;    // weight ring stages at most
 constexpr int kBarBytes = 256;    // full[kMaxStages] mbarriers + release counters
+constexpr int kMaxWarps = 12;     // Layout<C>::kWarps at most
+
+#ifdef VOCODER_STAGE_PROBE
+// Probe build (not the shipped library; audio_calm_torch/tools/
+// vocoder_stage_probe.py builds it): per warp index, summed over blocks, the
+// clock cycles spent waiting for a ring stage to fill and the cycles from
+// the kernel's start to its end.
+__device__ unsigned long long g_probe_cycles[kMaxWarps][2];
+#endif
 
 // The warp layout of width C: kWarps warps in NG channel groups of NW
 // output channels x MW row groups; a warp holds MT x NT accumulator tiles
@@ -314,6 +325,8 @@ struct Layout {
   static constexpr int MT = (C == 32 ? 96 : 128) / (4 * NT);
   static constexpr int kRows = MT * MW * 16;
 };
+static_assert(Layout<32>::kWarps <= kMaxWarps && Layout<128>::kWarps <= kMaxWarps,
+              "kMaxWarps bounds every layout");
 
 // Shared-memory image of one k16 weight slice, [16][C] bf16: row kr holds
 // input channel 16*s + kr; its 16-byte chunk `ch` (output channels 8*ch ..
@@ -401,18 +414,33 @@ struct Ring {
   uint32_t phase;
   int pend_j = -1, pend_s = 0;                // lane 0: the pair released last
   uint32_t pend_count = 0;                    // lane 0: its count before the arrival
+#ifdef VOCODER_STAGE_PROBE
+  unsigned long long waited = 0;              // cycles in wait2's mbarrier wait
+#endif
 
   __device__ __forceinline__ uint32_t full(int s) const { return bars + 8 * s; }
   __device__ __forceinline__ uint32_t count(int s) const {
     return bars + 8 * kMaxStages + 4 * s;
   }
   __device__ __forceinline__ void issue(int pair, int s) const {
+#ifdef VOCODER_STAGE_PROBE_NO_WEIGHTS
+    // probe build: the stage completes with no copy (its weights are stale),
+    // so the kernel runs its schedule without reading the weight stream
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(full(s)) : "memory");
+#else
     mbar_expect_tx(full(s), kBytes);
     bulk_copy(addr + s * kBytes, src + (size_t)pair * kBytes, kBytes, full(s));
+#endif
   }
   // the slices of pair j, once they have landed
-  __device__ __forceinline__ void wait2(const bf16*& w0, const bf16*& w1) const {
+  __device__ __forceinline__ void wait2(const bf16*& w0, const bf16*& w1) {
+#ifdef VOCODER_STAGE_PROBE
+    const long long t = clock64();
     mbar_wait(full(stage), phase);
+    waited += clock64() - t;
+#else
+    mbar_wait(full(stage), phase);
+#endif
     w0 = data + (size_t)stage * 32 * C;
     w1 = w0 + 16 * C;
   }
@@ -686,6 +714,9 @@ stage_kernel(const IO* __restrict__ x, const bf16* __restrict__ w,
              const float* __restrict__ bias, IO* __restrict__ out,
              float* __restrict__ acc_buf, StageArgs a) {
   constexpr int LDC = C + kPad;
+#ifdef VOCODER_STAGE_PROBE
+  const long long t_start = clock64();
+#endif
   extern __shared__ __align__(16) unsigned char smem[];
   const uint32_t bars = smem_addr(smem);
   const bf16* ring_data = reinterpret_cast<const bf16*>(smem + kBarBytes);
@@ -753,6 +784,13 @@ stage_kernel(const IO* __restrict__ x, const bf16* __restrict__ w,
     }
     __syncthreads();
   }
+#ifdef VOCODER_STAGE_PROBE
+  if ((threadIdx.x & 31) == 0) {
+    atomicAdd(&g_probe_cycles[threadIdx.x >> 5][0], ring.waited);
+    atomicAdd(&g_probe_cycles[threadIdx.x >> 5][1],
+              (unsigned long long)(clock64() - t_start));
+  }
+#endif
 }
 
 }  // namespace tc
@@ -780,8 +818,8 @@ int launch_simt(const void* x, const void* w, const float* bias, void* out,
 }
 
 template <typename IO, int C>
-int launch_tc_c(const void* x, const void* w, const float* bias, void* out,
-                float* acc, StageArgs a, cudaStream_t stream) {
+int launch_tc_c(const void* x, const void* w, long long w_elems, const float* bias,
+                void* out, float* acc, StageArgs a, cudaStream_t stream) {
   // The plan (Lp, tile, n_stages) comes from the wrapper
   // (ops/vocoder_kernel.py `stage_plan`); refuse one the kernel cannot run.
   const size_t per_row = (size_t)(C + tc::kPad) * 6;  // cur fp32 + ab1 bf16
@@ -799,6 +837,8 @@ int launch_tc_c(const void* x, const void* w, const float* bias, void* out,
   a.n_slices = 0;  // the weight stream's k16 slices (see tc::Ring)
   for (int blk = 0; blk < a.n_blocks; ++blk)
     a.n_slices += a.k_up * a.C_in / 16 + 2 * a.n_dil[blk] * a.ksize[blk] * C / 16;
+  // the ring's bulk copies read every slice: the buffer must hold them all
+  if (w_elems != (long long)a.n_slices * 16 * C) return (int)cudaErrorInvalidValue;
   const size_t smem = tc::kBarBytes + (size_t)a.n_stages * 64 * C + a.Lp * per_row;
   if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
   auto kern = tc::stage_kernel<IO, C>;
@@ -813,12 +853,12 @@ int launch_tc_c(const void* x, const void* w, const float* bias, void* out,
 }
 
 template <typename IO>
-int launch_tc(const void* x, const void* w, const float* bias, void* out,
-              float* acc, const StageArgs& a, cudaStream_t stream) {
+int launch_tc(const void* x, const void* w, long long w_elems, const float* bias,
+              void* out, float* acc, const StageArgs& a, cudaStream_t stream) {
   switch (a.C) {
-    case 32: return launch_tc_c<IO, 32>(x, w, bias, out, acc, a, stream);
-    case 64: return launch_tc_c<IO, 64>(x, w, bias, out, acc, a, stream);
-    case 128: return launch_tc_c<IO, 128>(x, w, bias, out, acc, a, stream);
+    case 32: return launch_tc_c<IO, 32>(x, w, w_elems, bias, out, acc, a, stream);
+    case 64: return launch_tc_c<IO, 64>(x, w, w_elems, bias, out, acc, a, stream);
+    case 128: return launch_tc_c<IO, 128>(x, w, w_elems, bias, out, acc, a, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -829,14 +869,43 @@ extern "C" const char* cuda_error_string(int e) {
   return cudaGetErrorString((cudaError_t)e);
 }
 
+// The bf16 path's plan limits, which ops/vocoder_kernel.py keeps a copy of
+// and checks on load: out[0..2] = Layout<C>::kRows at C = 32, 64, 128,
+// out[3] = kBarBytes, out[4] = kMaxStages.
+extern "C" void vocoder_stage_limits(int* out) {
+  out[0] = tc::Layout<32>::kRows;
+  out[1] = tc::Layout<64>::kRows;
+  out[2] = tc::Layout<128>::kRows;
+  out[3] = tc::kBarBytes;
+  out[4] = tc::kMaxStages;
+}
+
+#ifdef VOCODER_STAGE_PROBE
+// Probe build: host[w][0..1] <- the wait and kernel cycles of warp index w
+// (kMaxWarps rows), summed over the launches since the last reset; reset != 0
+// then zeroes them.
+extern "C" int vocoder_stage_probe(unsigned long long* host, int reset) {
+  cudaError_t e = cudaMemcpyFromSymbol(host, tc::g_probe_cycles,
+                                       sizeof(tc::g_probe_cycles));
+  if (e == cudaSuccess && reset) {
+    static const unsigned long long zeros[tc::kMaxWarps][2] = {};
+    e = cudaMemcpyToSymbol(tc::g_probe_cycles, zeros, sizeof(zeros));
+  }
+  return (int)e;
+}
+#endif
+
 // k_up == 0 selects the grouped variant (no upsample, C_in == C, r = 1).
+// w_elems: the elements of w (the fp32 weights or the bf16 slice stream),
+// checked against what the shapes below read from it.
 // ksize[n_blocks], n_dil[n_blocks], dil[n_blocks * 4] (row-major, padded).
 // acc: fp32 [B, T_out, C] resblock-sum scratch for the bf16-operand path
 // (the output itself when io is fp32); unused with fp32 operands.
 // Lp, tile, n_stages: the bf16 path's tile plan (window rows, output rows a
 // block, weight ring stages); unused with fp32 operands.
-extern "C" int vocoder_stage(const void* x, const void* w, const float* bias,
-                             void* out, void* acc, int io_bf16, int ct_bf16,
+extern "C" int vocoder_stage(const void* x, const void* w, long long w_elems,
+                             const float* bias, void* out, void* acc, int io_bf16,
+                             int ct_bf16,
                              int B, int T_in, int C_in, int C, int r, int k_up,
                              int n_blocks, const int* ksize, const int* n_dil,
                              const int* dil, float slope, int Lp, int tile,
@@ -885,9 +954,10 @@ extern "C" int vocoder_stage(const void* x, const void* w, const float* bias,
     float* accp = static_cast<float*>(io_bf16 ? acc : out);
     if (accp == nullptr) return (int)cudaErrorInvalidValue;
     a.Lp = Lp; a.tile = tile; a.n_stages = n_stages;
-    return io_bf16 ? launch_tc<__nv_bfloat16>(x, w, bias, out, accp, a, st)
-                   : launch_tc<float>(x, w, bias, out, accp, a, st);
+    return io_bf16 ? launch_tc<__nv_bfloat16>(x, w, w_elems, bias, out, accp, a, st)
+                   : launch_tc<float>(x, w, w_elems, bias, out, accp, a, st);
   }
+  if (w_elems != woff) return (int)cudaErrorInvalidValue;
   return io_bf16 ? launch_simt<__nv_bfloat16>(x, w, bias, out, a, st)
                  : launch_simt<float>(x, w, bias, out, a, st);
 }

@@ -6,6 +6,8 @@ plain C interface, at first use, into `build/kernels/` beside the package
 its source and of the shared headers (csrc/*.cuh), so an edited kernel is
 rebuilt and a stale one never loads.
 `build_all()` starts one nvcc per source at once and waits for all of them.
+`load(name, defines)` builds a variant compiled with -D<define> (a probe
+build, which no wrapper loads) under a name of its own.
 `check` and `refuse_autograd` are the guards every kernel wrapper shares.
 
 Nothing here runs at import: the CPU tests import every module, on machines
@@ -20,7 +22,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, Optional, Sequence, Tuple
 
 import torch
 
@@ -32,7 +34,7 @@ NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
-_loaded: Dict[str, ctypes.CDLL] = {}
+_loaded: Dict[Tuple[str, Tuple[str, ...]], ctypes.CDLL] = {}
 
 
 def _nvcc() -> str:
@@ -44,21 +46,23 @@ def _nvcc() -> str:
                        "the CUDA toolkit is installed")
 
 
-def _lib_path(name: str) -> Path:
+def _lib_path(name: str, defines: Sequence[str] = ()) -> Path:
     h = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.read_bytes())
     digest = h.hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    variant = "".join(f"-{d.lower()}" for d in defines)
+    return BUILD_DIR / f"lib{name}{variant}-{digest}.so"
 
 
-def _start(name: str):
-    out = _lib_path(name)
+def _start(name: str, defines: Sequence[str] = ()):
+    out = _lib_path(name, defines)
     if out.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [_nvcc(), *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-o", str(tmp),
+           str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return proc, tmp, out
@@ -81,12 +85,14 @@ def build_all() -> Dict[str, str]:
     return {name: _finish(name, job) for name, job in jobs.items()}
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of csrc/<name>.cu, built first if need be."""
-    if name not in _loaded:
-        _finish(name, _start(name))
-        _loaded[name] = ctypes.CDLL(str(_lib_path(name)))
-    return _loaded[name]
+def load(name: str, defines: Sequence[str] = ()) -> ctypes.CDLL:
+    """The loaded library of csrc/<name>.cu (compiled with -D<d> for each of
+    `defines`), built first if need be."""
+    key = (name, tuple(defines))
+    if key not in _loaded:
+        _finish(name, _start(name, defines))
+        _loaded[key] = ctypes.CDLL(str(_lib_path(name, defines)))
+    return _loaded[key]
 
 
 def check(lib: ctypes.CDLL, status: int, what: str) -> None:

@@ -115,25 +115,38 @@ def pad_stage(x, ups_w, ups_b, blocks: Sequence[Block], Cp: int):
             None if ups_b is None else _pad_to(ups_b, (Cp,)), blocks_p)
 
 
-def _stage_lib() -> ctypes.CDLL:
-    lib = cuda_build.load("vocoder_stage")
-    if not getattr(lib, "_argtypes_set", False):
-        P, I = ctypes.c_void_p, ctypes.c_int
-        lib.vocoder_stage.argtypes = [P, P, P, P, P, I, I, I, I, I, I, I, I,
-                                      I, P, P, P, ctypes.c_float, I, I, I, P]
-        lib.vocoder_stage.restype = I
-        lib._argtypes_set = True
-    return lib
-
-
 # csrc/vocoder_stage.cu, bf16 path: window rows one pass of the warps'
 # accumulators covers (Layout<C>::kRows), the mbarrier and counter header
-# (kBarBytes), the ring's stage limit (kMaxStages); the fewest stages a
-# plan keeps
+# (kBarBytes), the ring's stage limit (kMaxStages), as the library reports
+# them (`_stage_lib` checks); the fewest stages a plan keeps
 _STAGE_PASS_ROWS = {32: 1152, 64: 512, 128: 256}
 _STAGE_BAR_BYTES = 256
 _STAGE_MAX_RING = 16
 _STAGE_MIN_RING = 2
+
+
+def _stage_lib(defines: Sequence[str] = ()) -> ctypes.CDLL:
+    """csrc/vocoder_stage.cu's library (a probe variant with `defines`),
+    its limits held against the copies `stage_plan` plans with."""
+    lib = cuda_build.load("vocoder_stage", defines)
+    if not getattr(lib, "_argtypes_set", False):
+        P, I = ctypes.c_void_p, ctypes.c_int
+        lib.vocoder_stage.argtypes = [P, P, ctypes.c_longlong, P, P, P, I, I,
+                                      I, I, I, I, I, I, I, P, P, P,
+                                      ctypes.c_float, I, I, I, P]
+        lib.vocoder_stage.restype = I
+        lib.vocoder_stage_limits.argtypes = [ctypes.POINTER(ctypes.c_int)]
+        lib.vocoder_stage_limits.restype = None
+        limits = (ctypes.c_int * 5)()
+        lib.vocoder_stage_limits(limits)
+        ours = [_STAGE_PASS_ROWS[c] for c in (32, 64, 128)] + [
+            _STAGE_BAR_BYTES, _STAGE_MAX_RING]
+        if list(limits) != ours:
+            raise RuntimeError("vocoder_stage: the library's plan limits "
+                               f"{list(limits)} differ from the wrapper's "
+                               f"{ours}")
+        lib._argtypes_set = True
+    return lib
 
 
 class StagePlan(NamedTuple):
@@ -177,37 +190,6 @@ def stage_plan(C: int, r: int, geom: Sequence[Tuple[int, Sequence[int]]],
     smem = _STAGE_BAR_BYTES + stages * slice_bytes + Lp * row
     tile = Lp - 2 * halo
     return StagePlan(Lp, tile, halo, stages, smem, (-(-T_out // tile), B))
-
-
-def stage_reckoning(plan: StagePlan, C: int, C_in: int, r: int, k_up: int,
-                    geom: Sequence[Tuple[int, Sequence[int]]],
-                    T_out: int) -> Tuple[float, int]:
-    """(executed / useful products, L2 weight bytes) of one launch of the
-    bf16 kernel under `plan`, reckoned from the tile walk, not measured.
-    Executed: per block and resblock, the upsample over the whole window
-    and each conv over its output rows rounded out to m16 tiles; useful:
-    the same products over the rows inside [0, T_out). Weights: each block
-    reads every slice of each resblock (the upsample again per resblock)
-    once, in bf16."""
-    halo, tile = plan.halo, plan.tile
-    ups = (k_up // r) * C_in * C if k_up else 0  # MACs an output row
-    executed = useful = 0
-    for blk in range(plan.grid[0]):
-        rows = max(0, min(tile, T_out - blk * tile))
-        for k, dils in geom:
-            c, hb = (k - 1) // 2, _halo(k, dils)
-            lo, hi = halo - hb, halo + tile + hb
-            executed += plan.Lp * ups
-            useful += rows * (ups + 2 * len(dils) * k * C * C)
-            consumed = 0
-            for d in dils:
-                r1lo, r1hi = lo + consumed + c * d, hi - consumed - c * d
-                for a, b in ((r1lo, r1hi), (r1lo + c, r1hi - c)):
-                    executed += (-(-b // 16) - a // 16) * 16 * k * C * C
-                consumed += c * d + c
-    per_block = sum(k_up * C_in * C + 2 * len(dils) * k * C * C
-                    for k, dils in geom) * 2
-    return executed / useful, plan.grid[0] * plan.grid[1] * per_block
 
 
 def _smem_slices(w: torch.Tensor) -> torch.Tensor:
@@ -348,8 +330,8 @@ def vocoder_stage(x: torch.Tensor, ups_w: Optional[torch.Tensor],
     ints = ctypes.c_int * len(ksize)
     lib = _stage_lib()
     status = lib.vocoder_stage(
-        x.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(),
-        None if acc is None else acc.data_ptr(),
+        x.data_ptr(), w.data_ptr(), w.numel(), bias.data_ptr(),
+        out.data_ptr(), None if acc is None else acc.data_ptr(),
         int(x.dtype == torch.bfloat16), int(tensor_cores),
         B, T_in, C_in, C, r, k_up, len(blocks), ints(*ksize), ints(*n_dil),
         (ctypes.c_int * len(dil))(*dil), float(slope), plan.Lp, plan.tile,

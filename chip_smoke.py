@@ -47,9 +47,10 @@ Phases, in order; any failure exits non-zero and prints no result:
      and on the CPU, fp32: log-mel, latent means and reconstruction agree;
   6. per kernel: its launches on its main path, its device time per launch
      at main-path shapes, the bound, the plain version's and the library
-     call's device time; for the stage kernel, per V1 stage, the tile, the
-     executed/useful product ratio and the L2 weight bytes its tile plan
-     reckons, beside the earlier three-buffer design's time;
+     call's device time; for the stage kernel, per V1 stage on a log line
+     (not in the `kernels` line), the tile, the executed/useful product
+     ratio and the L2 weight bytes its tile plan reckons, beside the
+     earlier three-buffer design's time quoted from PERF.md;
   7. the served requests once more under torch.profiler (device activity
      only): the device's busy share, the kernels that take most time and
      the stage kernel's device time;
@@ -247,6 +248,36 @@ def stage_cost(args, io_bytes, op_bytes):
     flops = 2.0 * B * T_out * per_sample
     nbytes = (B * T_in * C_in + B * T_out * C) * io_bytes + w_elems * op_bytes
     return flops, nbytes
+
+
+def stage_reckoning(plan, C, C_in, r, k_up, geom, T_out):
+    """(executed / useful products, L2 weight bytes) of one launch of the
+    bf16 stage kernel under `plan` (ops/vocoder_kernel.stage_plan), reckoned
+    from the tile walk, not measured. Executed: per block and resblock, the
+    upsample over the whole window and each conv over its output rows
+    rounded out to m16 tiles; useful: the same products over the rows inside
+    [0, T_out). Weights: each block reads every slice of each resblock (the
+    upsample again per resblock) once, in bf16."""
+    halo, tile = plan.halo, plan.tile
+    ups = (k_up // r) * C_in * C if k_up else 0  # MACs an output row
+    executed = useful = 0
+    for blk in range(plan.grid[0]):
+        rows = max(0, min(tile, T_out - blk * tile))
+        for k, dils in geom:
+            c = (k - 1) // 2
+            hb = sum(c * d + c for d in dils)  # this resblock's halo
+            lo, hi = halo - hb, halo + tile + hb
+            executed += plan.Lp * ups
+            useful += rows * (ups + 2 * len(dils) * k * C * C)
+            consumed = 0
+            for d in dils:
+                r1lo, r1hi = lo + consumed + c * d, hi - consumed - c * d
+                for a, b in ((r1lo, r1hi), (r1lo + c, r1hi - c)):
+                    executed += (-(-b // 16) - a // 16) * 16 * k * C * C
+                consumed += c * d + c
+    per_block = sum(k_up * C_in * C + 2 * len(dils) * k * C * C
+                    for k, dils in geom) * 2
+    return executed / useful, plan.grid[0] * plan.grid[1] * per_block
 
 
 def attn_cost(q, k, valid, causal, dtype_bytes):
@@ -1099,7 +1130,6 @@ def phase_kernel_times(calm, voc, counts, errs, card):
     from audio_calm_torch.ops.attention_kernel import (attention_fwd,
                                                        attention_fwd_plain)
     from audio_calm_torch.ops.vocoder_kernel import (stage_plan,
-                                                     stage_reckoning,
                                                      vocoder_stage,
                                                      vocoder_stage_plain)
 
@@ -1118,7 +1148,8 @@ def phase_kernel_times(calm, voc, counts, errs, card):
             lambda: vocoder_stage_plain(*args, compute_dtype=cdt), 3)
         flops, nbytes = stage_cost(args, 4, 2 if cdt == torch.bfloat16 else 4)
         b, by = bound_ms(flops, nbytes, H100_BF16_FLOPS)
-        # the bf16 kernel's tile plan and what it reckons (not measured)
+        # the bf16 kernel's tile plan and what it reckons (not measured):
+        # this log line only, beside the earlier design's time (a constant)
         x, ups_w, _, blocks = args
         B, T_in, C_in = x.shape
         C, r = blocks[0][0].shape[-1], (1 if ups_w is None else 2)
@@ -1129,13 +1160,11 @@ def phase_kernel_times(calm, voc, counts, errs, card):
                                     geom, T_in * r)
         rows.append({"stage": index, "x": list(x.shape), "ms": ms,
                      "plain_ms": plain, "bound_ms": b, "bound_by": by,
-                     "flop": flops, "bytes": nbytes, "tile": plan.tile,
-                     "window": plan.Lp, "ring_stages": plan.stages,
-                     "executed_over_useful": ratio, "l2_weight_bytes": l2,
-                     "three_buffer_design_ms": K1_THREE_BUFFER_MS[index]})
+                     "flop": flops, "bytes": nbytes})
         log(f"  vocoder_stage stage {index}: {ms:.3f} ms (bound {b:.3f}, "
-            f"plain {plain:.3f}, three-buffer design "
-            f"{K1_THREE_BUFFER_MS[index]:.3f}); tile {plan.tile}, "
+            f"plain {plain:.3f}; three-buffer design "
+            f"{K1_THREE_BUFFER_MS[index]:.3f}, PERF.md); plan: tile "
+            f"{plan.tile}, window {plan.Lp}, ring {plan.stages} stages, "
             f"executed/useful {ratio:.3f}, L2 weight bytes {l2:.4g}")
     kernels.append({
         "name": "vocoder_stage", "route": "cuda",

@@ -148,6 +148,23 @@ def test_vocoder_stage_is_deterministic(card, C_in, C, ups):
     assert torch.equal(first, second)
 
 
+def test_vocoder_stage_refuses_a_short_weight_stream(card, monkeypatch):
+    """The bf16 kernel's bulk copies read every slice of the weight stream,
+    so it holds the buffer's length against what the shapes read: a stream
+    one k16 slice short is refused with a CUDA error, not read past its
+    end."""
+    from audio_calm_torch.ops import vocoder_kernel
+
+    args = _stage_inputs(128, 64, 100, True, card, seed=5)
+    stream = vocoder_kernel.weight_stream
+    monkeypatch.setattr(vocoder_kernel, "weight_stream",
+                        lambda *a: stream(*a)[:-16 * 64])
+    launches = vocoder_stage.launches
+    with pytest.raises(RuntimeError, match="vocoder_stage: CUDA error"):
+        vocoder_stage(*args, compute_dtype=torch.bfloat16)
+    assert vocoder_stage.launches == launches
+
+
 def _held(out, ref, cdt):
     """The JAX vocoder kernels' bounds: fp32 rtol/atol 1e-5; bf16 operands
     5e-3 max-abs, relative to the output's largest magnitude above 1."""

@@ -21,8 +21,8 @@ import torch
 
 from audio_calm_torch.ops.vocoder_kernel import (_SMEM_BYTES, _smem_slices,
                                                  stage_halo, stage_plan,
-                                                 stage_reckoning,
                                                  weight_stream)
+from chip_smoke import stage_reckoning
 
 V1_GEOM = ((3, (1, 3, 5)), (7, (1, 3, 5)), (11, (1, 3, 5)))
 # (C, r) of every stage the kernel runs: V1 128 grouped, 128 -> 64 and
