@@ -76,7 +76,9 @@
 // four threads a row, tiles in shared memory, fp32 throughout.
 //
 // Layouts as in JAX: [B, T, H, d], contiguous, rows 16-byte aligned (the
-// wrapper realigns). d is a template parameter (32, 64, 96, 128).
+// wrapper realigns). d is a template parameter (32, 48, 64, 96, 128); at
+// d = 48 the loops over k16 slices run 3 times and delta's 6 chunks a row
+// fall to the quad's threads 2, 2, 1, 1.
 
 #include "common.cuh"
 
@@ -921,6 +923,7 @@ extern "C" int attention_bwd(const void* q, const void* k, const void* v, const 
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 32: return launch_d<32>(is_bf16, q, k, v, o, dout, valid, dq, dk, dv, st4, B, Tq, S, Hq, Hkv, causal, st);
+    case 48: return launch_d<48>(is_bf16, q, k, v, o, dout, valid, dq, dk, dv, st4, B, Tq, S, Hq, Hkv, causal, st);
     case 64: return launch_d<64>(is_bf16, q, k, v, o, dout, valid, dq, dk, dv, st4, B, Tq, S, Hq, Hkv, causal, st);
     case 96: return launch_d<96>(is_bf16, q, k, v, o, dout, valid, dq, dk, dv, st4, B, Tq, S, Hq, Hkv, causal, st);
     case 128: return launch_d<128>(is_bf16, q, k, v, o, dout, valid, dq, dk, dv, st4, B, Tq, S, Hq, Hkv, causal, st);

@@ -49,7 +49,13 @@
 //
 // Layouts as in JAX: q [B, T, Hq, d], k/v [B, S, Hkv, d], out [B, T, Hq, d],
 // key_valid [B, S] uint8; rows 16-byte aligned (the wrapper realigns). d is
-// a template parameter (32, 64, 96, 128).
+// a template parameter (32, 48, 64, 96, 128). d = 48 (the DiT heads of
+// configs/calm.yaml and configs/asr.yaml: hidden 768, 16 heads) is 3 k16
+// slices and 6 n8 column blocks: every product loop runs over the k16
+// slices, each ldmatrix .x4 covers one slice (16 keys x 16 dims for K, 16
+// keys x two n8 blocks for V), so no loop needs an even count; its 56-element
+// (112-byte) shared rows put the 8 row addresses of an ldmatrix phase on 8
+// distinct 4-bank groups, as the 72- and 136-element rows do.
 
 #include "common.cuh"
 
@@ -385,6 +391,7 @@ extern "C" int attention_fwd(const void* q, const void* k, const void* v,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 32: return launch_d<32>(is_bf16, q, k, v, valid, out, B, Tq, S, Hq, Hkv, causal, st);
+    case 48: return launch_d<48>(is_bf16, q, k, v, valid, out, B, Tq, S, Hq, Hkv, causal, st);
     case 64: return launch_d<64>(is_bf16, q, k, v, valid, out, B, Tq, S, Hq, Hkv, causal, st);
     case 96: return launch_d<96>(is_bf16, q, k, v, valid, out, B, Tq, S, Hq, Hkv, causal, st);
     case 128: return launch_d<128>(is_bf16, q, k, v, valid, out, B, Tq, S, Hq, Hkv, causal, st);

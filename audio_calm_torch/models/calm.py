@@ -1,13 +1,18 @@
-"""QwenCALM, TTS members (counterpart of audio_calm_tpu/models/calm.py).
+"""QwenCALM (counterpart of audio_calm_tpu/models/calm.py).
 
-The Qwen2 backbone (+LoRA) encodes [text | SOA]; the length and duration
-predictors size the audio; the DiT flow head is the ODE's velocity field.
-Module names follow the JAX parameter tree (embed, llm, input_proj,
-soa_embed, tts_flow_head, tts_len_predictor, tts_dur_predictor) so weights
-carry across one-to-one (models/convert.py). Training: `forward_tts` with
-the reference's solo semantics (every row one utterance). Still to be
-ported: the ASR members (asr_cross_attn, asr_query_embed, asr_flow_head,
-forward_asr) and the packed forwards.
+TTS: the Qwen2 backbone (+LoRA) encodes [text | SOA]; the length and
+duration predictors size the audio; the DiT flow head is the ODE's velocity
+field. ASR: [audio | SOA | prompt] through the same backbone, positional
+queries cross-attend to the audio positions, a context-free DiT head is
+the velocity field over LLM-embedding space, and the nearest vocab rows by
+cosine are the token ids. Module names follow the JAX parameter tree
+(embed, llm, input_proj, soa_embed, tts_flow_head, tts_len_predictor,
+tts_dur_predictor, asr_cross_attn, asr_query_embed, asr_flow_head) so
+weights carry across one-to-one (models/convert.py); the ASR modules are
+registered after the TTS ones, so the TTS dropout sites keep their
+numbers. Training: `forward_tts` with the reference's solo semantics
+(every row one utterance). Still to be ported: `forward_asr` and the
+packed forwards.
 
 The model computes in `compute_dtype` (default: the dtype of its weights;
 fp32 for the parity tests, bf16 for serving and training) and casts its
@@ -26,7 +31,9 @@ from audio_calm_torch.config import CALMModelConfig
 from audio_calm_torch.models.calm_heads import (AudioInputProjector,
                                                 PredictorMLP,
                                                 TransformerFlowHead)
+from audio_calm_torch.models.layers import Embed
 from audio_calm_torch.models.qwen2 import Qwen2Embed, Qwen2Model
+from audio_calm_torch.ops.attention import MultiheadAttention
 from audio_calm_torch.ops.dropout import assign_dropout_sites
 from audio_calm_torch.ops.flow import compute_flow_loss
 from audio_calm_torch.ops.mas import monotonic_alignment_search
@@ -69,6 +76,15 @@ class QwenCALM(nn.Module):
         )
         self.tts_len_predictor = PredictorMLP(qdim, qdim // 2)
         self.tts_dur_predictor = PredictorMLP(qdim, qdim // 2)
+        # ASR branch (after the TTS modules: see the module docstring)
+        self.asr_cross_attn = MultiheadAttention(qdim, 16, dropout=0.1)
+        self.asr_query_embed = Embed(cfg.max_text_len, qdim)
+        self.asr_flow_head = TransformerFlowHead(
+            input_dim=qdim, output_dim=qdim,
+            hidden_dim=cfg.asr_flow_hidden_dim,
+            num_layers=cfg.asr_flow_num_layers,
+            num_heads=cfg.flow_num_heads, context_dim=None,
+        )
         assign_dropout_sites(self)
 
     @property
@@ -90,6 +106,19 @@ class QwenCALM(nn.Module):
 
     def embed_tokens(self, ids: torch.Tensor) -> torch.Tensor:
         return self.embed(ids)
+
+    def search_nearest_tokens(self, x: torch.Tensor) -> torch.Tensor:
+        """Cosine-nearest vocab ids for continuous embeddings [..., D]: both
+        sides L2-normalised in fp32, one [.., D] @ [D, V] product, argmax
+        (JAX computes it outside any kernel; here torch.matmul, in full
+        fp32 under PyTorch's default, TF32 off for matmuls)."""
+        xn = x.float()
+        xn = xn / torch.linalg.vector_norm(
+            xn, dim=-1, keepdim=True).clamp_min(1e-12)
+        tn = self.embed.embedding.float()
+        tn = tn / torch.linalg.vector_norm(
+            tn, dim=-1, keepdim=True).clamp_min(1e-12)
+        return torch.argmax(torch.matmul(xn, tn.t()), dim=-1)
 
     def _llm_encode(self, inputs_embeds, attention_mask, train=False, seed=0):
         pos_ids = (attention_mask.long().cumsum(-1) - 1).clamp_min(0)
@@ -136,6 +165,37 @@ class QwenCALM(nn.Module):
     def tts_flow_fn(self, condition, x, t, context, context_mask, x_mask):
         return self.tts_flow_head(condition, x, t, context=context,
                                   context_mask=context_mask, x_mask=x_mask)
+
+    def asr_flow_fn(self, condition, x, t, context=None, context_mask=None,
+                    x_mask=None):
+        return self.asr_flow_head(condition, x, t, x_mask=x_mask)
+
+    def asr_encode_audio(self, latents: torch.Tensor,
+                         audio_mask: torch.Tensor, prompt_ids: torch.Tensor,
+                         prompt_mask: torch.Tensor,
+                         num_queries: int) -> torch.Tensor:
+        """Raw latents [B, T_aud, latent_dim] + mask, prompt ids + mask ->
+        [audio | SOA | prompt] through the LLM, then positional queries
+        clip(arange(num_queries), 0, max_text_len - 1) cross-attend to the
+        audio positions -> condition [B, num_queries, D]."""
+        c = self.cfg
+        gt = self.normalize_latents(latents)
+        B, T_aud, _ = gt.shape
+        audio_embeds = self.input_proj(gt).to(self.dtype)
+        soa = self.soa_embed.to(self.dtype).expand(B, 1, -1)
+        prompt_embeds = self.embed_tokens(prompt_ids).to(self.dtype)
+        inp = torch.cat([audio_embeds, soa, prompt_embeds], dim=1)
+        audio_mask = audio_mask.long()
+        full_mask = torch.cat([audio_mask, torch.ones_like(audio_mask[:, :1]),
+                               prompt_mask.long()], dim=1)
+        hidden = self._llm_encode(inp, full_mask)
+        audio_context = hidden[:, :T_aud, :]
+        pos = torch.arange(num_queries, device=gt.device).clamp(
+            0, c.max_text_len - 1)
+        queries = self.asr_query_embed(pos)[None].to(self.dtype).expand(
+            B, -1, -1)
+        return self.asr_cross_attn(queries, audio_context, audio_context,
+                                   key_padding_mask=audio_mask == 0)
 
     # ------------------------------------------------------------------
     # TTS training (JAX calm.py:170-312, solo semantics: real=None)

@@ -29,7 +29,8 @@ from typing import Dict, Iterator, Tuple
 import numpy as np
 import torch
 
-# QwenCALM members that the port does not build yet
+# the QwenCALM members of the ASR branch: flax initialises lazily per code
+# path, so a tree made by the TTS forward alone does not hold them
 ASR_COMPONENTS = ("asr_cross_attn", "asr_query_embed", "asr_flow_head")
 _WRAPPERS = {"conv", "gn"}
 _RENAMES = (
@@ -102,9 +103,27 @@ def jax_path(model: torch.nn.Module, name: str) -> Tuple[str, ...]:
 
 
 def load_calm(model, tree: Dict) -> None:
-    """QwenCALM (TTS members) <- the JAX QwenCALM parameter tree."""
-    tree = {k: v for k, v in _unwrap(tree).items() if k not in ASR_COMPONENTS}
-    model.load_state_dict(from_jax_params(tree), strict=True)
+    """QwenCALM <- the JAX QwenCALM parameter tree, strictly for every
+    branch the tree holds: the TTS branch always, the ASR branch
+    (`ASR_COMPONENTS`) whole or not at all. Every parameter of a held
+    branch is loaded and the tree has no parameter the model lacks; a tree
+    without the ASR branch leaves the model's ASR modules as they are."""
+    tree = _unwrap(tree)
+    held = [c for c in ASR_COMPONENTS if c in tree]
+    if held and len(held) != len(ASR_COMPONENTS):
+        raise ValueError(f"load_calm: the tree holds {held} of the ASR "
+                         f"branch {ASR_COMPONENTS}, not all of it")
+    if "tts_flow_head" not in tree:
+        raise ValueError("load_calm: the tree has no TTS branch "
+                         "(tts_flow_head)")
+    missing, unexpected = model.load_state_dict(from_jax_params(tree),
+                                                strict=False)
+    if not held:
+        missing = [k for k in missing
+                   if k.split(".")[0] not in ASR_COMPONENTS]
+    if missing or unexpected:
+        raise RuntimeError(f"load_calm: missing {missing}, unexpected "
+                           f"{unexpected}")
 
 
 def load_vae(vae, tree: Dict) -> None:

@@ -34,6 +34,17 @@ class Linear(nn.Linear):
         return F.linear(x.to(dt), self.weight.to(dt), bias)
 
 
+class Embed(nn.Module):
+    """A lookup table [num, dim] (flax nn.Embed; parameter `embedding`)."""
+
+    def __init__(self, num: int, dim: int):
+        super().__init__()
+        self.embedding = nn.Parameter(torch.zeros(num, dim))
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        return F.embedding(ids, self.embedding)
+
+
 def gelu(x: torch.Tensor) -> torch.Tensor:
     """Exact-erf GELU, not the tanh approximation."""
     return F.gelu(x, approximate="none")

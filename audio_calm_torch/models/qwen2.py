@@ -23,6 +23,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from audio_calm_torch.config import LoRAConfig, Qwen2Config
+from audio_calm_torch.models.layers import Embed
 from audio_calm_torch.models.lora import LoRADense
 from audio_calm_torch.ops.attention_kernel import attention_fwd, flash_attention
 
@@ -176,13 +177,8 @@ class Qwen2Model(nn.Module):
         return self.norm(x)
 
 
-class Qwen2Embed(nn.Module):
+class Qwen2Embed(Embed):
     """Token embedding table."""
 
     def __init__(self, cfg: Qwen2Config):
-        super().__init__()
-        self.embedding = nn.Parameter(
-            torch.zeros(cfg.vocab_size, cfg.hidden_size))
-
-    def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
-        return F.embedding(input_ids, self.embedding)
+        super().__init__(cfg.vocab_size, cfg.hidden_size)

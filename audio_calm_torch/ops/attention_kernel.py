@@ -26,7 +26,7 @@ import torch
 from audio_calm_torch.ops import cuda_build
 
 NEG = -1e30
-_KERNEL_HEAD_DIMS = (32, 64, 96, 128)
+_KERNEL_HEAD_DIMS = (32, 48, 64, 96, 128)
 _KERNEL_MAX_LEN = 512  # the JAX gate attention_available
 _FLASH = "audio_calm_torch.ops.attention_kernel.flash_attention"
 

@@ -9,7 +9,7 @@ Phases, in order; any failure exits non-zero and prints no result:
   3. each kernel against its plain PyTorch version on the card, at the main
      paths' shapes, fp32 and bf16 (the attention backward at the Qwen2
      training shape and the DiT self-attention shape, two launches giving
-     the same bits, and the flash_attention Function against autograd
+     the same bits, the forward also at the ASR path's three shapes, and the flash_attention Function against autograd
      through the plain forward; the resblock kernel at C = 12, 24, 48, 96,
      128, 256 and k = 3, 7, 11 with a ragged last tile, the sequence
      edges held on their own; the stage kernel at HiFi-GAN V2's C = 16
@@ -45,6 +45,18 @@ Phases, in order; any failure exits non-zero and prints no result:
   5d. VAE reconstruction: 8 s of a seeded synthetic signal through the mel
      frontend and eval/reconstruct at the flagship VAE's width, on the card
      and on the CPU, fp32: log-mel, latent means and reconstruction agree;
+  5e. ASR at configs/asr.yaml's widths (Qwen2-1.5B widths, heads 768 x 4
+     with 16 heads: head dim 48) with 2 LLM layers, fp32, card vs CPU on
+     the same weights, latents and ODE noise: the condition, the Euler-20
+     ODE's output and the nearest-token ids (margin-aware), and the card's
+     attention launches;
+  5f. the ASR path at asr.yaml's full width: two seeded wavs (24.576 s and
+     15 s) through the bucketed frontend (buckets 96/192/288/384 latent
+     frames, the flagship VAE) and encode_chunks, then CALMInference.
+     asr_batch (28 layers, random bf16 weights from a seed, Euler-20, cfg
+     1, one seed a row): launches, batch rows against solo calls, phase
+     walls (frontend, encode, ODE, nearest-token search), the realtime
+     factor and one profiled request's device busy share;
   6. per kernel: its launches on its main path, its device time per launch
      at main-path shapes, the bound, the plain version's and the library
      call's device time; for the stage kernel, per V1 stage on a log line
@@ -81,6 +93,12 @@ SEC_PER_FRAME = 4 * 256 / 16000  # one latent frame = 1024 samples at 16 kHz
 # section 6, kernel table, run C
 K1_THREE_BUFFER_MS = {1: 5.321, 2: 3.622, 3: 2.368}
 TRAIN_STEPS = 5
+# configs/asr.yaml, written out by hand: the card's machine has no YAML
+# loader (tests/test_torch_asr_frontend.py holds these against the JAX
+# package's load_config); the model in asr_yaml_config below
+ASR_BUCKETS = [96, 192, 288, 384]  # data.audio_buckets, latent frames
+ASR_ODE = dict(steps=20, method="euler", cfg_scale=1.0)  # reference protocol
+ASR_SEEDS = [11, 12]
 
 
 def log(msg: str) -> None:
@@ -159,6 +177,44 @@ def build_models(device, num_llm_layers=None, calm_dtype=torch.bfloat16,
     gen = build_random(lambda: HiFiGANGenerator(HiFiGANConfig()), device,
                        seed=2)
     return calm, vae, vae_cfg, HiFiGANVocoder(gen, compute_dtype=compute_dtype)
+
+
+def asr_yaml_config(num_llm_layers=None):
+    """configs/asr.yaml's model: Qwen2-1.5B (28 layers, hidden 1536, 12/2
+    heads) with LoRA r=64 alpha=128, TTS and ASR heads 768 x 4 layers with
+    16 heads (head dim 48), latent 128, max_text_len 96, max_audio_len 384;
+    `num_llm_layers` cuts the depth."""
+    from audio_calm_torch.config import (CALMModelConfig, LoRAConfig,
+                                         Qwen2Config)
+
+    qwen = Qwen2Config()
+    if num_llm_layers is not None:
+        qwen.num_hidden_layers = num_llm_layers
+    return CALMModelConfig(
+        tts_loss_weight=0.0, asr_loss_weight=1.0, len_pred_loss_weight=0.1,
+        dur_pred_loss_weight=0.0, use_lora=True,
+        lora=LoRAConfig(rank=64, alpha=128.0, dropout=0.05),
+        freeze_projector=True, use_precomputed_latents=True, latent_dim=128,
+        tts_flow_hidden_dim=768, tts_flow_num_layers=4,
+        asr_flow_hidden_dim=768, asr_flow_num_layers=4,
+        mel_mean=-6.589515, mel_std=3.860679, max_text_len=96,
+        max_audio_len=384, qwen=qwen)
+
+
+def asr_wavs(seed=0):
+    """Two 16 kHz test signals from a seed: 24.576 s (the 384-frame grid's
+    393,216 samples) and 15 s; each a few sines whose pitch glides, with
+    noise."""
+    rng = np.random.default_rng(seed)
+    wavs = []
+    for n in (384 * 1024, 15 * 16000):
+        t = np.arange(n) / 16000
+        f0 = rng.uniform(120, 260)
+        glide = 1 + 0.2 * np.sin(2 * np.pi * t / rng.uniform(1.5, 4))
+        w = sum(a * np.sin(2 * np.pi * f0 * h * np.cumsum(glide) / 16000)
+                for h, a in ((1, 0.4), (2, 0.2), (3, 0.1)))
+        wavs.append((w + 0.02 * rng.standard_normal(n)).astype(np.float32))
+    return wavs
 
 
 def odd_width_config():
@@ -340,6 +396,12 @@ def phase_kernels(gen, card):
         (2, 384, 25, 16, 16, 64, False, "DiT cross"),
         (1, 25, 25, 12, 2, 128, True, "Qwen2 T=25"),
         (2, 97, 97, 12, 2, 128, True, "Qwen2 T=97"),
+        # ASR at configs/asr.yaml's width: the query cross-attention (16
+        # heads over 1536), the ASR head's self-attention (768 / 16), the
+        # Qwen2 encode over [audio 384 | SOA | 76 prompt tokens]
+        (2, 96, 384, 16, 16, 96, False, "ASR cross d=96"),
+        (2, 96, 96, 16, 16, 48, False, "ASR DiT self d=48"),
+        (2, 461, 461, 12, 2, 128, True, "ASR Qwen2 L=461"),
     ]
     for B, T, S, Hq, Hkv, d, causal, label in shapes:
         valid = torch.ones(B, S, dtype=torch.bool, device=card)
@@ -1047,6 +1109,254 @@ def phase_reconstruct(card):
             "reconstruct_with_gl_s": rec_s}
 
 
+def ids_agreement(x_ref, x_dev, table, ids_ref, ids_dev):
+    """Margin-aware agreement of nearest-token ids: a query's id must agree
+    wherever the reference's top-1 minus top-2 cosine exceeds twice the
+    distance between the two unit-normalised states (no cosine to a unit
+    row moves by more than that distance). -> (checked, agreeing, total,
+    disagreeing among the checked); computed on x_dev's device, fp32."""
+    dev = x_dev.device
+    xr, xd, tn = (torch.nn.functional.normalize(t.to(dev).float(), dim=-1)
+                  for t in (x_ref, x_dev, table))
+    top2 = torch.topk(torch.matmul(xr, tn.t()), 2, dim=-1).values
+    margin = top2[..., 0] - top2[..., 1]
+    bound = 2 * (xd - xr).norm(dim=-1) + 1e-6
+    checked = margin > bound
+    agree = ids_ref.to(dev) == ids_dev.to(dev)
+    return (int(checked.sum()), int(agree.sum()), agree.numel(),
+            int((checked & ~agree).sum()))
+
+
+def first_row_gaps(model, batched, solo, n=3):
+    """The first `n` modules (in call order) whose output's row 0 under
+    batched() differs from solo()'s only row -> [(name, max gap)]."""
+    outs = {}
+
+    def hook(name):
+        def record(_, __, out):
+            if isinstance(out, torch.Tensor):
+                outs.setdefault(name, out.detach().clone())
+        return record
+
+    handles = [m.register_forward_hook(hook(name))
+               for name, m in model.named_modules() if name]
+    try:
+        with torch.no_grad():
+            batched()
+            first, outs = outs, {}
+            solo()
+    finally:
+        for h in handles:
+            h.remove()
+    gaps = [(k, (first[k][:1].float() - v.float()).abs().max().item())
+            for k, v in outs.items()
+            if v.shape[0] == 1 and k in first and first[k].shape[1:] ==
+            v.shape[1:] and not torch.equal(first[k][:1], v)]
+    return gaps[:n]
+
+
+def asr_batch_vs_solo(inf, lats, ids, card):
+    """asr_batch's rows (ids [B, Q]) against solo calls with the same
+    seeds: ids equal a row, the ODE states' largest gap, the margin-aware
+    agreement (ids_agreement, the solo call as the reference) and the
+    first modules whose batch row 0 differs from the solo row."""
+    from audio_calm_torch.eval.infer import asr_decode, asr_encode
+
+    calm = inf.model
+    solo = [inf._asr_ids([x], [s], pad_batch=False, **ASR_ODE)[0][0]
+            for x, s in zip(lats, ASR_SEEDS)]
+    runs = []
+    with torch.no_grad():
+        for rows in (range(len(lats)),) + tuple((i,) for i in range(
+                len(lats))):
+            *args, x_init = inf._asr_inputs([lats[i] for i in rows],
+                                            [ASR_SEEDS[i] for i in rows])
+            cond, q_valid, _ = asr_encode(calm, *args, num_queries=96)
+            runs.append((args, cond, asr_decode(
+                calm, cond, q_valid, x_init=x_init, **ASR_ODE)))
+        (args_b, cond_b, x_b), solos = runs[0], runs[1:]
+        t = torch.full((len(lats),), 0.5, device=card)
+        where = {
+            "encode": first_row_gaps(
+                calm, lambda: calm.asr_encode_audio(*args_b, 96),
+                lambda: calm.asr_encode_audio(*solos[0][0], 96)),
+            "asr_head": first_row_gaps(
+                calm, lambda: calm.asr_flow_fn(cond_b, x_b, t),
+                lambda: calm.asr_flow_fn(cond_b[:1], x_b[:1], t[:1]))}
+    return {"ids_equal": [int((a == b).sum()) for a, b in zip(ids, solo)],
+            "state_gap": [(x_b[i] - x[0]).float().abs().max().item()
+                          for i, (_, _, x) in enumerate(solos)],
+            "margin_aware": ids_agreement(
+                torch.cat([x for _, _, x in solos]), x_b,
+                calm.embed.embedding, torch.as_tensor(np.stack(solo)),
+                torch.as_tensor(ids)),
+            "first_differing_modules": where}
+
+
+def phase_asr_reduced_depth(card):
+    """configs/asr.yaml's widths with 2 LLM layers, fp32, card vs CPU, same
+    weights, latents and ODE noise: asr_encode's condition, the Euler-20
+    ODE's output (the ASR head at d = 48 through K3 on the card) and the
+    nearest-token ids, held margin-aware; the card's K3/K4 launches."""
+    import copy
+
+    from audio_calm_torch.data.tokenizer import ByteTokenizer
+    from audio_calm_torch.eval.infer import (ASR_PROMPT, asr_decode,
+                                             asr_encode)
+    from audio_calm_torch.models.calm import QwenCALM
+    from audio_calm_torch.models.flagship import random_normal_
+    from audio_calm_torch.ops.attention_kernel import attention_fwd
+
+    cfg = asr_yaml_config(num_llm_layers=2)
+    cpu = QwenCALM(cfg).eval().requires_grad_(False)
+    random_normal_(cpu, seed=4)
+    dev = copy.deepcopy(cpu).to(card)
+    g = torch.Generator().manual_seed(8)
+    lat = torch.randn(2, 384, 128, generator=g)
+    amask = (torch.arange(384)[None, :] < torch.tensor([[384], [235]])).int()
+    prompt = torch.tensor([ByteTokenizer().encode(ASR_PROMPT)] * 2)
+    x0 = torch.randn(2, 96, 1536, generator=g)
+    res = {}
+    for name, model, device in (("cpu", cpu, "cpu"), ("card", dev, card)):
+        args = [t.to(device) for t in (lat, amask, prompt,
+                                       torch.ones_like(prompt))]
+        attention_fwd.launches = 0
+        cond, q_valid, q_len = asr_encode(model, *args, num_queries=96)
+        x = asr_decode(model, cond, q_valid, x_init=x0.to(device), **ASR_ODE)
+        ids = model.search_nearest_tokens(x)
+        res[name] = [t.cpu() for t in (cond, x, ids, q_len)]
+        res[name].append(attention_fwd.launches)
+    (cond_c, x_c, ids_c, q_c, _), (cond_d, x_d, ids_d, q_d, n_d) = (
+        res["cpu"], res["card"])
+    L, n_dit = 2, cfg.asr_flow_num_layers * ASR_ODE["steps"]
+    want = L + 1 + n_dit  # Qwen2 layers, cross-attention, DiT self
+    errs = {"condition": (cond_d - cond_c).abs().max().item(),
+            "ode_state": (x_d - x_c).abs().max().item()}
+    # fp32 both sides, TF32 off: summation order through 2 LLM layers and
+    # one cross-attention (1e-4 of the largest value), then 20 Euler steps
+    # of the 4-layer head (1e-3 of the largest value)
+    bounds = {"condition": 1e-4 * max(1.0, cond_c.abs().max().item()),
+              "ode_state": 1e-3 * max(1.0, x_c.abs().max().item())}
+    checked, agree, total, bad = ids_agreement(
+        x_c, x_d.to(card), dev.embed.embedding, ids_c, ids_d)
+    log(f"  ASR reduced depth: q_len {q_c.tolist()} / {q_d.tolist()}; "
+        f"max_abs_err {errs} bounds {bounds}; ids agree {agree} of {total} "
+        f"({100 * agree / total:.1f}%), {checked} past the margin bound, "
+        f"{bad} of them disagree; card launches {n_d} (expected {want})")
+    check(torch.equal(q_c, q_d) and q_c.tolist() == [96, 58],
+          "ASR query lengths")
+    check(all(errs[k] <= bounds[k] for k in errs), "ASR card vs CPU")
+    check(bad == 0, "ASR ids card vs CPU where the margin decides them")
+    check(n_d == want, "ASR kernel launches at reduced depth")
+    return {"errors": errs, "bounds": bounds, "ids_agree": agree,
+            "ids_total": total, "ids_past_margin": checked}
+
+
+def phase_asr_main_path(card):
+    """ASR at configs/asr.yaml's full width: two seeded wavs through the
+    bucketed frontend (flagship VAE, 512 channels) and encode_chunks, then
+    CALMInference.asr_batch (28-layer Qwen2 over [audio | SOA | prompt],
+    query cross-attention, Euler-20 over the 768 x 4 ASR head at cfg 1,
+    nearest-token ids; random bf16 weights from a seed), one seed a row.
+    Launches, batch rows against solo calls, phase walls, realtime factor,
+    and one profiled request."""
+    from audio_calm_torch.config import MelConfig, VAEModelConfig
+    from audio_calm_torch.data.tokenizer import ByteTokenizer
+    from audio_calm_torch.eval.infer import (ASR_PROMPT, CALMInference,
+                                             asr_decode, asr_encode)
+    from audio_calm_torch.models.calm import QwenCALM
+    from audio_calm_torch.models.flagship import build_random
+    from audio_calm_torch.models.vae import AcousticVAE
+    from audio_calm_torch.ops.attention_kernel import attention_fwd
+    from audio_calm_torch.serving.frontend import (encode_chunks,
+                                                   make_asr_frontend)
+
+    cfg = asr_yaml_config()
+    calm, build_s = synced(lambda: build_random(
+        lambda: QwenCALM(cfg), card, seed=5, dtype=torch.bfloat16))
+    vae_cfg = VAEModelConfig()
+    vae = build_random(lambda: AcousticVAE(vae_cfg), card, seed=1)
+    log(f"  asr.yaml model built in {build_s:.1f} s: "
+        f"{sum(p.numel() for p in calm.parameters()) / 1e9:.3f} B params "
+        f"(bf16), {cfg.qwen.num_hidden_layers} LLM layers, heads "
+        f"{cfg.asr_flow_hidden_dim}/{cfg.flow_num_heads}")
+    prep, batch = make_asr_frontend(vae, vae_cfg, MelConfig(), ASR_BUCKETS,
+                                    device=card)
+    inf = CALMInference(calm, ByteTokenizer(), device=card)
+    wavs = asr_wavs()
+    audio_s = sum(len(w) for w in wavs) / 16000
+
+    def request():
+        lats = encode_chunks(prep, batch, wavs)
+        return lats, inf.asr_batch(lats, ASR_SEEDS, **ASR_ODE)
+
+    synced(request)  # warm-up: cuBLAS/cuDNN plans, allocator
+    attention_fwd.launches = 0
+    (lats, texts), wall = synced(request)
+    launches = attention_fwd.launches
+    # the request's ids, for the checks (the same device work again)
+    ids, q_len = inf._asr_ids(lats, ASR_SEEDS, **ASR_ODE)
+    L = cfg.qwen.num_hidden_layers
+    want = L + 1 + cfg.asr_flow_num_layers * ASR_ODE["steps"]
+    prompt_len = len(inf._encode_prompt(ASR_PROMPT))
+    seq = cfg.max_audio_len + 1 + prompt_len
+    log(f"  ASR request: wavs {[len(w) for w in wavs]} samples -> latents "
+        f"{[x.shape[0] for x in lats]} frames (buckets of "
+        f"{[prep(w)[0] for w in wavs]} samples); prompt {prompt_len} tokens, "
+        f"LLM sequence L = {seq}; q_len {q_len.tolist()}; attention_fwd "
+        f"launches {launches} (expected {want}: {L} Qwen2 layers, 1 cross, "
+        f"{want - L - 1} ASR head)")
+    check(launches == want, "ASR path kernel launches")
+    check([x.shape for x in lats] == [(385, 128), (235, 128)] and all(
+        np.isfinite(x).all() for x in lats), "ASR frontend latents")
+    check(q_len.tolist() == [96, 58] and ids.shape == (2, 96)
+          and ((ids >= 0) & (ids < cfg.qwen.vocab_size)).all(),
+          "ASR ids and query lengths")
+    check(texts == [inf._asr_decode_row(ids[i], q_len[i]) for i in range(2)],
+          "asr_batch's transcripts are its ids' decodes")
+    solo_texts = [inf.asr(x, s, **ASR_ODE) for x, s in zip(lats, ASR_SEEDS)]
+    vs_solo = asr_batch_vs_solo(inf, lats, ids, card)
+    log(f"  asr_batch rows vs solo asr: {vs_solo}; transcripts equal "
+        f"{texts == solo_texts}, {[len(t) for t in texts]} characters")
+    # the noise is the seed's alone, but cuBLAS picks its GEMM kernels by
+    # row count, so a bf16 row of a batch is a rounding away from the solo
+    # row (ROADMAP Queue 3): its ids must agree wherever the margin between
+    # the two nearest rows exceeds what that rounding can move
+    check(vs_solo["margin_aware"][3] == 0, "asr_batch rows agree with solo "
+          "asr calls with the same seeds wherever the margin decides the id")
+
+    # phase walls (host, each ending in a device synchronize)
+    walls = {}
+    _, walls["frontend_s"] = synced(lambda: encode_chunks(prep, batch, wavs))
+    *args, x_init = inf._asr_inputs(lats, ASR_SEEDS)
+    with torch.no_grad():
+        (cond, q_valid, _), walls["encode_s"] = synced(
+            lambda: asr_encode(calm, *args, num_queries=96))
+        x, walls["ode_s"] = synced(lambda: asr_decode(
+            calm, cond, q_valid, x_init=x_init, **ASR_ODE))
+        ids2, walls["search_s"] = synced(lambda: calm.search_nearest_tokens(x))
+    check(bool(torch.isfinite(x).all()) and np.array_equal(
+        ids2.cpu().numpy(), ids), "ASR phases give the request's ids")
+    phase_sum = sum(walls.values())
+    row = {"audio_s": audio_s, "wall_s": wall, "realtime_factor": audio_s
+           / wall, **walls, "realtime_factor_phase_sum": audio_s / phase_sum,
+           "launches": launches, "prompt_tokens": prompt_len, "llm_len": seq,
+           "q_len": q_len.tolist(), "latent_frames": [x.shape[0]
+                                                       for x in lats],
+           "batch_vs_solo": vs_solo}
+    p_wall, rows = device_profile(request)
+    busy = sum(r[1] for r in rows)
+    check(busy > 0, "the profiler saw device time in the ASR request")
+    row.update({"profiled_wall_s": p_wall, "device_busy_s": busy,
+                "busy_share_of_wall": busy / wall})
+    log(f"  ASR: {audio_s:.3f} s of audio in {wall:.4f} s wall, realtime "
+        f"factor {audio_s / wall:.2f}x; phases {walls}; device busy "
+        f"{busy:.4f} s, {100 * busy / wall:.1f}% of the unprofiled wall")
+    for name, s_, n in rows[:8]:
+        log(f"    {1e3 * s_:9.3f} ms {n:6d} calls  {name[:90]}")
+    return launches, row
+
+
 def kernel_time_resblock(vocs, v1_gen, launches, worst, card):
     """K6 per launch at the odd-width render's resblock shapes (B=2,
     384-frame grid: [2, 98304, 96], [2, 196608, 48], [2, 393216, 24], k =
@@ -1123,12 +1433,70 @@ def kernel_time_narrow_stages(v2_gen, card):
     return rows
 
 
-def phase_kernel_times(calm, voc, counts, errs, card):
-    """ms per launch at main-path shapes, beside bound, plain and library."""
+def attention_row(label, q, k, v, valid, causal, launches, card):
+    """attention_fwd's device ms per launch on these inputs, beside its
+    plain version's, SDPA's and the bound."""
     import torch.nn.functional as F
 
     from audio_calm_torch.ops.attention_kernel import (attention_fwd,
                                                        attention_fwd_plain)
+
+    B, T, Hq, d = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    ms = device_ms(lambda: attention_fwd(q, k, v, valid, causal), 50)
+    plain = device_ms(lambda: attention_fwd_plain(q, k, v, valid, causal), 50)
+    mask = valid[:, None, None, :].expand(B, 1, T, S)
+    if causal:
+        mask = mask & torch.ones(T, S, dtype=torch.bool,
+                                 device=card).tril(S - T)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    lib = device_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, enable_gqa=Hq != Hkv), 50)
+    flops, nbytes = attn_cost(q, k, valid, causal, q.element_size())
+    b, by = bound_ms(flops, nbytes, H100_BF16_FLOPS)
+    row = {"shape": label, "q": [B, T, Hq, d], "S": S,
+           "launches_per_request": launches, "ms": ms, "plain_ms": plain,
+           "library_ms": lib, "bound_ms": b, "bound_by": by}
+    log("  attention_fwd " + json.dumps(row))
+    return row
+
+
+def kernel_time_asr_attention(asr, card):
+    """K3/K4 at the ASR request's shapes (B=2, bf16, the request's masks):
+    the Qwen2 encode over [audio 384 | SOA | prompt] (causal GQA), the
+    query cross-attention (d = 96) and the ASR head's self-attention over
+    the query grid (d = 48)."""
+    g = torch.Generator(card).manual_seed(9)
+    L, (n0, n1), (q0, q1) = (asr["llm_len"], asr["latent_frames"],
+                             asr["q_len"])
+    n0, n1 = min(n0, 384), min(n1, 384)
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=g, device=card).bfloat16()
+
+    def lengths(S, *valid):
+        return torch.arange(S, device=card)[None, :] < torch.tensor(
+            valid, device=card)[:, None]
+
+    audio = lengths(384, n0, n1)
+    llm_valid = torch.cat([audio, torch.ones(2, L - 384, dtype=torch.bool,
+                                             device=card)], dim=1)
+    steps, layers = ASR_ODE["steps"], 4
+    return [
+        attention_row("ASR Qwen2 encode", rand(2, L, 12, 128),
+                      rand(2, L, 2, 128), rand(2, L, 2, 128), llm_valid,
+                      True, 28, card),
+        attention_row("ASR cross d=96", rand(2, 96, 16, 96),
+                      rand(2, 384, 16, 96), rand(2, 384, 16, 96), audio,
+                      False, 1, card),
+        attention_row("ASR DiT self d=48", rand(2, 96, 16, 48),
+                      rand(2, 96, 16, 48), rand(2, 96, 16, 48),
+                      lengths(96, q0, q1), False, steps * layers, card),
+    ]
+
+
+def phase_kernel_times(calm, voc, counts, errs, card):
+    """ms per launch at main-path shapes, beside bound, plain and library."""
     from audio_calm_torch.ops.vocoder_kernel import (stage_plan,
                                                      vocoder_stage,
                                                      vocoder_stage_plain)
@@ -1197,22 +1565,7 @@ def phase_kernel_times(calm, voc, counts, errs, card):
         valid = torch.ones(b_, S, dtype=torch.bool, device=card)
         if label != "DiT self":
             valid[1::2, 16:S_txt] = False  # the shorter text's pad
-        ms = device_ms(lambda: attention_fwd(q, k, v, valid, causal), 50)
-        plain = device_ms(
-            lambda: attention_fwd_plain(q, k, v, valid, causal), 50)
-        mask = valid[:, None, None, :].expand(b_, 1, T, S)
-        if causal:
-            mask = mask & torch.ones(T, S, dtype=torch.bool,
-                                     device=card).tril(S - T)
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        lib = device_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=mask, enable_gqa=Hq != Hkv), 50)
-        flops, nbytes = attn_cost(q, k, valid, causal, 2)
-        b, by = bound_ms(flops, nbytes, H100_BF16_FLOPS)
-        rows.append({"shape": label, "q": [b_, T, Hq, d], "S": S,
-                     "launches_per_request": n, "ms": ms, "plain_ms": plain,
-                     "library_ms": lib, "bound_ms": b, "bound_by": by})
-        log("  attention_fwd " + json.dumps(rows[-1]))
+        rows.append(attention_row(label, q, k, v, valid, causal, n, card))
     w = np.array([r["launches_per_request"] for r in rows], float)
 
     def wmean(key):
@@ -1327,9 +1680,18 @@ def main() -> int:
     logs, build_s = synced(cuda_build.build_all)
     log(f"phase build: {build_s:.1f} s")
     for name, text in logs.items():
+        entry = ""
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {name}: {line.strip()}")
+            if "Function properties for" in line:
+                # the mangled entry, shortened to namespace, name and the
+                # template's integer arguments: tc::attention_kernel<48>
+                m = re.search(r"(simt|tc)\d+(\w+?kernel)I(\w+?)EE",
+                              line.split()[-1])
+                entry = (f"{m[1]}::{m[2]}<" + ",".join(
+                    re.findall(r"Li(\d+)E", m[3] + "E")) + ">"
+                         if m else line.split()[-1][:60])
+            elif "registers" in line or "spill" in line:
+                log(f"  {name} {entry}: {line.strip()}")
 
     # 3. kernels vs plain
     t0 = time.perf_counter()
@@ -1386,6 +1748,19 @@ def main() -> int:
         recon = phase_reconstruct(card)
     log(f"phase reconstruction: ok in {time.perf_counter() - t0:.1f} s")
 
+    # 5e. ASR at asr.yaml's widths, 2 LLM layers, card vs CPU
+    t0 = time.perf_counter()
+    with exact_fp32():
+        asr_reduced = phase_asr_reduced_depth(card)
+    log(f"phase ASR reduced-depth card vs CPU: ok in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # 5f. the ASR path at asr.yaml's full width (its model freed after)
+    t0 = time.perf_counter()
+    asr_launches, asr = phase_asr_main_path(card)
+    torch.cuda.empty_cache()
+    log(f"phase ASR path: ok in {time.perf_counter() - t0:.1f} s")
+
     # 6. kernel times (the plain versions as they were compared)
     with exact_fp32():
         with torch.no_grad():
@@ -1401,6 +1776,9 @@ def main() -> int:
                 vocs, gen, voc_counts["odd_width_hifigan"]["fused_resblock"],
                 errs["fused_resblock"], card))
     kernels[1]["training_launches"] = train_counts["attention_fwd"]
+    kernels[1]["asr_launches"] = asr_launches
+    with exact_fp32(), torch.no_grad():
+        kernels[1]["asr_shapes"] = kernel_time_asr_attention(asr, card)
 
     # 7. where the device time of the served requests goes (last: the
     # profiler slows what runs after it)
@@ -1416,6 +1794,7 @@ def main() -> int:
     log("trained " + json.dumps(trained))
     log("vocoder_path " + json.dumps(voc_path))
     log("reconstruction " + json.dumps(recon))
+    log("asr " + json.dumps({**asr, "reduced_depth": asr_reduced}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

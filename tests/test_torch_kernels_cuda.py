@@ -294,6 +294,10 @@ def test_hifigan_apply_fused_card_matches_cpu(card):
     (2, 97, 97, 12, 2, 128, True),      # Qwen2 causal GQA
     (2, 70, 130, 8, 4, 96, True),       # the other head widths, S > T
     (2, 5, 9, 4, 1, 32, False),
+    (2, 70, 130, 8, 4, 48, True),       # d = 48 (768 / 16 heads), S > T
+    (2, 96, 384, 16, 16, 96, False),    # ASR query cross-attention
+    (2, 96, 96, 16, 16, 48, False),     # ASR head self-attention
+    (2, 461, 461, 12, 2, 128, True),    # Qwen2 over [audio | SOA | prompt]
 ])
 def test_attention_matches_plain(card, B, T, S, Hq, Hkv, d, causal, dtype):
     dtype = getattr(torch, dtype)
@@ -369,6 +373,9 @@ def _bwd_inputs(card, B, T, S, Hq, Hkv, d, dtype, seed=0):
     (2, 70, 130, 8, 4, 96, True),       # S > T, other head widths
     (2, 5, 9, 4, 1, 32, False),
     (3, 33, 65, 4, 4, 64, False),       # ragged tiles both ways
+    (2, 96, 96, 16, 16, 48, False),     # d = 48: the ASR head's shape
+    (2, 70, 130, 8, 4, 48, True),       # d = 48, S > T, GQA
+    (2, 384, 384, 16, 16, 48, False),   # d = 48 at the long-sequence tiles
 ])
 def test_attention_bwd_matches_plain(card, B, T, S, Hq, Hkv, d, causal, dtype):
     dtype = getattr(torch, dtype)
@@ -441,6 +448,59 @@ def test_attention_misaligned_views_match_aligned(card, dtype):
     for a, b in zip(attention_bwd(mq, mk, mv, mout, mdout, valid, True),
                     grads):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_attention_d48_misaligned_views_match_aligned(card, dtype):
+    """d = 48 rows are 96 bytes: views one element off a 16-byte boundary
+    are realigned by the wrappers, with the aligned inputs' results."""
+    dtype = getattr(torch, dtype)
+    q, k, v, dout, valid = _bwd_inputs(card, 2, 96, 96, 16, 16, 48, dtype, 6)
+    out = attention_fwd(q, k, v, valid)
+    grads = attention_bwd(q, k, v, out, dout, valid)
+    mq, mk, mv, mdout, mout = (_off_boundary(t) for t in (q, k, v, dout, out))
+    assert torch.equal(attention_fwd(mq, mk, mv, valid), out)
+    for a, b in zip(attention_bwd(mq, mk, mv, mout, mdout, valid), grads):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("context", [False, True])
+def test_flow_head_at_asr_yaml_width_runs_on_the_card(card, context):
+    """A TransformerFlowHead at configs/asr.yaml's 768 / 16 heads (d = 48):
+    its attentions launch the kernel on the card, and its velocity agrees
+    with the CPU's (fp32, TF32 off: 1e-4 of the largest value), with
+    masked frames and, for the TTS head, masked context keys."""
+    import copy
+
+    from audio_calm_torch.models.calm_heads import TransformerFlowHead
+
+    torch.manual_seed(0)
+    cpu = TransformerFlowHead(1536, 128 if context else 1536, 768, 4, 16,
+                              context_dim=1536 if context else None).eval()
+    for p in cpu.parameters():
+        torch.nn.init.normal_(p, 0.0, 0.02)
+    dev = copy.deepcopy(cpu).to(card)
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn(2, 96, 128 if context else 1536, generator=g)
+    cond = torch.randn(2, 96, 1536, generator=g)
+    t = torch.rand(2, generator=g)
+    x_mask = torch.arange(96)[None, :] >= torch.tensor([[96], [58]])
+    ctx = torch.randn(2, 24, 1536, generator=g) if context else None
+    ctx_mask = (torch.arange(24)[None, :] >= torch.tensor([[24], [16]])
+                if context else None)
+    outs = []
+    for m, device in ((cpu, "cpu"), (dev, card)):
+        launches = attention_fwd.launches
+        with torch.no_grad():
+            outs.append(m(*(a.to(device) for a in (cond, x, t)),
+                          context=None if ctx is None else ctx.to(device),
+                          context_mask=None if ctx is None
+                          else ctx_mask.to(device),
+                          x_mask=x_mask.to(device)).cpu())
+        n = attention_fwd.launches - launches
+        assert n == (4 * (2 if context else 1) if device == card else 0)
+    ref = outs[0]
+    assert (outs[1] - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
 
 
 def test_flash_attention_function_matches_autograd(card):

@@ -33,8 +33,8 @@ from audio_calm_torch.config import CALMModelConfig as TCALMConfig
 from audio_calm_torch.config import TrainingConfig as TTrainingConfig
 from audio_calm_torch.config import from_dict
 from audio_calm_torch.models.calm import QwenCALM as TQwenCALM
-from audio_calm_torch.models.convert import (ASR_COMPONENTS, from_jax_params,
-                                             jax_path, load_calm)
+from audio_calm_torch.models.convert import (from_jax_params, jax_path,
+                                             load_calm)
 from audio_calm_torch.models.qwen2 import Qwen2Model as TQwen2Model
 from audio_calm_torch.ops.attention import MultiheadAttention as TMHA
 from audio_calm_torch.ops.dropout import derive_seed
@@ -300,9 +300,8 @@ def test_labels_and_frozen_split(calm_setup):
     tmodel = _port_model(params, cfg)
     paths = {name: jax_path(tmodel, name)
              for name, _ in tmodel.named_parameters()}
-    # one-to-one with the JAX tree, apart from the ASR members not ported
-    assert set(paths.values()) == {k for k in jflat
-                                   if k[0] not in ASR_COMPONENTS}
+    # one-to-one with the JAX tree, both branches
+    assert set(paths.values()) == set(jflat)
     labels = toptim.freeze(tmodel, TTrainingConfig(
         frozen_weights_dtype="bfloat16"), task_mode="tts")
     for name, p in tmodel.named_parameters():

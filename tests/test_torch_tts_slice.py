@@ -200,7 +200,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     for name in ("train.optim", "train.steps", "train.loop", "ops.mas",
                  "ops.flow", "ops.dropout", "ops.attention_kernel",
                  "ops.cuda_build", "ops.mel", "ops.vocoder_kernel",
-                 "models.vocoder", "eval.reconstruct"):
+                 "models.vocoder", "eval.reconstruct", "serving.frontend",
+                 "data.tokenizer"):
         assert f"audio_calm_torch.{name}" in modules, name
     from audio_calm_torch.ops import cuda_build
     for src in cuda_build.SOURCES:
