@@ -5,14 +5,18 @@ Everything runs on a static [B, t_aud] / [B, num_queries] grid with per-row
 lengths and masks, as in JAX. Random numbers come from an explicit
 `torch.Generator`; every noise site also takes an explicit `x_init`.
 Entry points: `tts_generate_latents` (with eval.render.make_renderer after
-it), `asr_generate_ids`, and `CALMInference`'s ASR members. Still to be
-ported: CALMInference's TTS members, `asr_long` / `asr_stream` and the
-text / wav splitters.
+it), `asr_generate_ids`, and `CALMInference`, the host-side wrapper the
+server drives: bucketed single-chunk and batched TTS, long-form TTS (whole,
+streamed, batched), batched ASR and long-form and streaming ASR, with the
+text / wav splitters and crossfades they share.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+import hashlib
+import re
+import warnings
+from typing import Iterable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -22,6 +26,9 @@ from audio_calm_torch.models.calm import QwenCALM
 from audio_calm_torch.ops.alignment import build_alignment_from_durations
 from audio_calm_torch.ops.ode import ode_solve
 
+TTS_PROMPT = (
+    "<|im_start|>user\nRead this text:\n{}<|im_end|>\n<|im_start|>assistant\n"
+)
 ASR_PROMPT = (
     "<|im_start|>user\nTranscribe audio to text embedding.<|im_end|>\n"
     "<|im_start|>assistant\n"
@@ -203,28 +210,361 @@ def truncate_at_eos(ids: np.ndarray, q_len: int,
     return out
 
 
-class CALMInference:
-    """Host-side wrapper binding a model and a tokenizer: the ASR members
-    of the JAX package's CALMInference (its TTS members, `asr_long` and
-    `asr_stream` are still to be ported).
+def split_text_for_tts(text: str, tokenizer, max_tokens: int,
+                       prompt_template: str = TTS_PROMPT) -> list:
+    """Split long text into TTS-able chunks: sentences (split at .!?;:)
+    greedily packed so that the FULL prompt (template.format(chunk)) stays
+    within `max_tokens`; a single over-budget sentence is hard-split on
+    whitespace. The check tokenizes the assembled prompt, because BPE
+    merges at the template seam can make it differ from the sum of the
+    parts. -> a non-empty list of chunks covering the text."""
 
-    Audio pads to one [max_audio_len] grid. Each row's ODE noise is drawn
-    from its own integer seed at the fixed (num_queries, hidden) grid by a
-    `torch.Generator` on the model's device, so a transcript depends on its
-    seed alone, never on what it was batched with. (The seeds do not give
-    JAX's draws: the two generators differ.) `device=None` is the card."""
+    def n_tok(s: str) -> int:
+        return len(tokenizer.encode(prompt_template.format(s),
+                                    add_special_tokens=False))
+
+    parts = [p for p in re.split(r"(?<=[.!?;:])\s+", text.strip()) if p]
+    if not parts:
+        return [text]
+    units: list = []
+    for p in parts:
+        if n_tok(p) <= max_tokens:
+            units.append(p)
+            continue
+        cur = ""
+        for w in p.split():
+            cand = (cur + " " + w).strip()
+            if cur and n_tok(cand) > max_tokens:
+                units.append(cur)
+                cur = w
+            else:
+                cur = cand
+        if cur:
+            units.append(cur)
+    chunks: list = []
+    cur = ""
+    for u in units:
+        cand = (cur + " " + u).strip()
+        if cur and n_tok(cand) > max_tokens:
+            chunks.append(cur)
+            cur = u
+        else:
+            cur = cand
+    if cur:
+        chunks.append(cur)
+    return chunks or [text]
+
+
+def split_wav_for_asr_stream(pieces: Iterable, max_samples: int,
+                             search_samples: Optional[int] = None,
+                             frame: int = 400, tagged: bool = False):
+    """Split waveform pieces arriving in time into <= max_samples chunks
+    at low-energy points: greedy left to right, each cut in the middle of
+    the quietest `frame`-sample window of the last `search_samples` of the
+    current window. A chunk is yielded as soon as its cut is decided (more
+    than `max_samples` of audio buffered); only the last waits for the
+    end. The chunks concatenate back to the input exactly; each is
+    non-empty except for a zero-length input, which gives one empty chunk.
+    tagged=True yields (chunk, is_final): a chunk made by a cut always has
+    audio behind it."""
+    if search_samples is None:
+        search_samples = max(frame, max_samples // 8)
+    buf = np.zeros(0, np.float32)
+    for piece in pieces:
+        piece = np.asarray(piece, np.float32)
+        buf = piece if not len(buf) else np.concatenate([buf, piece])
+        while len(buf) > max_samples:
+            lo = max(max_samples - int(search_samples), 1)
+            seg = buf[lo:max_samples]
+            k = len(seg) // frame * frame
+            if k >= frame:
+                rms = np.square(seg[:k].reshape(-1, frame)).mean(axis=1)
+                cut = lo + int(np.argmin(rms)) * frame + frame // 2
+            else:
+                cut = max_samples
+            yield (buf[:cut], False) if tagged else buf[:cut]
+            buf = buf[cut:]
+    yield (buf, True) if tagged else buf
+
+
+def split_wav_for_asr(wav: np.ndarray, max_samples: int,
+                      search_samples: Optional[int] = None,
+                      frame: int = 400) -> list:
+    """split_wav_for_asr_stream over a whole waveform: the list of its
+    chunks."""
+    return list(split_wav_for_asr_stream([wav], max_samples, search_samples,
+                                         frame))
+
+
+def crossfade_stream(wavs: Iterable, sample_rate: int = 16000,
+                     crossfade_ms: float = 20.0) -> Iterator[np.ndarray]:
+    """Equal-power crossfade over an iterable of waveform chunks, yielding
+    audio as it goes (each chunk's fade-length tail waits for the next
+    chunk; empty chunks drop out)."""
+    fade = int(sample_rate * crossfade_ms / 1000.0)
+    held = None  # tail of the previous chunk, not yet emitted
+    for wav in wavs:
+        wav = np.asarray(wav, np.float32)
+        if held is not None:
+            f = min(fade, len(held), len(wav))
+            if f > 0:
+                t = np.linspace(0.0, np.pi / 2.0, f, dtype=np.float32)
+                wav = np.concatenate([
+                    held[: len(held) - f],
+                    held[len(held) - f:] * np.cos(t) + wav[:f] * np.sin(t),
+                    wav[f:],
+                ])
+            else:
+                wav = np.concatenate([held, wav])
+        if len(wav) > fade:
+            yield wav[: len(wav) - fade]
+            held = wav[len(wav) - fade:]
+        else:
+            held = wav
+    if held is not None and len(held):
+        yield held
+
+
+def crossfade_concat(wavs: list, sample_rate: int = 16000,
+                     crossfade_ms: float = 20.0) -> np.ndarray:
+    """Concatenate waveform chunks with an equal-power crossfade at each
+    boundary: crossfade_stream's pieces, joined."""
+    pieces = list(crossfade_stream(wavs, sample_rate, crossfade_ms))
+    return np.concatenate(pieces) if pieces else np.zeros((0,), np.float32)
+
+
+def chunk_seed(seed: int, i: int) -> int:
+    """Chunk i's seed of a many-chunk request seeded `seed`: a 63-bit hash
+    of the pair (the port's counterpart of jax.random.fold_in)."""
+    digest = hashlib.blake2b(f"{int(seed)}/{int(i)}".encode(),
+                             digest_size=8).digest()
+    return int.from_bytes(digest, "little") >> 1
+
+
+def chunk_seeds(seed: int, n: int) -> List[int]:
+    """The seeds of a request's n chunks: the request's own seed when it
+    has one chunk (so a long-form call of a short input is its solo call),
+    else chunk_seed(seed, i). A chunk's seed depends on its index alone,
+    never on how chunks are grouped into batches or streamed. The port's
+    counterpart of the JAX package's CALMInference.chunk_keys (sequential
+    splits, for TTS) and fold_in (for ASR), whose streams torch's
+    generators cannot reproduce."""
+    return [int(seed)] if n == 1 else [chunk_seed(seed, i) for i in range(n)]
+
+
+class CALMInference:
+    """Host-side wrapper binding a model and a tokenizer on one device
+    (counterpart of the JAX package's CALMInference).
+
+    audio_buckets (ascending frame counts): the TTS flow ODE runs on the
+    smallest bucket grid that fits the predicted length. text_buckets
+    (ascending token counts): prompts are right-padded (pad id, mask 0) to
+    the smallest bucket that fits, and truncated past the largest. ASR
+    pads audio to one [max_audio_len] grid.
+
+    Noise: each row's ODE noise is drawn from its own integer seed by a
+    `torch.Generator` on the model's device, at the full grid (TTS
+    [max_audio_len, latent_dim], sliced to the bucket; ASR [max_text_len,
+    hidden]), so neither the bucket nor the batch changes a row's noise,
+    and a request's output depends on its seed alone. (The seeds do not
+    give JAX's draws: the two generators differ.) Every method that draws
+    noise also takes `x_init`, rows of that full-grid noise as arrays (one
+    per item, or per chunk of a long-form call), used instead of the
+    draws.
+    `device=None` is the card."""
 
     def __init__(self, model: QwenCALM, tokenizer=None,
-                 max_audio_len: Optional[int] = None, device=None):
+                 max_audio_len: Optional[int] = None,
+                 audio_buckets: Optional[Sequence[int]] = None,
+                 text_buckets: Optional[Sequence[int]] = None, device=None):
         self.model = model
         self.tokenizer = tokenizer
         self.max_audio_len = max_audio_len or model.cfg.max_audio_len
+        self.audio_buckets = sorted(audio_buckets) if audio_buckets else None
+        self.text_buckets = sorted(text_buckets) if text_buckets else None
         self.device = _on_model_device(model, device)
 
+    # ---- prompts, grids, noise -----------------------------------------
     def _encode_prompt(self, text: str) -> np.ndarray:
         ids = self.tokenizer.encode(text, add_special_tokens=False)
         return np.asarray(ids, np.int64)
 
+    def _pad_id(self) -> int:
+        return getattr(self.tokenizer, "pad_token_id", None) or 0
+
+    def _prompt_arrays(self, text: str) -> Tuple[np.ndarray, np.ndarray]:
+        """-> (ids [1, L], mask [1, L]); with text_buckets, L is the
+        smallest bucket that fits (pad id, mask 0), and a prompt past the
+        largest bucket is truncated to it with a warning."""
+        ids = self._encode_prompt(text)
+        if not self.text_buckets:
+            return ids[None], np.ones_like(ids)[None]
+        L = len(ids)
+        bucket = next((b for b in self.text_buckets if b >= L),
+                      self.text_buckets[-1])
+        if L > bucket:
+            warnings.warn(
+                f"prompt of {L} tokens truncated to largest text bucket "
+                f"{bucket}; content (possibly the ChatML suffix) was cut",
+                stacklevel=2)
+        ids = ids[:bucket]
+        out = np.full((bucket,), self._pad_id(), np.int64)
+        out[: len(ids)] = ids
+        mask = (np.arange(bucket) < len(ids)).astype(np.int64)
+        return out[None], mask[None]
+
+    def pick_bucket(self, n_frames: int) -> int:
+        n_frames = min(n_frames, self.max_audio_len)
+        for b in self.audio_buckets or ():
+            if b >= n_frames:
+                return min(b, self.max_audio_len)
+        return self.max_audio_len
+
+    def _noise(self, seeds: Sequence[int], x_init, rows: int, dim: int,
+               pad_to: int) -> torch.Tensor:
+        """[pad_to, rows, dim] fp32 on the device: x_init when given, else
+        row i drawn from seeds[i] alone; rows past len(seeds) repeat row 0
+        (the pad rows of a power-of-two batch)."""
+        if x_init is not None:
+            x = torch.as_tensor(np.stack([np.asarray(r, np.float32)
+                                          for r in x_init]),
+                                device=self.device)
+            if x.shape != (len(seeds), rows, dim):
+                raise ValueError(f"x_init of shape {tuple(x.shape)}, want "
+                                 f"{(len(seeds), rows, dim)}")
+        else:
+            x = torch.stack([
+                torch.randn(rows, dim, device=self.device,
+                            generator=torch.Generator(self.device)
+                            .manual_seed(int(s)))
+                for s in seeds])
+        return torch.cat([x, x[:1].expand(pad_to - len(seeds), rows, dim)])
+
+    @staticmethod
+    def _padded(n: int, pad_batch: bool) -> int:
+        """n, or with pad_batch the next power of two (a few batch shapes
+        only)."""
+        return 1 << (n - 1).bit_length() if pad_batch else n
+
+    # ---- TTS -------------------------------------------------------------
+    def tts_batch(self, texts: Sequence[str], seeds: Sequence[int],
+                  steps: int = 50, cfg_scale: float = 2.5,
+                  method: str = "euler", time_schedule: str = "uniform",
+                  pad_batch: bool = True, x_init=None):
+        """Batched single-chunk synthesis as one encode and one decode: raw
+        (un-templated) texts, one seed per text. All rows share one ODE grid,
+        the bucket that fits the longest predicted length (masks keep
+        shorter rows exact). pad_batch pads B to the next power of two
+        (repeating row 0). x_init: [B, max_audio_len, latent_dim] noise.
+        -> (latents [B, t_grid, latent_dim] fp32 numpy, n_frames, t_grid)."""
+        if not texts or len(texts) != len(seeds):
+            raise ValueError("tts_batch: one seed per text")
+        B = len(texts)
+        Bp = self._padded(B, pad_batch)
+        arrs = [self._prompt_arrays(TTS_PROMPT.format(t)) for t in texts]
+        L = max(a.shape[1] for a, _ in arrs)
+        ids = np.full((Bp, L), self._pad_id(), np.int64)
+        mask = np.zeros((Bp, L), np.int64)
+        for i in range(Bp):
+            a, m = arrs[i if i < B else 0]
+            ids[i, : a.shape[1]] = a[0]
+            mask[i, : m.shape[1]] = m[0]
+        noise = self._noise(seeds, x_init, self.max_audio_len,
+                            self.model.cfg.latent_dim, Bp)
+        ids_t, mask_t = (torch.as_tensor(a, device=self.device)
+                         for a in (ids, mask))
+        cond_vec, text_ctx, text_pad, num_frames = tts_encode(
+            self.model, ids_t, mask_t)
+        nf = num_frames.cpu().numpy()[:B]
+        t_aud = self.pick_bucket(int(nf.max()))
+        latents = tts_decode(
+            self.model, cond_vec, text_ctx, text_pad, num_frames, steps=steps,
+            cfg_scale=cfg_scale, t_aud=t_aud, method=method,
+            time_schedule=time_schedule, x_init=noise[:, :t_aud])
+        return (latents[:B].float().cpu().numpy(),
+                [int(min(n, t_aud)) for n in nf], t_aud)
+
+    def tts(self, text: str, seed: int, steps: int = 50,
+            cfg_scale: float = 2.5, method: str = "euler",
+            time_schedule: str = "uniform", pad_to_grid: bool = False,
+            x_init=None) -> Tuple[np.ndarray, int]:
+        """-> (latents [T, latent_dim], num_frames): sliced to num_frames,
+        or with pad_to_grid the whole bucket grid (for a renderer).
+        x_init: [max_audio_len, latent_dim] noise."""
+        latents, (n,), _ = self.tts_batch(
+            [text], [seed], steps, cfg_scale, method, time_schedule,
+            pad_batch=False, x_init=None if x_init is None else [x_init])
+        return (latents[0] if pad_to_grid else latents[0, :n]), n
+
+    def split_chunks(self, text: str,
+                     max_chunk_tokens: Optional[int] = None) -> list:
+        """Sentence-pack `text` into prompt-budget chunks (kept within the
+        largest text bucket, past which a prompt would be cut)."""
+        budget = max_chunk_tokens or self.model.cfg.max_text_len
+        if self.text_buckets:
+            budget = min(budget, self.text_buckets[-1])
+        return split_text_for_tts(text, self.tokenizer, budget)
+
+    def tts_long_stream(self, text: str, seed: int, render, steps: int = 50,
+                        cfg_scale: float = 2.5, method: str = "euler",
+                        time_schedule: str = "uniform",
+                        crossfade_ms: float = 20.0,
+                        max_chunk_tokens: Optional[int] = None, x_init=None):
+        """Generator form of tts_long: yields waveform pieces as each text
+        chunk is synthesized and rendered (`render` from
+        eval.render.make_renderer); the pieces concatenate to tts_long's
+        output. x_init: one noise row per chunk."""
+        chunks = self.split_chunks(text, max_chunk_tokens)
+
+        def chunk_wavs():
+            for i, (chunk, s) in enumerate(zip(
+                    chunks, chunk_seeds(seed, len(chunks)))):
+                latents, n = self.tts(
+                    chunk, s, steps=steps, cfg_scale=cfg_scale, method=method,
+                    time_schedule=time_schedule, pad_to_grid=True,
+                    x_init=None if x_init is None else x_init[i])
+                yield np.asarray(render(latents, n), np.float32)
+
+        yield from crossfade_stream(chunk_wavs(), crossfade_ms=crossfade_ms)
+
+    def tts_long(self, text: str, seed: int, render, steps: int = 50,
+                 cfg_scale: float = 2.5, method: str = "euler",
+                 time_schedule: str = "uniform", crossfade_ms: float = 20.0,
+                 max_chunk_tokens: Optional[int] = None,
+                 x_init=None) -> np.ndarray:
+        """Long-form text -> waveform: prompt-budget chunks, each
+        synthesized on its bucket grid and rendered, crossfaded at the
+        boundaries. Short text is one tts() call with `seed` itself."""
+        pieces = list(self.tts_long_stream(
+            text, seed, render, steps, cfg_scale, method, time_schedule,
+            crossfade_ms, max_chunk_tokens, x_init))
+        if not pieces:
+            return np.zeros((0,), np.float32)
+        return np.concatenate(pieces)
+
+    def tts_long_batched(self, text: str, seed: int, render,
+                         steps: int = 50, cfg_scale: float = 2.5,
+                         method: str = "euler",
+                         time_schedule: str = "uniform",
+                         crossfade_ms: float = 20.0,
+                         max_chunk_tokens: Optional[int] = None,
+                         batch_size: int = 8, x_init=None) -> np.ndarray:
+        """tts_long with the chunks in groups of up to `batch_size`, each
+        one tts_batch and one render.batch; the same chunk seeds, so the
+        latents are tts_long's (exactly on the CPU in fp32)."""
+        chunks = self.split_chunks(text, max_chunk_tokens)
+        seeds = chunk_seeds(seed, len(chunks))
+        wavs = []
+        for i in range(0, len(chunks), batch_size):
+            latents, n_frames, _ = self.tts_batch(
+                chunks[i:i + batch_size], seeds[i:i + batch_size],
+                steps=steps, cfg_scale=cfg_scale, method=method,
+                time_schedule=time_schedule,
+                x_init=None if x_init is None else x_init[i:i + batch_size])
+            wavs.extend(render.batch(latents, n_frames))
+        return crossfade_concat(wavs, crossfade_ms=crossfade_ms)
+
+    # ---- ASR -------------------------------------------------------------
     def _asr_pad(self, latents: np.ndarray):
         """One item's raw latents [T, D] -> (padded [t_max, D], mask)."""
         T = latents.shape[0]
@@ -233,13 +573,6 @@ class CALMInference:
         pad[: min(T, t_max)] = latents[:t_max]
         mask = (np.arange(t_max) < T).astype(np.int32)
         return pad, mask
-
-    def _row_noise(self, seed: int) -> torch.Tensor:
-        """Row noise [num_queries, hidden] from `seed` alone."""
-        c = self.model.cfg
-        g = torch.Generator(self.device).manual_seed(int(seed))
-        return torch.randn(c.max_text_len, c.qwen.hidden_size, generator=g,
-                           device=self.device, dtype=torch.float32)
 
     def _asr_decode_row(self, ids_row: np.ndarray, q_len: int) -> str:
         extra = set()
@@ -250,7 +583,8 @@ class CALMInference:
         return self.tokenizer.decode(final, skip_special_tokens=True)
 
     def _asr_inputs(self, latents_list: Sequence[np.ndarray],
-                    seeds: Sequence[int], pad_batch: bool = True):
+                    seeds: Sequence[int], pad_batch: bool = True,
+                    x_init=None):
         """Items' raw latents [T_i, latent_dim] and seeds -> the model's
         inputs on its device: (latents [B', max_audio_len, latent_dim],
         audio mask, prompt ids, prompt mask, x_init [B', max_text_len,
@@ -258,34 +592,33 @@ class CALMInference:
         repeated)."""
         if not latents_list or len(latents_list) != len(seeds):
             raise ValueError("asr_batch: one seed per latents item")
+        B = len(latents_list)
+        Bp = self._padded(B, pad_batch)
         padded = [self._asr_pad(np.asarray(x, np.float32))
                   for x in latents_list]
-        seeds = list(seeds)
-        if pad_batch:
-            B = len(padded)
-            Bp = 1 << (B - 1).bit_length()
-            padded += padded[:1] * (Bp - B)
-            seeds += seeds[:1] * (Bp - B)
-        prompt = np.repeat(self._encode_prompt(ASR_PROMPT)[None], len(seeds),
-                           0)
+        padded += padded[:1] * (Bp - B)
+        prompt = np.repeat(self._encode_prompt(ASR_PROMPT)[None], Bp, 0)
         arrays = (np.stack([p for p, _ in padded]),
                   np.stack([m for _, m in padded]), prompt,
                   np.ones_like(prompt))
+        c = self.model.cfg
         return (*(torch.as_tensor(a, device=self.device) for a in arrays),
-                torch.stack([self._row_noise(s) for s in seeds]))
+                self._noise(seeds, x_init, c.max_text_len,
+                            c.qwen.hidden_size, Bp))
 
     def _asr_ids(self, latents_list: Sequence[np.ndarray],
                  seeds: Sequence[int], steps: int = 20,
                  cfg_scale: float = 1.0, method: str = "euler",
-                 time_schedule: str = "uniform", pad_batch: bool = True
-                 ) -> Tuple[np.ndarray, np.ndarray]:
+                 time_schedule: str = "uniform", pad_batch: bool = True,
+                 x_init=None) -> Tuple[np.ndarray, np.ndarray]:
         """`asr_batch`'s device work -> (ids [B, max_text_len], q_len [B]) as
         numpy, the padded rows dropped."""
-        *inputs, x_init = self._asr_inputs(latents_list, seeds, pad_batch)
+        *inputs, noise = self._asr_inputs(latents_list, seeds, pad_batch,
+                                          x_init)
         ids, q_len = asr_generate_ids(
             self.model, *inputs, steps=steps, cfg_scale=cfg_scale,
             num_queries=self.model.cfg.max_text_len, method=method,
-            time_schedule=time_schedule, x_init=x_init, device=self.device)
+            time_schedule=time_schedule, x_init=noise, device=self.device)
         B = len(latents_list)
         return ids.cpu().numpy()[:B], q_len.cpu().numpy()[:B]
 
@@ -293,20 +626,78 @@ class CALMInference:
                   seeds: Sequence[int], steps: int = 20,
                   cfg_scale: float = 1.0, method: str = "euler",
                   time_schedule: str = "uniform",
-                  pad_batch: bool = True) -> List[str]:
+                  pad_batch: bool = True, x_init=None) -> List[str]:
         """Batched ASR as one device program: latents_list holds each
         item's raw latents [T_i, latent_dim], seeds one integer per item.
         pad_batch pads B to the next power of two (repeating row 0).
-        -> one transcript per item, each the one `asr` gives for the same
-        seed."""
+        x_init: [B, max_text_len, hidden] noise. -> one transcript per item,
+        each the one `asr` gives for the same seed."""
         ids, q_len = self._asr_ids(latents_list, seeds, steps, cfg_scale,
-                                   method, time_schedule, pad_batch)
+                                   method, time_schedule, pad_batch, x_init)
         return [self._asr_decode_row(ids[i], int(q_len[i]))
                 for i in range(len(latents_list))]
 
     def asr(self, latents: np.ndarray, seed: int, steps: int = 20,
             cfg_scale: float = 1.0, method: str = "euler",
-            time_schedule: str = "uniform") -> str:
+            time_schedule: str = "uniform", x_init=None) -> str:
         """latents [T, latent_dim] -> transcript string."""
-        return self.asr_batch([latents], [seed], steps, cfg_scale, method,
-                              time_schedule, pad_batch=False)[0]
+        return self.asr_batch(
+            [latents], [seed], steps, cfg_scale, method, time_schedule,
+            pad_batch=False, x_init=None if x_init is None else [x_init])[0]
+
+    def asr_long(self, wav: np.ndarray, seed: int, encode,
+                 max_wav_samples: int, steps: int = 20,
+                 cfg_scale: float = 1.0, method: str = "euler",
+                 time_schedule: str = "uniform", search_ms: float = 1500.0,
+                 sample_rate: int = 16000, max_decode_batch: int = 8,
+                 x_init=None) -> str:
+        """Long-form waveform -> transcript: split at low-energy points into
+        <= max_wav_samples chunks (split_wav_for_asr), encode them
+        (`encode`: list of wav chunks -> list of latents [T_i, latent_dim],
+        e.g. serving.frontend.encode_chunks), decode them in batches of
+        `max_decode_batch`, and join. Chunk seeds are chunk_seeds(seed, n),
+        so a wav that fits decodes as its solo asr(seed) and the transcript
+        never depends on the grouping. x_init: one noise row per chunk."""
+        chunks = [c for c in split_wav_for_asr(
+            wav, int(max_wav_samples),
+            search_samples=int(search_ms / 1000.0 * sample_rate)) if len(c)]
+        if not chunks:
+            return ""
+        lats = encode(chunks)
+        seeds = chunk_seeds(seed, len(chunks))
+        texts: list = []
+        for i in range(0, len(lats), max_decode_batch):
+            texts.extend(self.asr_batch(
+                lats[i:i + max_decode_batch], seeds[i:i + max_decode_batch],
+                steps=steps, cfg_scale=cfg_scale, method=method,
+                time_schedule=time_schedule,
+                x_init=None if x_init is None
+                else x_init[i:i + max_decode_batch]))
+        return " ".join(t.strip() for t in texts if t.strip())
+
+    def asr_stream(self, pieces: Iterable, seed: int, encode,
+                   max_wav_samples: int, steps: int = 20,
+                   cfg_scale: float = 1.0, method: str = "euler",
+                   time_schedule: str = "uniform", search_ms: float = 1500.0,
+                   sample_rate: int = 16000, x_init=None):
+        """Generator: incremental transcription of audio arriving in pieces.
+        Each decode chunk is encoded and transcribed alone the moment its
+        cut is decided and its text yielded. The yields, joined by spaces
+        (empty ones dropped), equal asr_long of the whole audio: the same
+        cuts, the same chunk seeds (a cut chunk has audio behind it, so it
+        is one of many; a single final chunk decodes with `seed`), and a
+        row's transcript never depends on its batch (exactly on the CPU in
+        fp32). x_init: one noise row per chunk."""
+        i = 0
+        for chunk, is_final in split_wav_for_asr_stream(
+                pieces, int(max_wav_samples),
+                search_samples=int(search_ms / 1000.0 * sample_rate),
+                tagged=True):
+            if not len(chunk):
+                continue  # only the remainder at the end can be empty
+            s = seed if (is_final and i == 0) else chunk_seed(seed, i)
+            yield self.asr_batch(
+                encode([chunk]), [s], steps=steps, cfg_scale=cfg_scale,
+                method=method, time_schedule=time_schedule,
+                x_init=None if x_init is None else [x_init[i]])[0].strip()
+            i += 1

@@ -14,6 +14,20 @@ from torch import nn
 from audio_calm_torch.config import CALMModelConfig, LoRAConfig, Qwen2Config
 
 
+_COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def resolve_compute_dtype(name: str) -> torch.dtype:
+    """evaluation.compute_dtype -> torch dtype: "float32" is the reference
+    eval protocol, "bfloat16" the serving recipe."""
+    try:
+        return _COMPUTE_DTYPES[name]
+    except KeyError:
+        raise ValueError(
+            "evaluation.compute_dtype must be one of "
+            f"{sorted(_COMPUTE_DTYPES)}, got {name!r}") from None
+
+
 def flagship_config(num_llm_layers: Optional[int] = None,
                     max_audio_len: int = 384,
                     max_text_len: int = 96) -> CALMModelConfig:

@@ -237,15 +237,28 @@ def _istft_basis(n_fft: int):
 
 def _overlap_add(frames: torch.Tensor, win: torch.Tensor, hop: int,
                  length: int) -> torch.Tensor:
-    """Windowed frames [B, T, n_fft] -> signal [B, length] by overlap-add
-    (index_add_), normalized by the summed squared window, centered."""
+    """Windowed frames [B, T, n_fft] -> signal [B, length] by overlap-add,
+    normalized by the summed squared window, centered.
+
+    The frames go in r = ceil(n_fft / hop) phases (frames j, j + r, ...
+    do not overlap, so each phase is one reshape) summed in a fixed order:
+    the same bits on every run. A scatter-add (`index_add_`) sums with
+    atomics on the card, in the order its threads land, so a seeded
+    request would not give the same audio twice."""
     B, T, n_fft = frames.shape
-    frames = frames * win
+    r = -(-n_fft // hop)
     out_len = n_fft + (T - 1) * hop
-    idx = (torch.arange(T, device=frames.device)[:, None] * hop
-           + torch.arange(n_fft, device=frames.device)[None, :]).reshape(-1)
-    x = frames.new_zeros(B, out_len).index_add_(1, idx, frames.reshape(B, -1))
-    wsum = frames.new_zeros(out_len).index_add_(0, idx, (win * win).repeat(T))
+
+    def add_phases(f: torch.Tensor) -> torch.Tensor:
+        f = F.pad(f, (0, r * hop - n_fft))
+        out = f.new_zeros(*f.shape[:-2], (T + r) * hop)
+        for j in range(min(r, T)):
+            p = f[..., j::r, :].reshape(*f.shape[:-2], -1)
+            out[..., j * hop: j * hop + p.shape[-1]] += p
+        return out[..., :out_len]
+
+    x = add_phases(frames * win)
+    wsum = add_phases((win * win).expand(T, n_fft))
     x = x / torch.clamp(wsum, min=1e-8)
     pad = n_fft // 2
     return x[:, pad: pad + length]

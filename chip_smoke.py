@@ -57,6 +57,18 @@ Phases, in order; any failure exits non-zero and prints no result:
      1, one seed a row): launches, batch rows against solo calls, phase
      walls (frontend, encode, ODE, nearest-token search), the realtime
      factor and one profiled request's device busy share;
+  5g. the served product: configs/calm.yaml read by the port's load_config
+     (model.vae_path=null) and served by audio_calm_torch.serving.server in
+     this process on the card (byte tokenizer, random bf16 weights from a
+     seed, Griffin-Lim, a 200 ms batch window), over HTTP: /health, two
+     concurrent /tts (one group of 2) twice (equal bytes), the first alone
+     (its gap to the batched row printed: a known bf16 divergence), a
+     long-form /tts (3 chunks or more), a streamed /tts, /asr of 15 s and
+     of 40 s (long-form), the 40 s again as a chunked streaming upload
+     (held against the buffered transcript margin-aware), /stats; each
+     request's attention launches, groups, wall, audio and realtime factor,
+     the streams' time to first audio and first transcript, and one
+     profiled session's device busy share;
   6. per kernel: its launches on its main path, its device time per launch
      at main-path shapes, the bound, the plain version's and the library
      call's device time; for the stage kernel, per V1 stage on a log line
@@ -99,6 +111,19 @@ TRAIN_STEPS = 5
 ASR_BUCKETS = [96, 192, 288, 384]  # data.audio_buckets, latent frames
 ASR_ODE = dict(steps=20, method="euler", cfg_scale=1.0)  # reference protocol
 ASR_SEEDS = [11, 12]
+# the served product: configs/calm.yaml through the port's own load_config
+# and HTTP server, with a batch window wide enough that two concurrent
+# requests coalesce whatever the threads' timing
+SERVE_ARGV = ["--config", "configs/calm.yaml", "--byte-tokenizer", "--port",
+              "0", "--override", "model.vae_path=null",
+              "--batch-window-ms", "200"]
+SERVE_PAIR = [("Hello from the served product.", 101),
+              ("A second voice joins in.", 102)]
+SERVE_LONG = ("The served product reads long text in chunks. Each chunk fits "
+              "the prompt budget. The chunks ride one batch together. Their "
+              "audio is crossfaded at the seams.")
+SERVE_STREAM = ("Streaming sends the first chunk alone. The rest follow "
+                "together.")
 
 
 def log(msg: str) -> None:
@@ -215,6 +240,24 @@ def asr_wavs(seed=0):
                 for h, a in ((1, 0.4), (2, 0.2), (3, 0.1)))
         wavs.append((w + 0.02 * rng.standard_normal(n)).astype(np.float32))
     return wavs
+
+
+def served_wav(seconds, seed):
+    """A 16 kHz test signal from a seed: phrases of 1.5 to 4 s of gliding
+    harmonic tones, with 0.3 s pauses between them, and noise."""
+    rng = np.random.default_rng(seed)
+    n = int(seconds * 16000)
+    w = np.zeros(n)
+    pos = 0
+    while pos < n:
+        m = min(n - pos, int(rng.uniform(1.5, 4.0) * 16000))
+        t = np.arange(m) / 16000
+        f0 = rng.uniform(120, 260) * (1 + 0.2 * np.sin(2 * np.pi * t / 2.0))
+        phase = 2 * np.pi * np.cumsum(f0) / 16000
+        w[pos:pos + m] = sum(a * np.sin(h * phase)
+                             for h, a in ((1, 0.4), (2, 0.2), (3, 0.1)))
+        pos += m + int(0.3 * 16000)
+    return (w + 0.02 * rng.standard_normal(n)).astype(np.float32)
 
 
 def odd_width_config():
@@ -1357,6 +1400,395 @@ def phase_asr_main_path(card):
     return launches, row
 
 
+def http_call(port, method, path, body=None, ctype=None, chunks=None,
+              first_after=None):
+    """One HTTP request to the server on localhost -> (status, headers,
+    body, first_s); `chunks` (an iterable of bytes) sends a chunked upload;
+    first_s is the time from the request until the body held more than
+    `first_after` bytes (None when not asked)."""
+    import http.client
+
+    conn = http.client.HTTPConnection("localhost", port, timeout=600)
+    try:
+        headers = {"Content-Type": ctype} if ctype else {}
+        t0 = time.perf_counter()
+        if chunks is not None:
+            headers["Transfer-Encoding"] = "chunked"
+            conn.request(method, path, body=chunks, headers=headers,
+                         encode_chunked=True)
+        else:
+            conn.request(method, path, body=body, headers=headers)
+        resp = conn.getresponse()
+        if first_after is None:
+            return resp.status, dict(resp.headers), resp.read(), None
+        data, first_s = b"", None
+        while True:
+            piece = resp.read1(65536)
+            if not piece:
+                break
+            data += piece
+            if first_s is None and len(data) > first_after:
+                first_s = time.perf_counter() - t0
+        return resp.status, dict(resp.headers), data, first_s
+    finally:
+        conn.close()
+
+
+def wav_pcm(data):
+    """The int16 samples of a WAV body (a streamed one: after its
+    44-byte header)."""
+    import io
+    import wave
+
+    if data[4:8] == b"\xff\xff\xff\xff":
+        return np.frombuffer(data[44:], "<i2")
+    with wave.open(io.BytesIO(data)) as w:
+        return np.frombuffer(w.readframes(w.getnframes()), "<i2")
+
+
+def group_launches(key, cfg):
+    """attention_fwd launches of one batcher group: Qwen2's layers, then
+    per velocity evaluation the DiT's self and cross attention (TTS) or
+    the query cross-attention once and the head's self-attention (ASR)."""
+    m, e = cfg.model, cfg.evaluation
+    if key[0] == "fe":
+        return 0
+    evals = key[1] * (2 if e.ode_method == "midpoint" else 1)
+    L = m.qwen.num_hidden_layers
+    if key[0] == "tts":
+        return L + 2 * m.tts_flow_num_layers * evals
+    return L + 1 + m.asr_flow_num_layers * evals
+
+
+def asr_group_states(engine, items):
+    """An asr batcher group's device work once more, as asr_batch does it
+    (same rows, same padding): seed -> (ODE state, ids, q_len)."""
+    from audio_calm_torch.eval.infer import asr_decode, asr_encode
+
+    inf, e = engine.inf, engine.cfg.evaluation
+    with torch.inference_mode():
+        *args, x_init = inf._asr_inputs([lat for lat, _ in items],
+                                        [s for _, s in items])
+        cond, q_valid, q_len = asr_encode(inf.model, *args,
+                                          num_queries=inf.model.cfg
+                                          .max_text_len)
+        x = asr_decode(inf.model, cond, q_valid, x_init=x_init,
+                       steps=e.asr_steps, cfg_scale=e.asr_cfg_scale,
+                       method=e.ode_method, time_schedule=e.time_schedule)
+        ids = inf.model.search_nearest_tokens(x)
+    return {s: (x[i], ids[i], int(q_len[i])) for i, (_, s) in
+            enumerate(items)}
+
+
+def phase_served_product(card):
+    """configs/calm.yaml served by the port's HTTP server in this process
+    on the card (read from the file by the port's load_config; byte
+    tokenizer, random bf16 weights from a seed, the seeded random VAE,
+    Griffin-Lim): a concurrent /tts pair (twice), the first request alone,
+    a long-form /tts, a streamed /tts, a 15 s /asr, a 40 s long-form /asr,
+    the same 40 s as a chunked streaming upload, /stats. Each request's
+    attention launches (none runs beside another), batch groups, wall,
+    audio and realtime factor (and the streams' time to their first audio
+    or transcript); the repeated pair's bytes; the stream against the
+    buffered transcript, margin-aware; the batched row against
+    the solo request (printed, a known divergence); one profiled session's
+    device busy share."""
+    import gc
+    import threading
+
+    from audio_calm_torch.config import load_config
+    from audio_calm_torch.ops.attention_kernel import attention_fwd
+    from audio_calm_torch.serving import server
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  device memory in use before: "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB (the models "
+        "phases 6 and 7 still time)")
+    args = server.parse_args(SERVE_ARGV)
+    cfg = load_config(args.config, overrides=args.override)
+    m, e = cfg.model, cfg.evaluation
+    check((m.qwen.num_hidden_layers, m.qwen.hidden_size,
+           m.qwen.num_attention_heads, m.qwen.num_key_value_heads,
+           m.lora.rank, m.tts_flow_hidden_dim, m.tts_flow_num_layers,
+           m.asr_flow_hidden_dim, m.asr_flow_num_layers, m.flow_num_heads)
+          == (28, 1536, 12, 2, 64, 768, 4, 768, 4, 16)
+          and e.audio_buckets == [96, 192, 384]
+          and e.text_buckets == [32, 64, 96]
+          and e.compute_dtype == "bfloat16" and e.vocoder_path is None
+          and m.vae_path is None, "configs/calm.yaml read by load_config")
+    engine, build_s = synced(lambda: server.build_engine(args))
+    calm = engine.inf.model
+    check(calm.dtype == torch.bfloat16 and engine.inf.device.type == "cuda",
+          "the engine serves calm.yaml on the card in bf16")
+    log(f"  calm.yaml engine built in {build_s:.1f} s: "
+        f"{sum(p.numel() for p in calm.parameters()) / 1e9:.3f} B CALM "
+        f"params (bf16), {m.qwen.num_hidden_layers} LLM layers, heads "
+        f"{m.tts_flow_hidden_dim} x {m.tts_flow_num_layers} / "
+        f"{m.flow_num_heads}; vocoder Griffin-Lim; {e.ode_method} "
+        f"{e.steps} steps cfg {e.cfg_scale} (TTS), {e.asr_steps} (ASR)")
+
+    groups = []  # (key, items, results, seconds) of every batcher group
+    run_group = engine.run_group
+
+    def recording(key, items):
+        t0 = time.perf_counter()
+        out = run_group(key, items)
+        groups.append((key, list(items), out, time.perf_counter() - t0))
+        return out
+
+    engine.run_group = recording
+    srv = server.make_server(engine, args).start()
+    port = srv.port
+    wav15 = asr_wavs()[1]
+    wav40 = served_wav(40, seed=3)
+    body15, body40 = (server.wav_bytes(w) for w in (wav15, wav40))
+
+    def call(method, path, body=None, ctype=None, chunked=False,
+             first_after=None):
+        attention_fwd.launches = 0
+        g0 = len(groups)
+        t0 = time.perf_counter()
+        res = http_call(port, method, path, body, ctype, chunks=(
+            (body[i:i + 65536] for i in range(0, len(body), 65536))
+            if chunked else None), first_after=first_after)
+        wall = time.perf_counter() - t0
+        return {"status": res[0], "headers": res[1], "data": res[2],
+                "first_s": res[3], "wall_s": wall,
+                "launches": attention_fwd.launches, "groups": groups[g0:]}
+
+    def tts(text, seed, first_after=None, **extra):
+        return call("POST", "/tts", json.dumps(
+            {"text": text, "seed": seed, **extra}).encode(),
+            "application/json", first_after=first_after)
+
+    def pair():
+        attention_fwd.launches = 0
+        g0 = len(groups)
+        out = [None, None]
+        barrier = threading.Barrier(2)
+
+        def client(i):
+            barrier.wait()
+            out[i] = http_call(port, "POST", "/tts", json.dumps(
+                {"text": SERVE_PAIR[i][0], "seed": SERVE_PAIR[i][1]})
+                .encode(), "application/json")
+
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(2)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        wall = time.perf_counter() - t0
+        check(not any(t.is_alive() for t in threads), "the /tts pair ended")
+        return {"status": [o[0] for o in out], "data": [o[2] for o in out],
+                "wall_s": wall, "launches": attention_fwd.launches,
+                "groups": groups[g0:]}
+
+    def session():
+        return {
+            "health": call("GET", "/health"),
+            "tts_pair": pair(),
+            "tts_pair_again": pair(),
+            "tts_solo": tts(*SERVE_PAIR[0]),
+            "tts_long": tts(SERVE_LONG, 103),
+            # the first audio: past the 44-byte WAV header
+            "tts_stream": tts(SERVE_STREAM, 104, first_after=44,
+                              stream=True),
+            "asr_15s": call("POST", "/asr?seed=105", body15, "audio/wav"),
+            "asr_40s": call("POST", "/asr?seed=106", body40, "audio/wav"),
+            "asr_40s_stream": call("POST", "/asr?stream=1&seed=106", body40,
+                                   "audio/wav", chunked=True, first_after=0),
+            "stats": call("GET", "/stats"),
+        }
+
+    try:
+        session()  # warm-up: cuBLAS/cuDNN plans, allocator
+        groups.clear()
+        r, wall = synced(session)
+        busy_wall, rows = device_profile(session)
+    finally:
+        srv.close()
+    busy = sum(x[1] for x in rows)
+    check(busy > 0, "the profiler saw device time in the served session")
+
+    # status codes, bodies, groups
+    check(r["health"]["status"] == 200 and json.loads(r["health"]["data"])
+          == {"status": "ok"}, "/health")
+    for name in ("tts_pair", "tts_pair_again"):
+        tg = [g for g in r[name]["groups"] if g[0][0] == "tts"]
+        check(r[name]["status"] == [200, 200] and len(tg) == 1
+              and len(tg[0][1]) == 2, f"{name}: two requests, one group of 2")
+    for a, b in zip(r["tts_pair"]["data"], r["tts_pair_again"]["data"]):
+        if a != b:
+            pa, pb = wav_pcm(a), wav_pcm(b)
+            log(f"  repeated pair: {len(pa)} / {len(pb)} samples, "
+                f"{int((pa != pb).sum())} differ, by up to "
+                f"{int(np.abs(pa.astype(np.int32) - pb).max())} LSB")
+    check(r["tts_pair"]["data"] == r["tts_pair_again"]["data"],
+          "the repeated pair (same seeds, same group) returns equal bytes")
+    check(r["tts_solo"]["status"] == 200 and [len(g[1]) for g in
+                                              r["tts_solo"]["groups"]] == [1],
+          "the solo /tts: one group of 1")
+    fade = int(16000 * e.crossfade_ms / 1000)
+    for name, text in (("tts_long", SERVE_LONG), ("tts_stream", SERVE_STREAM)):
+        chunks = engine.inf.split_chunks(text)
+        lens = [len(w) for g in r[name]["groups"] for w in g[2]]
+        pcm = wav_pcm(r[name]["data"])
+        check(r[name]["status"] == 200 and len(lens) == len(chunks)
+              and len(pcm) == sum(lens) - (len(lens) - 1) * fade,
+              f"{name}: {len(chunks)} chunks, crossfaded sample count")
+    check(len(engine.inf.split_chunks(SERVE_LONG)) >= 3,
+          "the long-form text has 3 chunks or more")
+    st = r["tts_stream"]
+    check(st["headers"].get("Transfer-Encoding") == "chunked"
+          and st["data"][:44] == server.streaming_wav_header()
+          and len(st["groups"][0][1]) == 1,
+          "the stream: chunked, sentinel header, chunk 0 alone first")
+    for name in ("tts_pair", "tts_solo", "tts_long"):
+        d = r[name]["data"]
+        for x in (d if isinstance(d, list) else [d]):
+            check(x[:4] == b"RIFF" and x[8:12] == b"WAVE",
+                  f"{name}: a WAV body")
+    a15 = json.loads(r["asr_15s"]["data"])
+    check(r["asr_15s"]["status"] == 200 and isinstance(a15["text"], str)
+          and [(g[0][0], len(g[1])) for g in r["asr_15s"]["groups"]]
+          == [("fe", 1), ("asr", 1)], "/asr of 15 s: one frontend, one decode")
+    a40 = json.loads(r["asr_40s"]["data"])
+    check(r["asr_40s"]["status"] == 200 and a40["chunks"] >= 2,
+          "/asr of 40 s: long-form, 2 chunks or more")
+    lines = [json.loads(x) for x in r["asr_40s_stream"]["data"].decode()
+             .splitlines()]
+    done = lines[-1]
+    check(r["asr_40s_stream"]["status"] == 200 and done.get("done") is True
+          and done["chunks"] == a40["chunks"]
+          and [x["chunk"] for x in lines[:-1]] == list(range(done["chunks"]))
+          and " ".join(t for t in (x["text"] for x in lines[:-1]) if t)
+          == done["text"], "the streamed 40 s upload's NDJSON")
+    stats = json.loads(r["stats"]["data"])
+    check(stats["batches"]["tts"]["sizes"].get("2", 0) >= 2,
+          "/stats: the pairs coalesced into groups of 2")
+
+    # launches: every request's groups, the kernel on the card each time
+    for name, x in r.items():
+        want = sum(group_launches(g[0], cfg) for g in x["groups"])
+        check(x["launches"] == want, f"{name}: attention launches "
+              f"{x['launches']} (expected {want})")
+    check(all(r[n]["launches"] > 0 for n in r if n.startswith(("tts", "asr"))),
+          "K3/K4 launched on every /tts and /asr")
+
+    # the stream against the buffered transcript, margin-aware: the same
+    # chunks and seeds, the stream's decoded alone (or as they coalesced),
+    # the buffered ones as one batch
+    states = {}
+    for name in ("asr_40s", "asr_40s_stream"):
+        states[name] = {}
+        for g in r[name]["groups"]:
+            if g[0][0] == "asr":
+                got = asr_group_states(engine, g[1])
+                check([engine.inf._asr_decode_row(ids.cpu().numpy(), q)
+                       for _, ids, q in got.values()] == g[2],
+                      f"{name}: the recomputed group gives its transcripts")
+                states[name].update(got)
+    seeds = list(states["asr_40s"])
+    check(sorted(seeds) == sorted(states["asr_40s_stream"]),
+          "the stream and the buffered request decode the same chunk seeds")
+    (xb, ib), (xs, is_) = ((torch.stack([states[n][s][i] for s in seeds])
+                            for i in (0, 1))
+                           for n in ("asr_40s", "asr_40s_stream"))
+    margin = ids_agreement(xb, xs, calm.embed.embedding, ib, is_)
+    stream_vs_buffered = {
+        "texts_equal": done["text"] == a40["text"],
+        "ids_equal": int((ib == is_).sum()), "ids_total": ib.numel(),
+        "state_gap": (xb.float() - xs.float()).abs().max().item(),
+        "margin_aware": margin,
+        "stream_groups": [len(g[1]) for g in r["asr_40s_stream"]["groups"]
+                          if g[0][0] == "asr"],
+        "buffered_groups": [len(g[1]) for g in r["asr_40s"]["groups"]
+                            if g[0][0] == "asr"]}
+    log(f"  /asr stream vs buffered (40 s, {a40['chunks']} chunks): "
+        f"{stream_vs_buffered}")
+    check(margin[3] == 0, "the streamed transcript agrees with the buffered "
+          "one wherever the margin decides the id")
+
+    # the batched row against the solo request: a known divergence in bf16
+    # (cuBLAS picks its GEMM kernel by row count; ROADMAP Queue 3)
+    (key, items, outs, _), = [g for g in r["tts_pair"]["groups"]
+                             if g[0][0] == "tts"]
+    row = [t for t, _ in items].index(SERVE_PAIR[0][0])
+    with torch.inference_mode():
+        kw = dict(steps=key[1], cfg_scale=key[2], method=e.ode_method,
+                  time_schedule=e.time_schedule)
+        lat_b, n_b, grid_b = engine.inf.tts_batch(
+            [t for t, _ in items], [s for _, s in items], **kw)
+        lat_s, n_s, grid_s = engine.inf.tts_batch([SERVE_PAIR[0][0]],
+                                                  [SERVE_PAIR[0][1]], **kw)
+        again = np.clip(engine.render.batch(lat_b, n_b)[row], -1, 1)
+    check(np.array_equal(again, outs[row]),
+          "the recomputed pair gives the served row")
+    n = min(n_b[row], n_s[0])
+    pb = wav_pcm(r["tts_pair"]["data"][[t for t, _ in SERVE_PAIR].index(
+        SERVE_PAIR[0][0])])
+    ps = wav_pcm(r["tts_solo"]["data"])
+    m_ = min(len(pb), len(ps))
+    d = np.abs(pb[:m_].astype(np.int32) - ps[:m_])
+    divergence = {"frames_batched": n_b[row], "frames_solo": n_s[0],
+                  "grids": [grid_b, grid_s],
+                  "latent_gap": float(np.abs(lat_b[row, :n]
+                                             - lat_s[0, :n]).max()),
+                  "audio_gap_lsb": int(d.max()),
+                  "audio_samples_differing": float((d > 0).mean()),
+                  "bytes_equal": r["tts_pair"]["data"][0]
+                  == r["tts_solo"]["data"]}
+    log(f"  known divergence, /tts row of the pair vs the solo request "
+        f"(bf16, ROADMAP Queue 3): {divergence}")
+
+    # per endpoint: wall, device-call seconds, audio, realtime factor,
+    # batch sizes, launches
+    rows_out = {}
+    for name, x in r.items():
+        if name in ("health", "stats"):
+            audio = 0.0
+        elif name.startswith("tts"):
+            d = x["data"] if isinstance(x["data"], list) else [x["data"]]
+            audio = sum(len(wav_pcm(b)) for b in d) / 16000
+        else:
+            audio = len(wav40 if "40" in name else wav15) / 16000
+        row_ = {"wall_s": x["wall_s"], "device_call_s": sum(
+                    g[3] for g in x["groups"]), "audio_s": audio,
+                "realtime_factor": audio / x["wall_s"],
+                "batches": [f"{g[0][0]}:{len(g[1])}" for g in x["groups"]],
+                "launches": x["launches"]}
+        first = ""
+        if x.get("first_s") is not None:
+            row_["first_s"] = x["first_s"]
+            first = (f", first {'audio' if name.startswith('tts') else 'text'}"
+                     f" at {x['first_s']:.4f} s")
+        rows_out[name] = row_
+        log(f"  {name:15s} wall {x['wall_s']:.4f} s, device calls "
+            f"{row_['device_call_s']:.4f} s, audio {audio:.3f} s, realtime "
+            f"factor {row_['realtime_factor']:.2f}x, batches "
+            f"{row_['batches']}, launches {x['launches']}{first}")
+    launches = sum(x["launches"] for x in r.values())
+    log(f"  served session: {wall:.4f} s wall, device busy {busy:.4f} s "
+        f"({100 * busy / wall:.1f}% of the unprofiled wall; profiled wall "
+        f"{busy_wall:.4f} s), attention launches {launches}")
+    for name, s_, k in rows[:6]:
+        log(f"    {1e3 * s_:9.3f} ms {k:6d} calls  {name[:90]}")
+    del engine, srv, calm
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, {"build_s": build_s, "session_wall_s": wall,
+                      "device_busy_s": busy,
+                      "busy_share_of_wall": busy / wall,
+                      "endpoints": rows_out,
+                      "stream_vs_buffered": stream_vs_buffered,
+                      "batched_vs_solo_tts": divergence,
+                      "stats_tts_sizes": stats["batches"]["tts"]["sizes"]}
+
+
 def kernel_time_resblock(vocs, v1_gen, launches, worst, card):
     """K6 per launch at the odd-width render's resblock shapes (B=2,
     384-frame grid: [2, 98304, 96], [2, 196608, 48], [2, 393216, 24], k =
@@ -1761,6 +2193,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"phase ASR path: ok in {time.perf_counter() - t0:.1f} s")
 
+    # 5g. the served product: configs/calm.yaml through the port's own
+    # load_config and HTTP server, requests over HTTP (its engine freed
+    # after)
+    t0 = time.perf_counter()
+    served_launches, served_product = phase_served_product(card)
+    log(f"phase served product: ok in {time.perf_counter() - t0:.1f} s")
+
     # 6. kernel times (the plain versions as they were compared)
     with exact_fp32():
         with torch.no_grad():
@@ -1777,6 +2216,7 @@ def main() -> int:
                 errs["fused_resblock"], card))
     kernels[1]["training_launches"] = train_counts["attention_fwd"]
     kernels[1]["asr_launches"] = asr_launches
+    kernels[1]["served_product_launches"] = served_launches
     with exact_fp32(), torch.no_grad():
         kernels[1]["asr_shapes"] = kernel_time_asr_attention(asr, card)
 
@@ -1795,6 +2235,7 @@ def main() -> int:
     log("vocoder_path " + json.dumps(voc_path))
     log("reconstruction " + json.dumps(recon))
     log("asr " + json.dumps({**asr, "reduced_depth": asr_reduced}))
+    log("served_product " + json.dumps(served_product))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

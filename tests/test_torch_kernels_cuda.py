@@ -572,3 +572,102 @@ def test_kernels_refuse_autograd(card):
         fused_resblock(x.requires_grad_(), block)
     with torch.no_grad():
         fused_resblock(x, block)
+
+
+# a tiny served configuration whose every attention takes the kernel: Qwen2
+# head dim 128, the DiT heads at 128 / 4 = 32, the ASR query
+# cross-attention at 512 / 16 = 32
+SERVED_YAML = """
+model:
+  latent_dim: 8
+  max_audio_len: 32
+  max_text_len: 96
+  tts_flow_hidden_dim: 128
+  tts_flow_num_layers: 1
+  asr_flow_hidden_dim: 128
+  asr_flow_num_layers: 1
+  flow_num_heads: 4
+  qwen:
+    vocab_size: 512
+    hidden_size: 512
+    intermediate_size: 1024
+    num_hidden_layers: 2
+    num_attention_heads: 4
+    num_key_value_heads: 2
+    head_dim: 128
+    rope_theta: 10000.0
+evaluation:
+  audio_buckets: [16, 32]
+  text_buckets: [64, 96]
+  compute_dtype: bfloat16
+"""
+
+
+def test_server_worker_thread_runs_kernels(card, tmp_path):
+    """The server does its device work on the batcher's worker thread,
+    whose grad mode is its own: one /tts and one /asr there launch the
+    attention kernel as many times as the path requires (the wrappers
+    would raise under autograd)."""
+    import io
+    import json
+    import urllib.request
+    import wave
+
+    from audio_calm_torch.serving import server
+
+    cfg = tmp_path / "served.yaml"
+    cfg.write_text(SERVED_YAML)
+    args = server.parse_args(["--config", str(cfg), "--byte-tokenizer",
+                              "--port", "0"])
+    srv = server.make_server(server.build_engine(args), args).start()
+
+    def post(path, data, ctype):
+        req = urllib.request.Request(f"http://localhost:{srv.port}{path}",
+                                     data=data, headers={"Content-Type":
+                                                         ctype})
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return r.read()
+
+    buf = io.BytesIO()
+    with wave.open(buf, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(16000)
+        t = np.arange(16000) / 16000
+        w.writeframes((0.3 * np.sin(2 * np.pi * 220 * t) * 32767)
+                      .astype("<i2").tobytes())
+    try:
+        attention_fwd.launches = 0
+        wav = post("/tts", json.dumps({"text": "hello", "seed": 1, "steps": 2,
+                                       "cfg_scale": 1.5}).encode(),
+                   "application/json")
+        n_tts = attention_fwd.launches
+        attention_fwd.launches = 0
+        text = json.loads(post("/asr?seed=1", buf.getvalue(),
+                               "audio/wav"))["text"]
+        n_asr = attention_fwd.launches
+    finally:
+        srv.close()
+    e = srv.engine.cfg.evaluation
+    assert wav[:4] == b"RIFF" and len(wav) > 44 and isinstance(text, str)
+    # Qwen2 layers, then the DiT's self and cross attention at each of the
+    # midpoint solver's 2 evaluations a step; ASR: the layers, the query
+    # cross-attention, the head's self-attention at each evaluation
+    assert e.ode_method == "midpoint"
+    assert n_tts == 2 + 1 * 2 * (2 * 2)
+    assert n_asr == 2 + 1 + 1 * (2 * e.asr_steps)
+
+
+def test_griffin_lim_is_deterministic_on_the_card(card):
+    """The served product's vocoder: the same magnitudes twice give the
+    same bits on the card (its overlap-add sums in a fixed order; a
+    scatter-add with atomics would not), so a seeded /tts is
+    reproducible."""
+    from audio_calm_torch.models.vocoder import GriffinLimVocoder
+
+    g = torch.Generator(card).manual_seed(0)
+    log_mel = torch.randn(2, 768, 80, generator=g, device=card) - 4.0
+    voc = GriffinLimVocoder(device=card)
+    a, b = voc(log_mel), voc(log_mel)
+    assert a.shape == (2, 768 * 256)
+    assert torch.equal(a, b)
