@@ -1,6 +1,6 @@
 """CALM heads on the TTS path: the DiT flow head, the predictor MLPs and
-the audio input projector (counterpart of
-audio_calm_tpu/models/calm_heads.py).
+the audio input projector, and the legacy dilated-ResNet flow head of
+pre-DiT checkpoints (counterpart of audio_calm_tpu/models/calm_heads.py).
 
 All sequence tensors [B, T, C]. Key-padding masks are True at PAD, as in
 the JAX package. Each module computes in the dtype of its input and casts
@@ -22,7 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from audio_calm_torch.models.layers import Linear, gelu
+from audio_calm_torch.models.layers import Conv1d, GroupNorm, Linear, gelu
 from audio_calm_torch.ops.attention import MultiheadAttention
 
 
@@ -188,6 +188,51 @@ class TransformerFlowHead(nn.Module):
         for blk in self.blocks:
             x = blk(x, t_emb, proj_context, context_mask, x_mask, train, seed)
         return self.out_proj(self.final_adaLN(x, t_emb))
+
+
+class FlowMatchingHead(nn.Module):
+    """Legacy dilated-ResNet flow head (reference modeling_calm.py:100-168),
+    the module a pre-DiT checkpoint converts into
+    (convert.convert_legacy_flow_head); QwenCALM's heads are DiTs. The time
+    embedding per position (t [B] broadcast over frames, or t [B, T]), a
+    k3 in_proj over [condition | noisy_x | t_emb], N residual blocks
+    (SiLU, k3 conv with dilation 2^i, SiLU, k1 conv), GroupNorm(8, eps
+    1e-5), SiLU and a zero-initialised k3 out conv. condition_mask [B]
+    zeroes whole rows of the input."""
+
+    def __init__(self, input_dim: int, output_dim: int, hidden_dim: int = 1024,
+                 num_layers: int = 6, time_dim: int = 256):
+        super().__init__()
+        self.time_dim = time_dim
+        self.num_layers = num_layers
+        self.time_fc1 = Linear(time_dim, time_dim)
+        self.time_fc2 = Linear(time_dim, time_dim)
+        self.in_proj = Conv1d(input_dim + output_dim + time_dim, hidden_dim, 3,
+                              padding=1)
+        for i in range(num_layers):
+            d = 2 ** i
+            setattr(self, f"res{i}_conv1", Conv1d(hidden_dim, hidden_dim, 3,
+                                                  padding=d, dilation=d))
+            setattr(self, f"res{i}_conv2", Conv1d(hidden_dim, hidden_dim, 1))
+        self.out_norm = GroupNorm(8, hidden_dim, eps=1e-5)
+        self.out_proj = Conv1d(hidden_dim, output_dim, 3, padding=1)
+        nn.init.zeros_(self.out_proj.weight)
+        nn.init.zeros_(self.out_proj.bias)
+
+    def forward(self, condition, noisy_x, t, condition_mask=None):
+        B, T, _ = condition.shape
+        if t.ndim == 1:
+            t = t[:, None].expand(B, T)
+        e = timestep_embedding(t.reshape(-1), self.time_dim)
+        t_emb = self.time_fc2(F.silu(self.time_fc1(e))).reshape(B, T, -1)
+        x = torch.cat([condition, noisy_x, t_emb.to(condition.dtype)], dim=-1)
+        if condition_mask is not None:
+            x = x * condition_mask.reshape(-1, 1, 1).to(x.dtype)
+        x = self.in_proj(x)
+        for i in range(self.num_layers):
+            h = getattr(self, f"res{i}_conv1")(F.silu(x))
+            x = x + getattr(self, f"res{i}_conv2")(F.silu(h))
+        return self.out_proj(F.silu(self.out_norm(x)))
 
 
 class PredictorMLP(nn.Module):

@@ -9,17 +9,21 @@ With a validity mask [B, T, 1] the GroupNorm statistics cover valid frames
 only and activations are re-zeroed before each conv, so a padded row
 encodes (decodes) its valid frames exactly as the exact-length tensor
 would. The training losses (SSIM, multi-resolution STFT) and training-mode
-sampling are still to be ported.
+sampling are still to be ported. `load_vae` reads a reference (torch)
+checkpoint file.
 """
 
 from __future__ import annotations
 
+import json
+import os
 from typing import Optional, Tuple
 
 import torch
 from torch import nn
 
-from audio_calm_torch.config import VAEModelConfig
+from audio_calm_torch import resolve_device
+from audio_calm_torch.config import VAEModelConfig, from_dict
 from audio_calm_torch.models.layers import (Conv1d, ConvTranspose1d,
                                             GroupNorm, gelu)
 
@@ -143,6 +147,43 @@ class AcousticVAE(nn.Module):
                 "AcousticVAE.reparameterize(train=True) is not ported yet: "
                 "ROADMAP.md Queue 1, VAE training")
         return mu
+
+
+def load_vae(ckpt_path: str, cfg: Optional[VAEModelConfig] = None,
+              device=None) -> AcousticVAE:
+    """A pretrained VAE from a reference torch checkpoint file (.bin / .pt
+    / .safetensors, reference preprocess/core.py:63-91) -> AcousticVAE on
+    `device` (None = the card), eval mode, no gradients. Without `cfg`, a
+    `vae_config.json` sidecar in the directory or beside the file gives the
+    geometry (scripts/train_vae.py writes it), else VAEModelConfig(). A
+    directory is the JAX package's orbax checkpoint, which the port cannot
+    read: it raises, as a missing file does. (models/convert.load_vae
+    carries a JAX tree across instead.)"""
+    from audio_calm_torch.models import convert as C
+    from audio_calm_torch.train.checkpoint import orbax_item_error
+
+    device = resolve_device(device)
+    if cfg is None:
+        for candidate in (
+                os.path.join(ckpt_path, "vae_config.json"),
+                os.path.join(os.path.dirname(ckpt_path.rstrip("/")),
+                             "vae_config.json")):
+            if os.path.exists(candidate):
+                with open(candidate) as f:
+                    cfg = from_dict(VAEModelConfig, json.load(f))
+                break
+    cfg = cfg or VAEModelConfig()
+    if os.path.isdir(ckpt_path):
+        raise orbax_item_error(ckpt_path)
+    if not os.path.isfile(ckpt_path):
+        raise FileNotFoundError(f"load_vae: {ckpt_path} does not exist")
+    sd = C.numpy_state_dict(C.load_torch_state_dict(ckpt_path))
+    with torch.device(device):
+        vae = AcousticVAE(cfg)
+    init = C.to_jax_params(vae.state_dict())
+    vae.load_state_dict(C.from_jax_params(C.merge_params(
+        init, C.convert_vae_params(sd, tuple(cfg.strides)))), strict=True)
+    return vae.eval().requires_grad_(False)
 
 
 def pad_to_stride(mel: torch.Tensor, total_stride: int) -> torch.Tensor:

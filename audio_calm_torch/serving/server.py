@@ -2,7 +2,9 @@
 scripts/serve.py), standard library only.
 
     python -m audio_calm_torch.serving.server --config configs/calm.yaml \
-        --byte-tokenizer --override model.vae_path=null [--port 8080]
+        --byte-tokenizer --components <dir> \
+        --override model.vae_path=<dir>/vae.bin [--port 8080]
+    (AUDIO_CALM_LLM_WEIGHTS=int8 in the environment: int8 LLM weights)
 
 Endpoints:
   GET  /health              -> {"status": "ok"}
@@ -22,12 +24,18 @@ past the largest latent bucket) submit each chunk to the same batcher
 groups. A "seed" pins a request's noise, so its output is reproducible and
 independent of what it was batched with.
 
-The engine: configs through the port's load_config, the tokenizer policy,
-evaluation.compute_dtype, random weights from a seed (the port loads no
-CALM checkpoint yet), the random VAE (model.vae_path must be null),
-load_vocoder (Griffin-Lim when evaluation.vocoder_path is null), the
-renderer and the bucketed ASR frontend. It runs on the card unless
-`--device cpu` is given. Device work runs on the batcher's worker thread,
+The engine (scripts/serve.py's order): configs through the port's
+load_config and the tokenizer policy; the CALM model built in fp32 from a
+seed, the components of a reference checkpoint directory (`--components`:
+the 8 component .bins and the peft adapter, train/checkpoint.soft_restart)
+laid over it, cast to evaluation.compute_dtype, then int8 LLM projections
+when AUDIO_CALM_LLM_WEIGHTS=int8 (models/quant.py); the VAE from
+model.vae_path (a torch checkpoint file, models/vae.load_vae) or the seeded
+random one when it is null; load_vocoder (Griffin-Lim when
+evaluation.vocoder_path is null), the renderer and the bucketed ASR
+frontend. Like scripts/serve.py it does not read model.qwen_path: the LLM
+base is the seeded one under the checkpoint's LoRA. It runs on the card
+unless `--device cpu` is given. Device work runs on the batcher's worker thread,
 one group at a time behind a lock, in torch.inference_mode() (grad mode is
 per thread).
 """
@@ -37,6 +45,7 @@ from __future__ import annotations
 import argparse
 import io
 import json
+import os
 import struct
 import sys
 import threading
@@ -60,12 +69,14 @@ from audio_calm_torch.eval.render import make_renderer
 from audio_calm_torch.models.calm import QwenCALM
 from audio_calm_torch.models.flagship import (build_random,
                                               resolve_compute_dtype)
-from audio_calm_torch.models.vae import AcousticVAE
+from audio_calm_torch.models.quant import maybe_quantize_from_env
+from audio_calm_torch.models.vae import AcousticVAE, load_vae
 from audio_calm_torch.models.vocoder import load_vocoder
 from audio_calm_torch.serving.batcher import RequestBatcher
 from audio_calm_torch.serving.frontend import make_asr_frontend
 from audio_calm_torch.serving.stats import ServingStats
 from audio_calm_torch.serving.wav_stream import WavStreamParser
+from audio_calm_torch.train.checkpoint import COMPONENTS, soft_restart
 
 # /tts steps and cfg_scale quantize to this ladder, at most MAX_ODE_KEYS
 # distinct pairs a server; the effective values go back in the X-ODE-Steps
@@ -125,24 +136,39 @@ class Engine:
                                                              n_frames)]
 
 
-def build_engine(args) -> Engine:
-    cfg = load_config(args.config, cls=CALMConfig, overrides=args.override)
+def load_models(cfg: CALMConfig, device, components=None):
+    """-> (CALM model, VAE) as the server serves them: the CALM built in
+    fp32 from seed 0, `components` (a reference checkpoint directory, or
+    None) laid over it for COMPONENTS and the LoRA adapter, cast to
+    evaluation.compute_dtype, int8 LLM projections when the environment
+    asks; the VAE from model.vae_path, or from seed 1 when it is null."""
     m = cfg.model
-    device = resolve_device(args.device)
-    tokenizer = load_tokenizer(m, byte_fallback=args.byte_tokenizer)
+    model = build_random(lambda: QwenCALM(m), device, seed=0)
+    if components:
+        if not os.path.isdir(components):
+            raise FileNotFoundError(f"--components {components} is not a "
+                                    "directory")
+        soft_restart(model, {c: components for c in COMPONENTS + ("lora",)})
+    model = maybe_quantize_from_env(
+        model.to(resolve_compute_dtype(cfg.evaluation.compute_dtype)))
+    vae_cfg = VAEModelConfig(latent_channels=m.latent_dim)
     if m.vae_path:
-        raise NotImplementedError(
-            f"model.vae_path={m.vae_path!r}: the port has no VAE checkpoint "
-            "loader yet (ROADMAP Queue 1 item 5, checkpoints); pass "
-            "--override model.vae_path=null for the seeded random VAE")
-    dtype = resolve_compute_dtype(cfg.evaluation.compute_dtype)
-    model = build_random(lambda: QwenCALM(m), device, seed=0, dtype=dtype)
+        vae = load_vae(m.vae_path, vae_cfg, device=device)
+    else:
+        vae = build_random(lambda: AcousticVAE(vae_cfg), device, seed=1)
+    return model, vae
+
+
+def make_engine(cfg: CALMConfig, model: QwenCALM, vae: AcousticVAE,
+                tokenizer, device) -> Engine:
+    """The engine around a served model and VAE (on `device`): inference
+    wrapper, vocoder, renderer and the bucketed ASR frontend."""
+    m = cfg.model
     inf = CALMInference(model, tokenizer,
                         audio_buckets=cfg.evaluation.audio_buckets,
                         text_buckets=cfg.evaluation.text_buckets,
                         device=device)
     vae_cfg = VAEModelConfig(latent_channels=m.latent_dim)
-    vae = build_random(lambda: AcousticVAE(vae_cfg), device, seed=1)
     vocoder = load_vocoder(cfg.evaluation.vocoder_path, device=device)
     print(f"[serve] vocoder: {type(vocoder).__name__}", file=sys.stderr)
     render = make_renderer(vae, vae_cfg, vocoder, device=device)
@@ -154,6 +180,14 @@ def build_engine(args) -> Engine:
                                            device=device)
     max_asr = lat_buckets[-1] * vae_cfg.total_stride * mel_cfg.hop_length
     return Engine(cfg, inf, render, prep_asr, fe_batch, max_asr)
+
+
+def build_engine(args) -> Engine:
+    cfg = load_config(args.config, cls=CALMConfig, overrides=args.override)
+    device = resolve_device(args.device)
+    tokenizer = load_tokenizer(cfg.model, byte_fallback=args.byte_tokenizer)
+    model, vae = load_models(cfg, device, args.components)
+    return make_engine(cfg, model, vae, tokenizer, device)
 
 
 def streaming_wav_header(sr: int = 16000) -> bytes:
@@ -610,6 +644,9 @@ def parse_args(argv=None):
     p.add_argument("--override", action="append", default=[],
                    help="dotted config override, e.g. model.vae_path=null")
     p.add_argument("--byte-tokenizer", action="store_true")
+    p.add_argument("--components", default=None,
+                   help="reference checkpoint directory: <component>.bin "
+                        "files and the peft adapter_model.bin")
     p.add_argument("--port", type=int, default=8080,
                    help="0 binds a free port (printed on stdout)")
     p.add_argument("--device", default=None,

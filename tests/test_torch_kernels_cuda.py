@@ -671,3 +671,37 @@ def test_griffin_lim_is_deterministic_on_the_card(card):
     a, b = voc(log_mel), voc(log_mel)
     assert a.shape == (2, 768 * 256)
     assert torch.equal(a, b)
+
+
+def test_int8_lora_dense_matches_the_cpu(card):
+    """Weight-only int8 at the Qwen2-1.5B gate_proj shape (1536 -> 8960,
+    LoRA r 64, alpha 128), bf16: quantized on each device from the same
+    bf16 weights, the int8 weights and scales are equal, and the card's
+    output (a B=1 encode of 97 positions) is the CPU's within the bf16
+    bound (the products sum in another order)."""
+    from audio_calm_torch.models.lora import LoRADense
+    from audio_calm_torch.models.quant import quantize_llm_int8
+
+    g = torch.Generator().manual_seed(0)
+    layer = LoRADense(1536, 8960, bias=False, rank=64, alpha=128.0)
+    with torch.no_grad():
+        for p in layer.parameters():
+            p.copy_(0.02 * torch.randn(p.shape, generator=g))
+    x = torch.randn(1, 97, 1536, generator=g).to(torch.bfloat16)
+    outs, states = [], []
+    for dev in ("cpu", card):
+        holder = torch.nn.ModuleDict({"gate_proj": LoRADense(
+            1536, 8960, bias=False, rank=64, alpha=128.0)})
+        holder.load_state_dict({"gate_proj." + k: v for k, v in
+                                layer.state_dict().items()})
+        holder = holder.to(dev).to(torch.bfloat16)
+        assert quantize_llm_int8(holder) == 1
+        with torch.no_grad():
+            outs.append(holder["gate_proj"](x.to(dev)).float().cpu())
+        states.append({k: v.cpu() for k, v in holder.state_dict().items()})
+    assert states[1]["gate_proj.weight"].dtype == torch.int8
+    for k in states[0]:
+        assert torch.equal(states[0][k], states[1][k]), k
+    ref = outs[0]
+    assert ref.abs().max() > 0.1
+    assert (outs[1] - ref).abs().max() <= 2 ** -7 * ref.abs().max()

@@ -749,14 +749,23 @@ def test_early_error_closes_partial_body_connection(server):
 
 
 def test_engine_refuses_what_it_cannot_build(tmp_path, monkeypatch):
-    """A set model.vae_path raises (no VAE checkpoint loader yet), no
+    """A model.vae_path or --components that does not exist raises (no
+    random weights in its place), so does an orbax VAE directory; no
     tokenizer raises, and with no card the default device raises."""
     cfg = tmp_path / "tiny.yaml"
     cfg.write_text(TINY_YAML)
     base = ["--config", str(cfg), "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    with pytest.raises(FileNotFoundError, match="does not exist"):
         tserver.build_engine(tserver.parse_args(
             base + ["--byte-tokenizer", "--override", "model.vae_path=x"]))
+    with pytest.raises(ValueError, match="orbax"):
+        tserver.build_engine(tserver.parse_args(
+            base + ["--byte-tokenizer", "--override",
+                    f"model.vae_path={tmp_path}"]))
+    with pytest.raises(FileNotFoundError, match="--components"):
+        tserver.build_engine(tserver.parse_args(
+            base + ["--byte-tokenizer", "--components",
+                    str(tmp_path / "missing")]))
     with pytest.raises(ValueError, match="byte-tokenizer"):
         tserver.build_engine(tserver.parse_args(base))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -764,6 +773,90 @@ def test_engine_refuses_what_it_cannot_build(tmp_path, monkeypatch):
         tserver.build_engine(tserver.parse_args(
             ["--config", str(cfg), "--byte-tokenizer"]))
 
+
+def test_server_serves_checkpoint_weights_as_jax_loads_them(tmp_path):
+    """The tiny-YAML server started with --components and a .bin
+    model.vae_path (files JAX's save_reference_checkpoint wrote): its model
+    equals, bit for bit, the one from_jax_params makes of JAX's
+    soft_restart tree (on the server's own seeded base), and a seeded /tts
+    returns the bytes that an engine built on that model and on JAX's
+    conversion of vae.bin serves."""
+    import dataclasses
+
+    import jax
+    import jax.numpy as jnp
+
+    from audio_calm_torch.config import CALMConfig, VAEModelConfig, load_config
+    from audio_calm_torch.data.tokenizer import load_tokenizer
+    from audio_calm_torch.models import convert as TC
+    from audio_calm_torch.models.calm import QwenCALM as TQwenCALM
+    from audio_calm_torch.models.flagship import build_random
+    from audio_calm_torch.models.vae import AcousticVAE as TVAE
+    from audio_calm_tpu.config import CALMModelConfig, from_dict
+    from audio_calm_tpu.config import VAEModelConfig as JVAEConfig
+    from audio_calm_tpu.models import convert as JC
+    from audio_calm_tpu.models.calm import QwenCALM, init_calm_params
+    from audio_calm_tpu.models.convert_export import save_reference_checkpoint
+    from audio_calm_tpu.models.vae import AcousticVAE
+    from audio_calm_tpu.train.checkpoint import COMPONENTS, soft_restart
+
+    yaml = tmp_path / "tiny.yaml"
+    yaml.write_text(TINY_YAML)
+    overrides = ["evaluation.compute_dtype=float32"]
+    cfg = load_config(str(yaml), cls=CALMConfig, overrides=overrides)
+    jmodel = QwenCALM(from_dict(CALMModelConfig,
+                                dataclasses.asdict(cfg.model)))
+    rng = np.random.default_rng(0)
+
+    def draw(shapes):
+        return jax.tree_util.tree_map(
+            lambda leaf: (0.05 * rng.standard_normal(leaf.shape)).astype(
+                np.float32), shapes)
+
+    trained = draw(jax.eval_shape(lambda: init_calm_params(
+        jmodel, jax.random.PRNGKey(0))))
+    vae_params = draw(jax.eval_shape(lambda: AcousticVAE(JVAEConfig(
+        latent_channels=8)).init(
+        {"params": jax.random.PRNGKey(0), "noise": jax.random.PRNGKey(1)},
+        jnp.zeros((1, 8, 80)), train=False))["params"])
+    ckpt = tmp_path / "ckpt"
+    save_reference_checkpoint(trained, str(ckpt), vae_params)
+
+    args = tserver.parse_args([
+        "--config", str(yaml), "--byte-tokenizer", "--port", "0",
+        "--device", "cpu", "--components", str(ckpt), "--override",
+        f"model.vae_path={ckpt / 'vae.bin'}", "--override", overrides[0]])
+    base = build_random(lambda: TQwenCALM(cfg.model), "cpu", seed=0)
+    jtree = soft_restart(TC.to_jax_params(base.state_dict()),
+                         {c: str(ckpt) for c in COMPONENTS + ("lora",)})
+    ref_model = TQwenCALM(cfg.model)
+    TC.load_calm(ref_model, jtree)
+    ref_vae = TVAE(VAEModelConfig(latent_channels=8))
+    TC.load_vae(ref_vae, JC.convert_vae_params(JC.load_torch_state_dict(
+        str(ckpt / "vae.bin"))))
+    ref_engine = tserver.make_engine(
+        cfg, ref_model.eval().requires_grad_(False),
+        ref_vae.eval().requires_grad_(False),
+        load_tokenizer(cfg.model, byte_fallback=True), torch.device("cpu"))
+
+    served = []
+    for engine in (tserver.build_engine(args), ref_engine):
+        srv = tserver.make_server(engine, args).start()
+        try:
+            served.append(_tts(srv, {"text": "from trained weights",
+                                     "seed": 5, "steps": 2}))
+        finally:
+            srv.close()
+        if engine is not ref_engine:
+            got = engine.inf.model.state_dict()
+            want = ref_model.state_dict()
+            assert set(got) == set(want)
+            for k in got:
+                assert torch.equal(got[k], want[k]), k
+            assert torch.equal(got["soa_embed"], torch.from_numpy(
+                trained["soa_embed"]))
+    assert served[0][:4] == b"RIFF" and len(served[0]) > 44
+    assert served[0] == served[1]
 
 
 def test_main_serves_on_the_printed_port(tmp_path):

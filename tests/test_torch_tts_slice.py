@@ -195,14 +195,16 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "audio_calm_torch." + ".".join(p.relative_to(pkg).with_suffix("")
                                        .parts).replace(".__init__", "")
         for p in pkg.rglob("*.py"))
-    # the training, vocoder and serving slices' modules and the kernel
-    # wrappers are covered
+    # the training, vocoder, serving and checkpoint slices' modules and the
+    # kernel wrappers are covered
     for name in ("train.optim", "train.steps", "train.loop", "ops.mas",
                  "ops.flow", "ops.dropout", "ops.attention_kernel",
                  "ops.cuda_build", "ops.mel", "ops.vocoder_kernel",
                  "models.vocoder", "eval.reconstruct", "serving.frontend",
                  "data.tokenizer", "config", "serving.batcher",
-                 "serving.stats", "serving.wav_stream", "serving.server"):
+                 "serving.stats", "serving.wav_stream", "serving.server",
+                 "models.convert_export", "models.quant",
+                 "train.checkpoint"):
         assert f"audio_calm_torch.{name}" in modules, name
     from audio_calm_torch.ops import cuda_build
     for src in cuda_build.SOURCES:
@@ -213,7 +215,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                       for m in modules)
             # the card's machine has no PyYAML: the port reads YAML itself
             + "bad = [m for m in sys.modules if m.split('.')[0] in "
-              "('jax', 'jaxlib', 'flax', 'audio_calm_tpu', 'yaml')]\n"
+              "('jax', 'jaxlib', 'flax', 'orbax', 'audio_calm_tpu', "
+              "'yaml')]\n"
               "print(len(bad), bad)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -221,6 +224,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert res.returncode == 0, res.stderr
     assert res.stdout.startswith("0 "), res.stdout
     pattern = re.compile(
-        r"^\s*(import|from)\s+(jax|jaxlib|flax|audio_calm_tpu|yaml)\b", re.M)
+        r"^\s*(import|from)\s+(jax|jaxlib|flax|orbax|audio_calm_tpu|yaml)\b",
+        re.M)
     for path in list(pkg.rglob("*.py")) + [pkg.parent / "chip_smoke.py"]:
         assert not pattern.search(path.read_text()), path
