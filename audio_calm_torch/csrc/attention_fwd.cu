@@ -1,8 +1,8 @@
 // attention_fwd: fused scaled dot-product attention forward for Hopper (sm_90a).
 //
-// Replaces the Pallas TPU kernels `fused_attention` / `_attn_kernel` and
-// `fused_attention_batched` / `_attn_kernel_batched`
-// (audio_calm_tpu/ops/pallas_attention.py). Both compute the same function,
+// Replaces the Pallas TPU kernels `fused_attention` / `_attn_kernel` (K3,
+// audio_calm_tpu/ops/pallas_attention.py:91) and `fused_attention_batched`
+// / `_attn_kernel_batched` (K4, :181). Both compute one function,
 //   out[b,t,h] = softmax_s(mask(q[b,t,h] . k[b,s,h/g] * d^-1/2)) @ v[b,s,h/g]
 // with GQA (g = Hq / Hkv), a per-key validity mask key_valid[b,s], an
 // optional causal mask with offset S - T (key s is seen by query t when
@@ -10,37 +10,52 @@
 // TPU grids differ only in how programs are launched, so one kernel serves
 // both call sites (DiT self/cross attention, Qwen2 causal GQA attention).
 // A fully masked row gets a uniform average over all S keys, as with -1e30
-// in the reference.
+// in the reference. No length limit: keys stream through the block.
 //
-// What bounds it on this card: at the main path's shapes the work is
-// small and the bytes few. DiT self-attention, the serving path's largest
-// (q/k/v [4, 384, 16, 64] bf16, the CFG batch of a 2-text request): 2.4 GFLOP
-// and 12.6 MB, 2.4 us at 989 TFLOP/s against 3.8 us at 3.35 TB/s; DiT
-// cross-attention (S = 24) and the Qwen2 encode (T = S = 25, d = 128) are
-// smaller still. So the kernel is latency-bound: what it must avoid is the
-// reference's [B, H, T, S] score and mask tensors in device memory, and
-// stalls on loads that nothing overlaps.
+// What bounds it on this card. At every served shape the bound is the
+// bytes (q, k, v, out once): 0.07-0.3 us for a Qwen2 encode of one text
+// (B = 1, 33-97 positions, d = 128), 0.35-2.8 us for the calm.yaml DiT
+// heads (d = 48, T = 96-384, B = 2-4), 2.0 us for the causal ASR encode
+// (L = 461). The kernel takes 3.6-12.6 us there (PERF.md section 6): what
+// sets its time is a block's serial latency (copy, product, softmax,
+// product, store), not the card's rates. So the design cuts that chain and
+// the work on it: a block that waits on a load no work overlaps, a grid
+// whose longest block is long (a causal tile's key walk), key tiles that a
+// causal row never sees, instructions a score takes in the softmax.
 //
-// Design. One block of 128 threads per (query tile, head, batch); keys and
-// values stream through shared memory in tiles of 64 under an online
-// softmax (running max and sum per row, fp32). No mask tensor is built:
-// validity and causality are tested per score from key_valid and the
-// indices. Two paths, by dtype:
-//
-// bf16 (the serving path): tensor cores, mma.sync m16n8k16 with fp32
-// accumulators, as FlashAttention-2 does it. A query tile of 64 rows, 16
-// per warp; the warp keeps its Q fragments in registers, computes its
-// 16 x 64 scores with K read by ldmatrix, masks and exponentiates them in
-// registers (exp2f, with log2 e folded into the scale), and feeds the
-// probabilities straight back as the A operand of P @ V (V read by
-// ldmatrix.trans). P is rounded to bf16 for that product, as the TPU
-// kernel casts probs to v's dtype. K/V tiles come through a two-stage ring
-// of cp.async 16-byte copies: tile i + 1 is in flight while tile i's
-// products and softmax run, one barrier a tile (at the DiT self shape
-// about 3 blocks of 4 warps share an SM: too few to hide a load that is
-// waited on before any product). Rows are padded by 8
-// elements in shared memory so that ldmatrix hits distinct banks; at
-// d = 128 the ring and the Q tile take 87 KB, 2 blocks an SM.
+// Design (bf16, the served path), per block one tile of 64 query rows:
+// - The products are warpgroup products: one warpgroup (4 warps) owns the
+//   64 rows and issues wgmma m64n64k16 for S = Q K^T (Q and K read from
+//   shared memory by descriptors, both K-major) and m64nDk16 for O += P V
+//   (P from registers, the fp32 score accumulator rounded to bf16 in place:
+//   the accumulator and A-fragment layouts agree for 16-bit types; V read
+//   MN-major, the transposed-B form). d = 48 is n48 and three k16 steps.
+// - Tiles come by TMA (cp.async.bulk.tensor) into shared memory in the
+//   swizzle of their row width (Slab below: 128-byte rows where 64 divides
+//   d, else 64-byte, else 32-byte; d = 48 and 96 take three slabs), zero-
+//   filled past the sequence by the copy. One producer warp issues Q once
+//   and then K/V key tiles of 64 into a ring of mbarrier-completed stages
+//   while the consumers compute. The C entry encodes the three tensor maps
+//   on the host at every launch: their base addresses change every call.
+// - Causal tiles stop at the diagonal: a query tile walks only the key
+//   tiles its last row sees (offset S - T included), and the grid launches
+//   the heaviest query tiles first. The per-score mask runs only on tiles
+//   that cross a diagonal or hold an invalid or missing key (their 64
+//   validity bits are read a tile ahead); a clean tile folds the scale into
+//   one multiply-add before ex2.approx.
+// - GQA rows packed (attention_plan: the causal ASR encode), one tile
+//   takes the g q heads of one kv head together, position-major (row =
+//   t g + h): K/V are read once per kv head, and tiles of 64 / g positions
+//   walk fewer key tiles along the diagonal. At the short text encodes it
+//   measured slower (fewer blocks, the same chain) and is off.
+// - Key split (attention_plan: a long key walk on a small grid): 2
+//   consumer warpgroups take alternate key tiles of one query tile and
+//   merge (max, sum, output) in shared memory, warpgroup 1 into 0, in a
+//   fixed order. No atomics.
+// The plan (packing, consumers) is a function of (T, S, Hq, Hkv, d,
+// causal), never of B, and a block's work depends on its (tile, head,
+// batch row) alone: row b of a batch equals the same row launched alone,
+// bit for bit.
 //
 // fp32 (parity runs): a query tile of 32 rows in shared memory, four
 // threads a row, each scoring 16 of the tile's 64 keys with fp32
@@ -49,22 +64,17 @@
 //
 // Layouts as in JAX: q [B, T, Hq, d], k/v [B, S, Hkv, d], out [B, T, Hq, d],
 // key_valid [B, S] uint8; rows 16-byte aligned (the wrapper realigns). d is
-// a template parameter (32, 48, 64, 96, 128). d = 48 (the DiT heads of
-// configs/calm.yaml and configs/asr.yaml: hidden 768, 16 heads) is 3 k16
-// slices and 6 n8 column blocks: every product loop runs over the k16
-// slices, each ldmatrix .x4 covers one slice (16 keys x 16 dims for K, 16
-// keys x two n8 blocks for V), so no loop needs an even count; its 56-element
-// (112-byte) shared rows put the 8 row addresses of an ldmatrix phase on 8
-// distinct 4-bank groups, as the 72- and 136-element rows do.
+// a template parameter (32, 48, 64, 96, 128).
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 #include <math.h>
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kBK = 64;   // keys per streamed tile
+constexpr int kThreads = 128;  // the fp32 path's block
+constexpr int kBK = 64;        // keys per streamed tile
 constexpr float kMasked = -1e30f;
 
 // ---------------------------------------------------------------------------
@@ -175,203 +185,431 @@ size_t smem_bytes() {
 }  // namespace simt
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores (mma.sync m16n8k16, fp32 accumulators)
+// bf16: warpgroup products (wgmma) on tiles that TMA copies in
 // ---------------------------------------------------------------------------
 namespace tc {
 
-constexpr int kWarps = kThreads / 32;
-constexpr int kBQ = 16 * kWarps;  // query rows per block, 16 per warp
-constexpr int kPad = 8;           // row padding of the shared tiles, in elements
+using bf16 = __nv_bfloat16;
+
+constexpr int kRows = 64;  // query rows a tile: the M of one warpgroup product
 constexpr float kLog2e = 1.4426950408889634f;
 
-// 64 rows [r0, r0 + 64) of one head (row stride `stride` elements) ->
-// shared [64][D + kPad], asynchronously; rows at or past `limit` are zero.
-template <int D>
-__device__ __forceinline__ void copy_rows(bf16* dst, const bf16* __restrict__ src,
-                                          size_t stride, int r0, int limit) {
-  constexpr int CH = D / 8;  // 16-byte chunks a row
-  for (int e = threadIdx.x; e < 64 * CH; e += kThreads) {
-    const int r = e / CH, ch = e % CH;
-    const bool ok = r0 + r < limit;
-    cp_async16(dst + r * (D + kPad) + ch * 8,
-               ok ? src + (size_t)(r0 + r) * stride + ch * 8 : src, ok);
-  }
+// 2^x in one MUFU op (ex2.approx.ftz: 2^-22 relative error; -inf -> 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
+// A [64 rows][D] bf16 tile lies in shared memory as D / W slabs of 64 rows
+// x W columns, rows of 2W bytes, in the swizzle of that row width (the
+// layout TMA writes and wgmma reads): W = 64 (128-byte swizzle) where 64
+// divides D, else 32 (64-byte), else 16 (32-byte). So d = 48 (three 32-byte
+// slabs) and d = 96 (three 64-byte slabs) need no padding.
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, const uint8_t* __restrict__ key_valid,
-                 bf16* __restrict__ out, int Tq, int S, int Hq, int Hkv,
-                 int causal, float scale) {
-  constexpr int LD = D + kPad, KD = D / 16, ND = D / 8, NS = kBK / 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);  // [kBQ][LD]
-  bf16* Ks = Qs + kBQ * LD;                   // [2 stages][kBK][LD]
-  bf16* Vs = Ks + 2 * kBK * LD;               // [2 stages][kBK][LD]
+struct Slab {
+  static constexpr int W = D % 64 == 0 ? 64 : D % 32 == 0 ? 32 : 16;
+  static constexpr uint32_t kLayout = W == 64 ? 1 : W == 32 ? 2 : 3;  // descriptor
+  static constexpr uint32_t kRowBytes = 2 * W;
+  static constexpr uint32_t kBytes = kRows * kRowBytes;  // one slab
+  static constexpr int kCount = D / W;
+  static constexpr uint32_t kTile = kCount * kBytes;     // 64 rows x D
+  static constexpr uint32_t kGroup = 8 * kRowBytes;      // 8 rows: a core group
+};
 
-  const int q0 = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (Hq / Hkv);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, qd = lane & 3;
-  const int shift = S - Tq;
-  const float sl2 = scale * kLog2e;  // scores in log2 units: exp2f below
-  const size_t kstride = (size_t)Hkv * D;
-  const bf16* kb = k + ((size_t)b * S * Hkv + hk) * D;
-  const bf16* vb = v + ((size_t)b * S * Hkv + hk) * D;
+// ring stages: one a consumer warpgroup and one in flight; four where the
+// tiles are small (d <= 64), so the copies run further ahead
+template <int D, int NC>
+__host__ __device__ constexpr int stages() { return D <= 64 ? 4 : NC + 1; }
+
+// shared memory: [barriers: 1 KB | Q tile | stages x (K tile, V tile)],
+// the tiles 1024-byte aligned; 1 KB of slack aligns the base
+template <int D, int NC>
+constexpr size_t smem_bytes() {
+  return 2048 + (size_t)Slab<D>::kTile * (1 + 2 * stages<D, NC>());
+}
+
+// The descriptor of k16 slice kk of a K-major tile (Q as A, K as B of S =
+// Q K^T): slice kk lies in slab 16 kk / W at byte 2 (16 kk % W) of each row.
+template <int D>
+__device__ __forceinline__ uint64_t k_major(uint32_t tile, int kk) {
+  using L = Slab<D>;
+  const uint32_t at = tile + (16 * kk / L::W) * L::kBytes + 2 * (16 * kk % L::W);
+  return gmma_desc(at, 16, L::kGroup, L::kLayout);
+}
+
+// The descriptor of keys 16 kp .. 16 kp + 15 of the V tile as the MN-major
+// B of O += P V (N = D across the slabs, LBO apart; SBO: 8 keys).
+template <int D>
+__device__ __forceinline__ uint64_t mn_major(uint32_t tile, int kp) {
+  using L = Slab<D>;
+  return gmma_desc(tile + 16 * kp * L::kRowBytes, L::kBytes, L::kGroup, L::kLayout);
+}
+
+// blocks an SM is to hold: bounds the registers a thread (one warpgroup
+// of 64 rows needs about 70 + d / 2 + 32 of them)
+template <int D, int NC>
+__host__ __device__ constexpr int min_blocks() {
+  return NC == 1 ? (D <= 64 ? 3 : 2) : (D <= 48 ? 2 : 1);
+}
+
+// One block: a tile of 64 query rows of one (head or kv-head group, batch
+// row), NC consumer warpgroups and one producer warp. Rows are positions
+// t0 .. t0 + P - 1 of one q head (G = 1, P = 64) or, GQA rows packed, of
+// the G = Hq / Hkv q heads of one kv head, position-major: row = (t - t0) G
+// + h (P = 64 / G positions, P G rows). Consumer c takes key tiles c, c + NC,
+// ... through the ring, each with its own running max, sum and output;
+// they merge in a fixed order at the end. The grid is 1-D, decoded as
+// ops/attention_kernel.plan_blocks mirrors it.
+template <int D, int NC>
+__global__ void __launch_bounds__(128 * NC + 32, min_blocks<D, NC>())
+attention_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv, const uint8_t* __restrict__ key_valid,
+                 bf16* __restrict__ out, int T, int S, int Hq, int gq, int G, int P,
+                 int tiles, int groups, int B, int causal, float scale) {
+  using L = Slab<D>;
+  constexpr int NS = stages<D, NC>(), NO = D / 2;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);
+  const uint32_t qbar = base;
+  auto full_k = [&](int s) { return base + 8 + 8 * s; };  // K of stage s landed
+  auto full_v = [&](int s) { return base + 8 + 8 * (NS + s); };  // V landed
+  auto empty = [&](int s) { return base + 8 + 8 * (2 * NS + s); };  // stage free
+  const uint32_t Qs = base + 1024;
+  auto Ks = [&](int s) { return Qs + L::kTile * (1 + 2 * s); };
+  auto Vs = [&](int s) { return Ks(s) + L::kTile; };
+
+  // heaviest tiles first: the last query tile of every (head, batch row)
+  const int bid = blockIdx.x;
+  const int hg = bid % groups;
+  const int b = (bid / groups) % B;
+  const int tile = tiles - 1 - bid / (groups * B);
+  const int hk = G > 1 ? hg : hg / gq;
+  const int t0 = tile * P;
+  const int t_last = min(T, t0 + P) - 1;
+  const int shift = S - T;
   const uint8_t* valid = key_valid + (size_t)b * S;
-  // this thread's two query rows: g and g + 8 of the warp's 16
-  const int qrow[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (warp == 4 * NC && lane == 0) {  // the producer's descriptors, ahead of use
+    tma_prefetch(&tq);
+    tma_prefetch(&tk);
+    tma_prefetch(&tv);
+  }
 
-  copy_rows<D>(Qs, q + ((size_t)b * Tq * Hq + h) * D, (size_t)Hq * D, q0, Tq);
-  copy_rows<D>(Ks, kb, kstride, 0, S);
-  copy_rows<D>(Vs, vb, kstride, 0, S);
-  cp_async_commit();
+  if (threadIdx.x == 0) {
+    mbar_init(qbar, 1);
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(full_k(s), 1);
+      mbar_init(full_v(s), 1);
+      mbar_init(empty(s), 128);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
 
-  uint32_t qf[KD][4];
-  float o[ND][4];
+  // Key tiles the block walks. Causal: up to the tile that holds the last
+  // row's diagonal key, unless a row of the tile sees no valid key (then
+  // the reference averages all S keys: every tile). The first row sees the
+  // fewest keys, so it decides; every warp finds the same answer.
+  auto key_tiles = [&]() {
+    const int kt_all = (S + kBK - 1) / kBK;
+    if (!causal) return kt_all;
+    const int lim = min(S, t0 + shift + 1);
+    bool seen = false;
+    for (int s0 = 0; s0 < lim && !seen; s0 += 32)
+      seen = __any_sync(0xffffffffu, s0 + lane < lim && valid[s0 + lane] != 0);
+    return seen ? min(kt_all, (t_last + shift) / kBK + 1) : kt_all;
+  };
+  auto load_kv = [&](int i) {  // key tile i into its stage, once it is free
+    const int s = i % NS;
+    mbar_wait(empty(s), ((i / NS) & 1) ^ 1);
+    mbar_expect_tx(full_k(s), L::kTile);
+    for (int c = 0; c < L::kCount; ++c)
+      tma_load_4d(Ks(s) + c * L::kBytes, &tk, full_k(s), c * L::W, hk, i * kBK, b);
+    mbar_expect_tx(full_v(s), L::kTile);
+    for (int c = 0; c < L::kCount; ++c)
+      tma_load_4d(Vs(s) + c * L::kBytes, &tv, full_v(s), c * L::W, hk, i * kBK, b);
+  };
+
+  if (warp == 4 * NC) {  // the producer: Q and key tile 0 at once, then the rest
+    if (lane == 0) {
+      mbar_expect_tx(qbar, L::kCount * L::kRowBytes * G * P);
+      for (int c = 0; c < L::kCount; ++c)
+        tma_load_5d(Qs + c * L::kBytes, &tq, qbar, c * L::W, 0, hg, t0, b);
+      load_kv(0);  // every tile walks key tile 0
+    }
+    const int n_tiles = key_tiles();
+    if (lane == 0)
+      for (int i = 1; i < n_tiles; ++i) load_kv(i);
+    return;
+  }
+  const int n_tiles = key_tiles();
+
+  // a consumer: warp w of warpgroup wg holds rows 16 w .. 16 w + 15; this
+  // thread rows r = 16 w + g and r + 8 (accumulator elements e >> 1)
+  const int wg = warp >> 2, w = warp & 3, tid = threadIdx.x & 127;
+  const int g = lane >> 2, qd = lane & 3;
+  const float sl2 = scale * kLog2e;  // scores in log2 units: ex2 below
+  int row[2], pos[2];
 #pragma unroll
-  for (int j = 0; j < ND; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  for (int hr = 0; hr < 2; ++hr) {
+    row[hr] = 16 * w + g + 8 * hr;
+    pos[hr] = row[hr] < G * P ? t0 + row[hr] / G : T;  // padding rows: unused
+  }
+  float o[NO];
+#pragma unroll
+  for (int i = 0; i < NO; ++i) o[i] = 0.f;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
 
-  for (int k0 = 0, i = 0; k0 < S; k0 += kBK, ++i) {
-    cp_async_wait<0>();
-    __syncthreads();  // tile i visible to all; tile i - 1 consumed by all
-    if (k0 + kBK < S) {  // tile i + 1 into the other stage, in flight meanwhile
-      const int nx = ((i + 1) & 1) * kBK * LD;
-      copy_rows<D>(Ks + nx, kb, kstride, k0 + kBK, S);
-      copy_rows<D>(Vs + nx, vb, kstride, k0 + kBK, S);
-      cp_async_commit();
-    }
-    if (i == 0) {
-#pragma unroll
-      for (int kk = 0; kk < KD; ++kk)
-        ldmatrix_x4(qf[kk], Qs + (warp * 16 + (lane & 15)) * LD + kk * 16 + (lane >> 4) * 8);
-    }
-    const bf16* Kt = Ks + (i & 1) * kBK * LD;
-    const bf16* Vt = Vs + (i & 1) * kBK * LD;
+  // key validity bytes of this warpgroup's next tile, read one tile ahead
+  auto valid_at = [&](int k) { return k < S ? valid[k] : (uint8_t)0; };
+  uint8_t v_lo = valid_at(wg * kBK + lane), v_hi = valid_at(wg * kBK + 32 + lane);
+  mbar_wait(qbar, 0);
+  for (int i = wg; i < n_tiles; i += NC) {
+    const int s = i % NS, k0 = i * kBK;
+    // the tile's key validity as 64 bits; a tile with every key valid and
+    // below every row's diagonal takes no per-score mask
+    const uint64_t vm = (uint64_t)__ballot_sync(0xffffffffu, v_hi != 0) << 32 |
+                        __ballot_sync(0xffffffffu, v_lo != 0);
+    const bool clean = vm == ~0ull && (!causal || k0 + kBK - 1 <= t0 + shift);
+    v_lo = valid_at(k0 + NC * kBK + lane);
+    v_hi = valid_at(k0 + NC * kBK + 32 + lane);
+    mbar_wait(full_k(s), (i / NS) & 1);
 
-    // scores: s[nt] is the m16 x n8 tile of keys k0 + 8 nt ..
-    float s[NS][4];
+    // S = Q K^T: 64 x 64 scores, d / 16 products
+    float sc[32];
 #pragma unroll
-    for (int nt = 0; nt < NS; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+    for (int e = 0; e < 32; ++e) sc[e] = 0.f;
+    wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < KD; ++kk) {
-#pragma unroll
-      for (int np = 0; np < NS / 2; ++np) {
-        uint32_t kf[4];
-        ldmatrix_x4(kf, Kt + (np * 16 + (lane >> 4) * 8 + (lane & 7)) * LD + kk * 16 +
-                            ((lane >> 3) & 1) * 8);
-        mma(s[2 * np], qf[kk], kf[0], kf[1]);
-        mma(s[2 * np + 1], qf[kk], kf[2], kf[3]);
-      }
-    }
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<64>(sc, k_major<D>(Qs, kk), k_major<D>(Ks(s), kk), kk > 0);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(sc);
 
-    // mask, online softmax (rows g: elements 0,1; g + 8: elements 2,3)
+    // the tile's row max in log2 units: a clean tile keeps its raw scores
+    // (the scale joins the exponent's multiply-add, k_s), a masked one
+    // takes the scale and its mask constants here
     float mx[2] = {-INFINITY, -INFINITY};
+    if (clean) {
 #pragma unroll
-    for (int nt = 0; nt < NS; ++nt) {
+      for (int e = 0; e < 32; ++e) mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], sc[e]);
+      mx[0] *= sl2;
+      mx[1] *= sl2;
+    } else {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = k0 + nt * 8 + 2 * qd + (e & 1), hr = e >> 1;
-        float val = -INFINITY;  // beyond the sequence: no weight at all
-        if (key < S) {
-          const bool ok = valid[key] != 0 && (!causal || key <= qrow[hr] + shift);
-          val = ok ? s[nt][e] * sl2 : kMasked;
-        }
-        s[nt][e] = val;
+      for (int e = 0; e < 32; ++e) {
+        const int hr = (e >> 1) & 1, kc = 8 * (e >> 2) + 2 * qd + (e & 1);
+        float val = sc[e] * sl2;
+        if (k0 + kc >= S)
+          val = -INFINITY;  // beyond the sequence: no weight at all
+        else if (!((vm >> kc) & 1) || (causal && k0 + kc > pos[hr] + shift))
+          val = kMasked;
+        sc[e] = val;
         mx[hr] = fmaxf(mx[hr], val);
       }
     }
+    const float k_s = clean ? sl2 : 1.f;
     float alpha[2];
 #pragma unroll
     for (int hr = 0; hr < 2; ++hr) {
       mx[hr] = fmaxf(mx[hr], __shfl_xor_sync(0xffffffffu, mx[hr], 1));
       mx[hr] = fmaxf(mx[hr], __shfl_xor_sync(0xffffffffu, mx[hr], 2));
       const float m_new = fmaxf(m[hr], mx[hr]);
-      alpha[hr] = exp2f(m[hr] - m_new);  // 0 on the first tile
+      alpha[hr] = ex2(m[hr] - m_new);  // 0 on the first tile
       m[hr] = m_new;
       l[hr] *= alpha[hr];
     }
+    // P rounded to bf16 as the A fragment of the k16 slice of keys 16 kp ..
+    uint32_t pa[4][4];
 #pragma unroll
-    for (int nt = 0; nt < NS; ++nt) {
+    for (int kp = 0; kp < 4; ++kp) {
+      float p[8];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int hr = e >> 1;
-        const float p = exp2f(s[nt][e] - m[hr]);  // 0 beyond the sequence
-        s[nt][e] = p;
-        l[hr] += p;  // this thread's share; the quad is summed at the end
+      for (int e = 0; e < 8; ++e) {
+        const int j = 2 * kp + (e >> 2), hr = (e >> 1) & 1;
+        p[e] = ex2(fmaf(sc[4 * j + (e & 3)], k_s, -m[hr]));  // 0 beyond the sequence
+        l[hr] += p[e];  // this thread's share; the quad is summed at the end
       }
+      pa[kp][0] = pack2(p[0], p[1]);
+      pa[kp][1] = pack2(p[2], p[3]);
+      pa[kp][2] = pack2(p[4], p[5]);
+      pa[kp][3] = pack2(p[6], p[7]);
     }
 #pragma unroll
-    for (int j = 0; j < ND; ++j) {
-      o[j][0] *= alpha[0]; o[j][1] *= alpha[0];
-      o[j][2] *= alpha[1]; o[j][3] *= alpha[1];
-    }
+    for (int i2 = 0; i2 < NO; ++i2) o[i2] *= alpha[(i2 >> 1) & 1];
 
-    // o += P @ V: the score tiles of keys 16 kp .. 16 kp + 15 are the A
-    // operand of one k16 step
+    // O += P V
+    mbar_wait(full_v(s), (i / NS) & 1);
+    wgmma_fence();
 #pragma unroll
-    for (int kp = 0; kp < NS / 2; ++kp) {
-      const uint32_t pa[4] = {pack2(s[2 * kp][0], s[2 * kp][1]),
-                              pack2(s[2 * kp][2], s[2 * kp][3]),
-                              pack2(s[2 * kp + 1][0], s[2 * kp + 1][1]),
-                              pack2(s[2 * kp + 1][2], s[2 * kp + 1][3])};
-#pragma unroll
-      for (int dp = 0; dp < KD; ++dp) {
-        uint32_t vf[4];
-        ldmatrix_x4_trans(vf, Vt + (kp * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * LD +
-                                  dp * 16 + (lane >> 4) * 8);
-        mma(o[2 * dp], pa, vf[0], vf[1]);
-        mma(o[2 * dp + 1], pa, vf[2], vf[3]);
-      }
-    }
+    for (int kp = 0; kp < 4; ++kp) wgmma_rs_tb<D>(o, pa[kp], mn_major<D>(Vs(s), kp), 1);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(o);
+    mbar_arrive(empty(s));  // this thread is done with stage s
   }
 
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
     l[hr] += __shfl_xor_sync(0xffffffffu, l[hr], 1);
     l[hr] += __shfl_xor_sync(0xffffffffu, l[hr], 2);
-    if (qrow[hr] < Tq) {
-      const float inv = 1.f / l[hr];
-      bf16* dst = out + (((size_t)b * Tq + qrow[hr]) * Hq + h) * D + 2 * qd;
+  }
+  if constexpr (NC > 1) {
+    // merge: warpgroups 1 .. NC-1 leave (m, l, O) in the drained ring, each
+    // thread at its own index; warpgroup 0 folds them in, in order
+    float* scr = reinterpret_cast<float*>(smem + 1024 + L::kTile);
+    named_barrier(1, 128 * NC);  // every consumer is done with the ring
+    if (wg > 0) {
+      float* mine = scr + (size_t)(wg - 1) * (NO + 4) * 128;
 #pragma unroll
-      for (int j = 0; j < ND; ++j)
-        *reinterpret_cast<uint32_t*>(dst + j * 8) =
-            pack2(o[j][2 * hr] * inv, o[j][2 * hr + 1] * inv);
+      for (int i = 0; i < NO; ++i) mine[i * 128 + tid] = o[i];
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        mine[(NO + hr) * 128 + tid] = m[hr];
+        mine[(NO + 2 + hr) * 128 + tid] = l[hr];
+      }
     }
+    named_barrier(1, 128 * NC);
+    if (wg > 0) return;
+    for (int c = 1; c < NC && c < n_tiles; ++c) {
+      const float* theirs = scr + (size_t)(c - 1) * (NO + 4) * 128;
+      float a0[2], a1[2];
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const float mc = theirs[(NO + hr) * 128 + tid];
+        const float m_new = fmaxf(m[hr], mc);
+        a0[hr] = ex2(m[hr] - m_new);
+        a1[hr] = ex2(mc - m_new);
+        l[hr] = l[hr] * a0[hr] + theirs[(NO + 2 + hr) * 128 + tid] * a1[hr];
+        m[hr] = m_new;
+      }
+#pragma unroll
+      for (int i = 0; i < NO; ++i) {
+        const int hr = (i >> 1) & 1;
+        o[i] = o[i] * a0[hr] + theirs[i * 128 + tid] * a1[hr];
+      }
+    }
+  }
+
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    if (row[hr] >= G * P || pos[hr] >= T) continue;
+    const int h = G > 1 ? hg * G + row[hr] % G : hg;
+    const float inv = 1.f / l[hr];
+    bf16* dst = out + (((size_t)b * T + pos[hr]) * Hq + h) * D + 2 * qd;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<uint32_t*>(dst + 8 * j) =
+          pack2(o[4 * j + 2 * hr] * inv, o[4 * j + 2 * hr + 1] * inv);
   }
 }
 
-template <int D>
-size_t smem_bytes() {
-  return sizeof(bf16) * (kBQ + 4 * kBK) * (D + kPad);
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, found once through the runtime
+EncodeTiled encoder() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                &found) != cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      return (EncodeTiled) nullptr;
+    return (EncodeTiled)p;
+  }();
+  return fn;
 }
 
-}  // namespace tc
+// A bf16 tensor map of `rank` dimensions (innermost first; `strides` in
+// bytes for dimensions 1 ..), boxes of `box`, in the swizzle of W.
+template <int D>
+bool encode(CUtensorMap* map, const void* ptr, int rank, const cuuint64_t* dims,
+            const cuuint64_t* strides, const cuuint32_t* box) {
+  const EncodeTiled fn = encoder();
+  if (!fn) return false;
+  const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
+  const CUtensorMapSwizzle swz = Slab<D>::W == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
+                                 : Slab<D>::W == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                    : CU_TENSOR_MAP_SWIZZLE_32B;
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr), dims,
+            strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, swz,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
 
-template <typename T, int D, typename K>
-int launch(K kern, size_t smem, int bq, const void* q, const void* k, const void* v,
-           const uint8_t* valid, void* out, int B, int Tq, int S, int Hq, int Hkv,
-           int causal, cudaStream_t stream) {
-  static const int attr = set_smem(kern, smem);  // once per instantiation
+template <int D, int NC>
+int launch(const void* q, const void* k, const void* v, const uint8_t* valid, void* out,
+           int B, int T, int S, int Hq, int Hkv, int pack, int causal, cudaStream_t st) {
+  using L = Slab<D>;
+  const int gq = Hq / Hkv, G = pack ? gq : 1, P = kRows / G;
+  if (P < 1) return (int)cudaErrorInvalidValue;
+  const int tiles = (T + P - 1) / P, groups = Hq / G;
+  const size_t row = 2 * (size_t)D;  // bytes of one head's vector
+  // q [B, T, Hq, D] as {D, G, Hq / G, T, B}: a box is P positions of G heads
+  const cuuint64_t qd[5] = {(cuuint64_t)D, (cuuint64_t)G, (cuuint64_t)groups,
+                            (cuuint64_t)T, (cuuint64_t)B};
+  const cuuint64_t qs[4] = {row, row * G, row * Hq, row * Hq * T};
+  const cuuint32_t qb[5] = {(cuuint32_t)L::W, (cuuint32_t)G, 1, (cuuint32_t)P, 1};
+  // k, v [B, S, Hkv, D] as {D, Hkv, S, B}: a box is 64 keys of one kv head
+  const cuuint64_t kd[4] = {(cuuint64_t)D, (cuuint64_t)Hkv, (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t ks[3] = {row, row * Hkv, row * Hkv * S};
+  const cuuint32_t kb[4] = {(cuuint32_t)L::W, 1, (cuuint32_t)kBK, 1};
+  CUtensorMap mq, mk, mv;
+  if (!encode<D>(&mq, q, 5, qd, qs, qb) || !encode<D>(&mk, k, 4, kd, ks, kb) ||
+      !encode<D>(&mv, v, 4, kd, ks, kb))
+    return (int)cudaErrorInvalidValue;
+  auto kern = attention_kernel<D, NC>;
+  static const int attr = set_smem(kern, smem_bytes<D, NC>());  // once per instantiation
   if (attr != 0) return attr;
-  const dim3 grid((Tq + bq - 1) / bq, Hq, B);
-  kern<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      valid, static_cast<T*>(out), Tq, S, Hq, Hkv, causal, 1.0f / sqrtf((float)D));
+  kern<<<tiles * groups * B, 128 * NC + 32, smem_bytes<D, NC>(), st>>>(
+      mq, mk, mv, valid, static_cast<bf16*>(out), T, S, Hq, gq, G, P, tiles, groups, B,
+      causal, 1.0f / sqrtf((float)D));
   return (int)cudaGetLastError();
 }
 
 template <int D>
-int launch_d(int is_bf16, const void* q, const void* k, const void* v,
-             const uint8_t* valid, void* out, int B, int Tq, int S, int Hq, int Hkv,
-             int causal, cudaStream_t st) {
+int launch_nc(int consumers, const void* q, const void* k, const void* v,
+              const uint8_t* valid, void* out, int B, int T, int S, int Hq, int Hkv,
+              int pack, int causal, cudaStream_t st) {
+  if (consumers == 1)
+    return launch<D, 1>(q, k, v, valid, out, B, T, S, Hq, Hkv, pack, causal, st);
+  if (consumers == 2)
+    return launch<D, 2>(q, k, v, valid, out, B, T, S, Hq, Hkv, pack, causal, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace tc
+
+template <int D>
+int launch_simt(const void* q, const void* k, const void* v, const uint8_t* valid, void* out,
+                int B, int T, int S, int Hq, int Hkv, int causal, cudaStream_t stream) {
+  auto kern = simt::attention_kernel<D>;
+  static const int attr = set_smem(kern, simt::smem_bytes<D>());  // once per instantiation
+  if (attr != 0) return attr;
+  const dim3 grid((T + simt::kBQ - 1) / simt::kBQ, Hq, B);
+  kern<<<grid, kThreads, simt::smem_bytes<D>(), stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), valid, static_cast<float*>(out), T, S, Hq, Hkv, causal,
+      1.0f / sqrtf((float)D));
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_d(int is_bf16, int pack, int consumers, const void* q, const void* k,
+             const void* v, const uint8_t* valid, void* out, int B, int T, int S, int Hq,
+             int Hkv, int causal, cudaStream_t st) {
   if (is_bf16)
-    return launch<__nv_bfloat16, D>(tc::attention_kernel<D>, tc::smem_bytes<D>(), tc::kBQ,
-                                    q, k, v, valid, out, B, Tq, S, Hq, Hkv, causal, st);
-  return launch<float, D>(simt::attention_kernel<D>, simt::smem_bytes<D>(), simt::kBQ,
-                          q, k, v, valid, out, B, Tq, S, Hq, Hkv, causal, st);
+    return tc::launch_nc<D>(consumers, q, k, v, valid, out, B, T, S, Hq, Hkv, pack, causal,
+                            st);
+  return launch_simt<D>(q, k, v, valid, out, B, T, S, Hq, Hkv, causal, st);
 }
 
 }  // namespace
@@ -380,21 +618,28 @@ extern "C" const char* cuda_error_string(int e) {
   return cudaGetErrorString((cudaError_t)e);
 }
 
+// pack: GQA rows packed (the G q heads of a kv head in one tile); consumers:
+// warpgroups sharing a tile's keys (1 or 2). Both from the wrapper's
+// attention_plan; the fp32 path takes neither.
 extern "C" int attention_fwd(const void* q, const void* k, const void* v,
-                             const void* key_valid, void* out, int is_bf16,
-                             int B, int Tq, int S, int Hq, int Hkv, int D,
-                             int causal, void* stream) {
-  if (B < 1 || Tq < 1 || S < 1 || Tq > 512 || S > 512 || Hkv < 1 ||
-      Hq % Hkv != 0)
+                             const void* key_valid, void* out, int is_bf16, int B, int T,
+                             int S, int Hq, int Hkv, int D, int causal, int pack,
+                             int consumers, void* stream) {
+  if (B < 1 || T < 1 || S < 1 || Hkv < 1 || Hq % Hkv != 0)
     return (int)cudaErrorInvalidValue;
   const uint8_t* valid = static_cast<const uint8_t*>(key_valid);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 32: return launch_d<32>(is_bf16, q, k, v, valid, out, B, Tq, S, Hq, Hkv, causal, st);
-    case 48: return launch_d<48>(is_bf16, q, k, v, valid, out, B, Tq, S, Hq, Hkv, causal, st);
-    case 64: return launch_d<64>(is_bf16, q, k, v, valid, out, B, Tq, S, Hq, Hkv, causal, st);
-    case 96: return launch_d<96>(is_bf16, q, k, v, valid, out, B, Tq, S, Hq, Hkv, causal, st);
-    case 128: return launch_d<128>(is_bf16, q, k, v, valid, out, B, Tq, S, Hq, Hkv, causal, st);
+#define ATTN_D(d)                                                                        \
+  case d:                                                                                \
+    return launch_d<d>(is_bf16, pack, consumers, q, k, v, valid, out, B, T, S, Hq, Hkv, \
+                       causal, st);
+    ATTN_D(32)
+    ATTN_D(48)
+    ATTN_D(64)
+    ATTN_D(96)
+    ATTN_D(128)
+#undef ATTN_D
     default: return (int)cudaErrorInvalidValue;
   }
 }

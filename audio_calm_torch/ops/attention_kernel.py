@@ -6,20 +6,26 @@ Forward: counterpart of the Pallas kernels `fused_attention` (K3) and
 which compute one function: SDPA over q [B, T, Hq, d], k/v [B, S, Hkv, d]
 with GQA, a per-key validity mask [B, S], optional causal masking with
 offset S - T, masked scores -1e30 and an fp32 softmax. One CUDA kernel
-serves both call sites.
+serves both call sites, at any T and S: in bf16 one warpgroup's wgmma
+products over 64 query rows, K/V tiles copied in by TMA on a ring of
+mbarriers, causal key tiles past the diagonal skipped; `attention_plan`
+chooses from (T, S, Hq, Hkv, d, causal), never from the batch, whether the
+GQA heads of a kv head share a tile and whether two warpgroups split a
+tile's keys, so a batch row's output does not depend on its batch.
 
 Backward: counterpart of `_flash_bwd_kernel` (K5), the backward of JAX
 `flash_attention`. `flash_attention` here is the differentiable route: a
 `torch.autograd.Function` whose forward is `attention_fwd` and whose
 backward is `attention_bwd`. `attention_fwd` itself returns a tensor with
-no gradient on the card, so it refuses inputs that require one.
+no gradient on the card, so it refuses inputs that require one. K5 keeps
+the TPU's 512 gate on T and S; the forward has none.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional
+from typing import List, NamedTuple, Optional
 
 import torch
 
@@ -27,7 +33,15 @@ from audio_calm_torch.ops import cuda_build
 
 NEG = -1e30
 _KERNEL_HEAD_DIMS = (32, 48, 64, 96, 128)
-_KERNEL_MAX_LEN = 512  # the JAX gate attention_available
+_BWD_MAX_LEN = 512  # K5's gate, the JAX gate attention_available
+_TILE_ROWS = 64  # query rows of a bf16 tile (one warpgroup product)
+_KEY_TILE = 64  # keys of a streamed tile
+# The plan's thresholds, chosen on an H100 (PERF.md section 6;
+# audio_calm_torch/tools/attention_probe.py --plans times every plan):
+_PACK_T = (128, 512)  # causal GQA rows packed for T in (lo, hi]
+_SPLIT_MIN_WALK = 4  # key split only where a tile walks this many key tiles
+_SPLIT_PROGRAMS = 32  # ... and a batch row has at most this many programs,
+_SPLIT_PROGRAMS_CAUSAL = 192  # or this many where causal
 _FLASH = "audio_calm_torch.ops.attention_kernel.flash_attention"
 
 
@@ -76,6 +90,8 @@ def _valid_bytes(key_valid, B, S, device) -> torch.Tensor:
 
 
 def _check_qkv(name, q, k, v) -> None:
+    """What both kernels take: shapes, dtypes, devices, head dims (the
+    backward's length gate is _check_bwd's)."""
     B, T, Hq, d = q.shape
     S, Hkv = k.shape[1], k.shape[2]
     if (k.shape != (B, S, Hkv, d) or v.shape != k.shape or Hq % Hkv
@@ -87,15 +103,116 @@ def _check_qkv(name, q, k, v) -> None:
             q.dtype == k.dtype == v.dtype):
         raise TypeError(f"{name} takes float32 or bfloat16, got "
                         f"{q.dtype}/{k.dtype}/{v.dtype}")
-    if d not in _KERNEL_HEAD_DIMS or T > _KERNEL_MAX_LEN or S > _KERNEL_MAX_LEN:
-        raise ValueError(f"{name} kernel takes d in {_KERNEL_HEAD_DIMS} "
-                         f"and T, S <= {_KERNEL_MAX_LEN}; got d={d}, T={T}, "
-                         f"S={S}")
+    if d not in _KERNEL_HEAD_DIMS:
+        raise ValueError(f"{name} kernel takes d in {_KERNEL_HEAD_DIMS}; "
+                         f"got d={d}")
+
+
+def _check_bwd(q, k, v, out, dout) -> None:
+    """attention_bwd's arguments: out and dout like q, and K5's gate."""
+    _check_qkv("attention_bwd", q, k, v)
+    if (out.shape != q.shape or dout.shape != q.shape
+            or out.dtype != q.dtype or out.device != q.device
+            or dout.device != q.device):
+        raise ValueError("attention_bwd: out and dout must be like q")
+    T, S = q.shape[1], k.shape[1]
+    if T > _BWD_MAX_LEN or S > _BWD_MAX_LEN:
+        raise ValueError(
+            f"attention_bwd (K5, csrc/attention_bwd.cu) takes T, S <= "
+            f"{_BWD_MAX_LEN}; got T={T}, S={S}. The forward (attention_fwd) "
+            f"has no such limit; a gradient through flash_attention past it "
+            f"needs K5's gate lifted")
+
+
+class AttentionPlan(NamedTuple):
+    """How the bf16 kernel tiles one call. `group`: q heads a tile takes
+    together (1, or Hq / Hkv with GQA rows packed); `positions`: query
+    positions a tile (64 // group); `tiles`: query tiles per (head group,
+    batch row); `consumers`: warpgroups splitting a tile's key tiles."""
+    group: int
+    positions: int
+    tiles: int
+    consumers: int
+
+
+def _plan(T, Hq, Hkv, pack, consumers) -> AttentionPlan:
+    group = Hq // Hkv if pack else 1
+    positions = _TILE_ROWS // group
+    return AttentionPlan(group, positions, -(-T // positions), consumers)
+
+
+def attention_plan(T: int, S: int, Hq: int, Hkv: int, d: int,
+                   causal: bool) -> AttentionPlan:
+    """The bf16 kernel's plan for one call: a function of the shape and
+    causality alone, never of the batch, so that a row of a batch gets
+    the same tiles, the same key order and so the same bits as the row
+    launched alone.
+
+    Two consumer warpgroups split a tile's key tiles where the longest
+    walk is long and a batch row has few programs (a short critical path
+    beats a full SM there: the ASR query cross-attention, causal rows up
+    to 1024); the causal tiles' imbalance widens that to more programs.
+    GQA rows are packed for a causal encode of moderate length (the ASR
+    encode, L = 461), where the finer position tiles walk fewer key tiles
+    along the diagonal. At the short text encodes packing measured slower:
+    a tile's latency is the same with 1 or 6 heads in its rows, and
+    packing only cuts the number of blocks, which a B = 1 encode of 12-24
+    blocks on 132 SMs does not miss."""
+    walk = -(-S // _KEY_TILE)
+    programs = -(-T // _TILE_ROWS) * Hq
+    split = walk >= _SPLIT_MIN_WALK and (
+        programs <= _SPLIT_PROGRAMS
+        or causal and programs <= _SPLIT_PROGRAMS_CAUSAL)
+    pack = Hq > Hkv and causal and _PACK_T[0] < T <= _PACK_T[1]
+    return _plan(T, Hq, Hkv, pack, 2 if split else 1)
+
+
+def plan_blocks(plan: AttentionPlan, Hq: int, B: int):
+    """The bf16 kernel's grid under `plan`: for each block index, its
+    (query tile, head group, batch row), the last (heaviest causal) query
+    tiles first. The kernel decodes blockIdx.x so (attention_kernel in
+    csrc/attention_fwd.cu)."""
+    groups = Hq // plan.group
+    return [(plan.tiles - 1 - bid // (groups * B), bid % groups,
+             bid // groups % B) for bid in range(plan.tiles * groups * B)]
+
+
+def plan_rows(plan: AttentionPlan, T: int, tile: int, group: int):
+    """The (position, q head) rows of one block's tile, in row order."""
+    t0 = tile * plan.positions
+    return [(t, group * plan.group + h)
+            for t in range(t0, min(T, t0 + plan.positions))
+            for h in range(plan.group)]
+
+
+def plan_key_tiles(plan: AttentionPlan, T: int, S: int, tile: int,
+                   causal: bool, key_valid_row) -> int:
+    """How many key tiles of 64 the block of query tile `tile` walks, as
+    the kernel decides: causal tiles stop at the tile holding the last
+    row's diagonal key, unless the tile's first row sees no valid key (the
+    reference then averages all S keys: every tile)."""
+    walk = -(-S // _KEY_TILE)
+    if not causal:
+        return walk
+    t0 = tile * plan.positions
+    t_last = min(T, t0 + plan.positions) - 1
+    lim = min(S, t0 + S - T + 1)
+    if not any(bool(key_valid_row[s]) for s in range(max(lim, 0))):
+        return walk
+    return min(walk, (t_last + S - T) // _KEY_TILE + 1)
+
+
+def candidate_plans(T: int, S: int, Hq: int, Hkv: int, d: int,
+                    causal: bool) -> List[AttentionPlan]:
+    """Every plan the kernel takes at this shape (the probe times them)."""
+    packs = (False, True) if Hq > Hkv and Hq // Hkv <= _TILE_ROWS else (False,)
+    return [_plan(T, Hq, Hkv, pack, nc) for pack in packs for nc in (1, 2)]
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
     """Contiguous, and copied when a contiguous view starts off a 16-byte
-    boundary (both kernels' bf16 paths copy rows in 16-byte pieces)."""
+    boundary (the forward's tensor maps and the backward's 16-byte copies
+    need 16-byte aligned rows)."""
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone(
         memory_format=torch.contiguous_format)
@@ -105,7 +222,7 @@ def _attn_lib() -> ctypes.CDLL:
     lib = cuda_build.load("attention_fwd")
     if not getattr(lib, "_argtypes_set", False):
         P, I = ctypes.c_void_p, ctypes.c_int
-        lib.attention_fwd.argtypes = [P, P, P, P, P, I, I, I, I, I, I, I, I, P]
+        lib.attention_fwd.argtypes = [P, P, P, P, P] + [I] * 10 + [P]
         lib.attention_fwd.restype = I
         lib._argtypes_set = True
     return lib
@@ -113,18 +230,22 @@ def _attn_lib() -> ctypes.CDLL:
 
 def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   key_valid: Optional[torch.Tensor] = None,
-                  causal: bool = False) -> torch.Tensor:
+                  causal: bool = False,
+                  plan: Optional[AttentionPlan] = None) -> torch.Tensor:
     """Fused SDPA: q [B, T, Hq, d], k/v [B, S, Hkv, d], key_valid [B, S]
-    (nonzero = valid key). CPU tensors take the plain version; CUDA
-    tensors launch csrc/attention_fwd.cu."""
+    (nonzero = valid key), any T and S. CPU tensors take the plain
+    version; CUDA tensors launch csrc/attention_fwd.cu, bf16 under
+    `attention_plan` (`plan` replaces it, for measurements)."""
     if q.device.type == "cpu":
         return attention_fwd_plain(q, k, v, key_valid, causal)
     if q.device.type != "cuda":
         raise ValueError(f"attention_fwd: unsupported device {q.device}")
     cuda_build.refuse_autograd("attention_fwd", (q, k, v), _FLASH)
-    _check_qkv("attention_fwd", q, k, v)
+    _check_qkv("attention_fwd", q, k, v)  # any T and S
     B, T, Hq, d = q.shape
     S, Hkv = k.shape[1], k.shape[2]
+    if plan is None:
+        plan = attention_plan(T, S, Hq, Hkv, d, causal)
     valid = _valid_bytes(key_valid, B, S, q.device)
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
     out = torch.empty_like(q)
@@ -132,7 +253,8 @@ def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     status = lib.attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(),
         out.data_ptr(), int(q.dtype == torch.bfloat16), B, T, S, Hq, Hkv, d,
-        int(causal), torch.cuda.current_stream(q.device).cuda_stream,
+        int(causal), int(plan.group > 1), plan.consumers,
+        torch.cuda.current_stream(q.device).cuda_stream,
     )
     cuda_build.check(lib, status, "attention_fwd")
     attention_fwd.launches += 1
@@ -200,11 +322,7 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"attention_bwd: unsupported device {q.device}")
     cuda_build.refuse_autograd("attention_bwd", (q, k, v, out, dout),
                                _FLASH)
-    _check_qkv("attention_bwd", q, k, v)
-    if (out.shape != q.shape or dout.shape != q.shape
-            or out.dtype != q.dtype or out.device != q.device
-            or dout.device != q.device):
-        raise ValueError("attention_bwd: out and dout must be like q")
+    _check_bwd(q, k, v, out, dout)
     B, T, Hq, d = q.shape
     S, Hkv = k.shape[1], k.shape[2]
     valid = _valid_bytes(key_valid, B, S, q.device)

@@ -11,8 +11,8 @@ closes; at times every one, while the host side of each launch is there.
 and a host pause before the work and closes it a host pause after the
 work's last synchronize, and `lost_launches` matches each launch call the
 work made with its device record by correlation id, so a session that
-lost one is known. `chip_smoke.device_profile` profiles such a session
-again.
+lost one is known. `device_profile` profiles such a session again;
+`device_ms` times work with it (chip_smoke.py, attention_probe).
 
 The probe runs sessions N rounds over three workloads: `small` (50 chained
 512 x 512 fp32 products on the main thread), `threaded` (the same launched
@@ -37,17 +37,25 @@ import torch
 MARKER_CYCLES = 1000  # about 0.5 us a marker kernel
 WARM_LAUNCHES = 4
 PAUSE_S = 0.02  # host time between the window's edges and the work
+# the share of a profiled session's launches whose device records may be
+# missing from its trace (device_profile)
+LOST_SHARE = 1e-3
 
 
-def traced_session(fn, warm: bool = True):
+def traced_session(fn, warm: bool = True, lead=None):
     """fn() under torch.profiler, device activity only -> (profile, host
-    wall s of fn ending in a synchronize, host time in ns just before fn)."""
+    wall s of fn ending in a synchronize, host time in ns just before fn).
+    `lead`, where given, runs once inside the window after the markers and
+    before the opening pause, so that the work's own kernels have each
+    been traced once before fn: its launches are not counted as fn's."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         if warm:
             for _ in range(WARM_LAUNCHES):
                 torch.cuda._sleep(MARKER_CYCLES)
+            if lead is not None:
+                lead()
             torch.cuda.synchronize()
             time.sleep(PAUSE_S)
         torch.cuda.synchronize()
@@ -78,6 +86,79 @@ def lost_launches(prof, t_ns: int) -> tuple[int, list[int]]:
                    and "aunch" in e.name() and e.start_ns() >= since)
     return len(calls), [i for i, (_, c) in enumerate(calls)
                         if c not in recorded]
+
+
+def device_rows(prof, t_ns: int) -> list:
+    """[(kernel or copy, device s, records)] of the device records from
+    `t_ns` on (the bound of lost_launches): the work's, not the window's
+    markers' or a lead run's, which end a pause earlier."""
+    from torch.autograd import DeviceType
+
+    since = t_ns - int(PAUSE_S / 2 * 1e9)
+    rows = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA and e.start_ns() >= since:
+            t, n = rows.get(e.name(), (0, 0))
+            rows[e.name()] = (t + e.duration_ns() * 1e-9, n + 1)
+    return [(name, t, n) for name, (t, n) in rows.items()]
+
+
+def launch_offsets_ms(prof, t_ns: int, indices) -> list:
+    """The host times (ms after `t_ns`) of the launch calls at `indices`
+    in lost_launches' order: where in the session records went missing."""
+    from torch.autograd import DeviceType
+
+    since = t_ns - int(PAUSE_S / 2 * 1e9)
+    starts = sorted(e.start_ns() for e in prof.profiler.kineto_results.events()
+                    if e.device_type() == DeviceType.CPU
+                    and "aunch" in e.name() and e.start_ns() >= since)
+    return [round((starts[i] - t_ns) * 1e-6, 3) for i in indices]
+
+
+def _log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def device_profile(fn, iters: int = 1, attempts: int = 5, lead=None,
+                   log=_log):
+    """fn() `iters` times under torch.profiler, device activity only ->
+    (host wall s, [(kernel, device s, calls)] by device time). The device
+    time of every kernel and copy counts once (one stream: no overlap);
+    host time between launches does not.
+
+    The tracer can lose device records, a few or all of a session's: a
+    session in which more than LOST_SHARE of fn's launch calls have no
+    device record is logged and profiled again, `attempts` times at most,
+    and then the run fails; a smaller loss is logged and kept. The
+    window's opening markers are not in the rows; nor is `lead`, run once
+    inside the window before the work (device_ms passes fn itself)."""
+    for attempt in range(1, attempts + 1):
+        prof, wall, t_ns = traced_session(
+            lambda: [fn() for _ in range(iters)], lead=lead)
+        n, lost = lost_launches(prof, t_ns)
+        note = (f"{len(lost)} of {n} launches have no device record (the "
+                f"first at launch {lost[0]}, "
+                f"{launch_offsets_ms(prof, t_ns, lost[:1])[0]} ms into the "
+                f"work)" if lost else "")
+        if len(lost) <= LOST_SHARE * n:
+            if lost:
+                log(f"  profiler session {attempt}: {note}; kept")
+            rows = [r for r in device_rows(prof, t_ns)
+                    if r[1] > 0 and "spin_kernel" not in r[0]]
+            return wall, sorted(rows, key=lambda r: -r[1])
+        log(f"  profiler session {attempt} of {attempts}: {note}; "
+            f"profiling again")
+    raise SystemExit(f"FAILED: the profiler lost device records in "
+                     f"{attempts} sessions in a row")
+
+
+def device_ms(fn, iters: int) -> float:
+    """Mean device time of fn() over `iters` runs after one warm-up: the
+    sum over the kernels it launches. A loop timed with CUDA events would
+    count the host's time to launch them at small shapes."""
+    fn()
+    _, rows = device_profile(fn, iters, lead=fn)
+    return 1e3 * sum(r[1] for r in rows) / iters
 
 
 def main(argv=None) -> dict:

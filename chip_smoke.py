@@ -9,7 +9,8 @@ Phases, in order; any failure exits non-zero and prints no result:
   3. each kernel against its plain PyTorch version on the card, at the main
      paths' shapes, fp32 and bf16 (the attention backward at the Qwen2
      training shape and the DiT self-attention shape, two launches giving
-     the same bits, the forward also at the ASR path's three shapes, and the flash_attention Function against autograd
+     the same bits, the forward also at the ASR path's three shapes and at
+     T = S = 1024 and 2048, past the TPU's 512 gate, and the flash_attention Function against autograd
      through the plain forward; the resblock kernel at C = 12, 24, 48, 96,
      128, 256 and k = 3, 7, 11 with a ragged last tile, the sequence
      edges held on their own; the stage kernel at HiFi-GAN V2's C = 16
@@ -68,7 +69,8 @@ Phases, in order; any failure exits non-zero and prints no result:
      (held against the buffered transcript margin-aware), /stats; each
      request's attention launches, groups, wall, audio and realtime factor,
      the streams' time to first audio and first transcript, and one
-     profiled session's device busy share;
+     profiled session's device busy share and the attention forward's
+     device time per instantiation;
   5h. the served product on checkpoint weights: a seeded source model
      (calm.yaml's width, fresh components and LoRA) and VAE written by
      save_reference_checkpoint to a temporary directory; the server's
@@ -84,7 +86,12 @@ Phases, in order; any failure exits non-zero and prints no result:
      call's device time; for the stage kernel, per V1 stage on a log line
      (not in the `kernels` line), the tile, the executed/useful product
      ratio and the L2 weight bytes its tile plan reckons, beside the
-     earlier three-buffer design's time quoted from PERF.md;
+     earlier three-buffer design's time quoted from PERF.md; the attention
+     forward at every row of tools/attention_probe.ROWS (the flagship's,
+     calm.yaml's and asr.yaml's served shapes, T = S = 1024 and 2048), held
+     against its plain version and timed beside its earlier design
+     (K3_EARLIER_MS), SDPA and the bound, and each row of a B=4 launch
+     against the same row launched alone, bit for bit;
   7. the served requests once more under torch.profiler (device activity
      only): the device's busy share, the kernels that take most time and
      the stage kernel's device time;
@@ -108,6 +115,9 @@ import time
 import numpy as np
 import torch
 
+from audio_calm_torch.tools.attention_probe import ROWS, attn_cost, row_inputs
+from audio_calm_torch.tools.profiler_probe import device_ms, device_profile
+
 H100_BF16_FLOPS = 989e12  # dense tensor-core peak, NVIDIA H100 SXM data sheet
 H100_BYTES_PER_S = 3.35e12  # HBM3
 SEC_PER_FRAME = 4 * 256 / 16000  # one latent frame = 1024 samples at 16 kHz
@@ -115,10 +125,31 @@ SEC_PER_FRAME = 4 * 256 / 16000  # one latent frame = 1024 samples at 16 kHz
 # per warp from L2) at V1's three stages, B=2 on the 384-frame grid: PERF.md
 # section 6, kernel table, run C
 K1_THREE_BUFFER_MS = {1: 5.321, 2: 3.622, 3: 2.368}
+# the attention forward's earlier design (mma.sync, a cp.async double
+# buffer, every causal key tile, T and S <= 512) at the rows of
+# tools/attention_probe.ROWS, device ms per launch: PERF.md section 6, run P
+# (the earlier design measured before the redesign)
+K3_EARLIER_MS = {
+    "flagship Qwen2 encode": 0.005128,
+    "flagship DiT self": 0.019130,
+    "flagship DiT cross": 0.006164,
+    "TTS DiT self d=48 T=96 B=2": 0.004988,
+    "TTS DiT self d=48 T=96 B=4": 0.005141,
+    "TTS DiT self d=48 T=192 B=2": 0.006845,
+    "TTS DiT self d=48 T=192 B=4": 0.008375,
+    "TTS DiT self d=48 T=384 B=2": 0.013998,
+    "TTS DiT self d=48 T=384 B=4": 0.017357,
+    "TTS DiT cross d=48 T=384 S=64 B=2": 0.004670,
+    "TTS DiT cross d=48 T=384 S=64 B=4": 0.006231,
+    "Qwen2 encode 33 B=1": 0.005311,
+    "Qwen2 encode 65 B=1": 0.008967,
+    "Qwen2 encode 97 B=1": 0.009072,
+    "Qwen2 encode 65 B=2": 0.009133,
+    "ASR Qwen2 encode L=461": 0.033552,
+    "ASR cross d=96": 0.015127,
+    "ASR DiT self d=48": 0.005034,
+}
 TRAIN_STEPS = 5
-# the share of a profiled session's launches whose device records may be
-# missing from its trace (device_profile)
-PROFILE_LOST_SHARE = 1e-3
 # configs/asr.yaml, written out by hand: the card's machine has no YAML
 # loader (tests/test_torch_asr_frontend.py holds these against the JAX
 # package's load_config); the model in asr_yaml_config below
@@ -177,50 +208,6 @@ def synced(fn):
     out = fn()
     torch.cuda.synchronize()
     return out, time.perf_counter() - t0
-
-
-def device_profile(fn, iters: int = 1, attempts: int = 5):
-    """fn() `iters` times under torch.profiler, device activity only ->
-    (host wall s, [(kernel, device s, calls)] by device time). The device
-    time of every kernel and copy counts once (one stream: no overlap);
-    host time between launches does not.
-
-    The tracer can lose device records, a few or all of a session's
-    (`audio_calm_torch/tools/profiler_probe.py`): a session in which more
-    than PROFILE_LOST_SHARE of fn's launch calls have no device record is
-    logged and profiled again, `attempts` times at most, and then the run
-    fails; a smaller loss is logged and kept. The window's opening markers
-    are not in the rows."""
-    from audio_calm_torch.tools.profiler_probe import (lost_launches,
-                                                       traced_session)
-
-    for attempt in range(1, attempts + 1):
-        prof, wall, t_ns = traced_session(
-            lambda: [fn() for _ in range(iters)])
-        n, lost = lost_launches(prof, t_ns)
-        note = (f"{len(lost)} of {n} launches have no device record (the "
-                f"first at launch {lost[0]})" if lost else "")
-        if len(lost) <= PROFILE_LOST_SHARE * n:
-            if lost:
-                log(f"  profiler session {attempt}: {note}; kept")
-            rows = [(e.key, e.self_device_time_total * 1e-6, e.count)
-                    for e in prof.key_averages()
-                    if e.self_device_time_total > 0
-                    and "spin_kernel" not in e.key]
-            return wall, sorted(rows, key=lambda r: -r[1])
-        log(f"  profiler session {attempt} of {attempts}: {note}; "
-            f"profiling again")
-    raise SystemExit(f"FAILED: the profiler lost device records in "
-                     f"{attempts} sessions in a row")
-
-
-def device_ms(fn, iters: int) -> float:
-    """Mean device time of fn() over `iters` runs after one warm-up: the
-    sum over the kernels it launches. A loop timed with CUDA events would
-    count the host's time to launch them at these small shapes."""
-    fn()
-    _, rows = device_profile(fn, iters)
-    return 1e3 * sum(r[1] for r in rows) / iters
 
 
 # ---------------------------------------------------------------------------
@@ -420,21 +407,6 @@ def stage_reckoning(plan, C, C_in, r, k_up, geom, T_out):
     return executed / useful, plan.grid[0] * plan.grid[1] * per_block
 
 
-def attn_cost(q, k, valid, causal, dtype_bytes):
-    """(FLOP, bytes) attention needs on this data: 4*d per (query, head,
-    attended key) pair; q, k, v, out and the key mask read/written once."""
-    B, T, Hq, d = q.shape
-    S = k.shape[1]
-    m = valid.bool()[:, None, :].expand(B, T, S)
-    if causal:
-        tri = torch.ones(T, S, dtype=torch.bool, device=q.device).tril(S - T)
-        m = m & tri
-    pairs = int(m.sum())
-    flops = 4.0 * d * Hq * pairs
-    nbytes = (2 * q.numel() + 2 * k.numel()) * dtype_bytes + valid.numel()
-    return flops, nbytes
-
-
 def bound_ms(flops, nbytes, peak_flops):
     t_ops, t_bytes = flops / peak_flops, nbytes / H100_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
@@ -486,6 +458,9 @@ def phase_kernels(gen, card):
         (2, 96, 384, 16, 16, 96, False, "ASR cross d=96"),
         (2, 96, 96, 16, 16, 48, False, "ASR DiT self d=48"),
         (2, 461, 461, 12, 2, 128, True, "ASR Qwen2 L=461"),
+        # past the TPU's 512 gate, which the forward no longer has
+        (1, 1024, 1024, 12, 2, 128, True, "causal T=S=1024"),
+        (1, 2048, 2048, 12, 2, 128, True, "causal T=S=2048"),
     ]
     for B, T, S, Hq, Hkv, d, causal, label in shapes:
         valid = torch.ones(B, S, dtype=torch.bool, device=card)
@@ -1818,6 +1793,19 @@ def phase_served_product(card):
         f"{busy_wall:.4f} s), attention launches {launches}")
     for name, s_, k in rows[:6]:
         log(f"    {1e3 * s_:9.3f} ms {k:6d} calls  {name[:90]}")
+    # the attention forward's share, per instantiation (head dim, warpgroups)
+    attn = []
+    for name, s_, k in rows:
+        m = re.search(r"(tc|simt)::attention_kernel<[^>]*>", name)
+        if m:
+            attn.append({"kernel": m[0], "ms": 1e3 * s_, "calls": k,
+                         "us_per_call": 1e6 * s_ / k})
+            log(f"    attention forward {m[0]}: {1e3 * s_:.3f} ms in {k} "
+                f"calls, {1e6 * s_ / k:.2f} us a call")
+    log(f"    attention forward: {sum(a['calls'] for a in attn)} device "
+        f"records for {launches} launches")
+    check(attn and sum(a["calls"] for a in attn) <= launches,
+          "the served session's profile names the attention kernel")
     del engine, srv, calm
     gc.collect()
     torch.cuda.empty_cache()
@@ -1827,7 +1815,8 @@ def phase_served_product(card):
                       "endpoints": rows_out,
                       "stream_vs_buffered": stream_vs_buffered,
                       "batched_vs_solo_tts": divergence,
-                      "stats_tts_sizes": stats["batches"]["tts"]["sizes"]}
+                      "stats_tts_sizes": stats["batches"]["tts"]["sizes"],
+                      "attention_forward_device": attn}
 
 
 def encode_profile(model, ids, mask, iters=10):
@@ -2182,16 +2171,24 @@ def kernel_time_narrow_stages(v2_gen, card):
     return rows
 
 
-def attention_row(label, q, k, v, valid, causal, launches, card):
-    """attention_fwd's device ms per launch on these inputs, beside its
-    plain version's, SDPA's and the bound."""
+def attention_row(row, card):
+    """attention_fwd at one row of tools/attention_probe.ROWS: held against
+    its plain version (2^-7 of the largest output), its device ms per
+    launch beside the earlier design's (K3_EARLIER_MS), the plain
+    version's, SDPA's and the bound."""
     import torch.nn.functional as F
 
     from audio_calm_torch.ops.attention_kernel import (attention_fwd,
-                                                       attention_fwd_plain)
+                                                       attention_fwd_plain,
+                                                       attention_plan)
 
-    B, T, Hq, d = q.shape
-    S, Hkv = k.shape[1], k.shape[2]
+    label, B, T, S, Hq, Hkv, d, causal, _, launches = row
+    q, k, v, valid = row_inputs(row, card, seed=1)
+    out = attention_fwd(q, k, v, valid, causal).float()
+    ref = attention_fwd_plain(q, k, v, valid, causal).float()
+    err = (out - ref).abs().max().item()
+    check(err <= 2 ** -7 * ref.abs().max().item(),
+          f"attention_fwd {label}: bf16 max_abs_err {err:.3e}")
     ms = device_ms(lambda: attention_fwd(q, k, v, valid, causal), 50)
     plain = device_ms(lambda: attention_fwd_plain(q, k, v, valid, causal), 50)
     mask = valid[:, None, None, :].expand(B, 1, T, S)
@@ -2201,50 +2198,43 @@ def attention_row(label, q, k, v, valid, causal, launches, card):
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     lib = device_ms(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, attn_mask=mask, enable_gqa=Hq != Hkv), 50)
-    flops, nbytes = attn_cost(q, k, valid, causal, q.element_size())
+    flops, nbytes = attn_cost(q, k, valid, causal)
     b, by = bound_ms(flops, nbytes, H100_BF16_FLOPS)
-    row = {"shape": label, "q": [B, T, Hq, d], "S": S,
-           "launches_per_request": launches, "ms": ms, "plain_ms": plain,
+    plan = attention_plan(T, S, Hq, Hkv, d, causal)
+    out = {"shape": label, "q": [B, T, Hq, d], "S": S, "Hkv": Hkv,
+           "causal": causal, "plan": plan._asdict(),
+           "launches_per_request": launches, "max_abs_err": err, "ms": ms,
+           "earlier_ms": K3_EARLIER_MS.get(label), "plain_ms": plain,
            "library_ms": lib, "bound_ms": b, "bound_by": by}
-    log("  attention_fwd " + json.dumps(row))
-    return row
+    log("  attention_fwd " + json.dumps(out))
+    return out
 
 
-def kernel_time_asr_attention(asr, card):
-    """K3/K4 at the ASR request's shapes (B=2, bf16, the request's masks):
-    the Qwen2 encode over [audio 384 | SOA | prompt] (causal GQA), the
-    query cross-attention (d = 96) and the ASR head's self-attention over
-    the query grid (d = 48)."""
-    g = torch.Generator(card).manual_seed(9)
-    L, (n0, n1), (q0, q1) = (asr["llm_len"], asr["latent_frames"],
-                             asr["q_len"])
-    n0, n1 = min(n0, 384), min(n1, 384)
+def attention_batch_invariance(card):
+    """Each row of a B = 4 launch equals the same row launched alone, bit
+    for bit, at a served shape of each plan kind (calm.yaml's DiT self
+    attention on the 192 grid; the ASR encode, packed with its keys split
+    between two warpgroups)."""
+    from audio_calm_torch.ops.attention_kernel import attention_fwd
 
-    def rand(*shape):
-        return torch.randn(*shape, generator=g, device=card).bfloat16()
-
-    def lengths(S, *valid):
-        return torch.arange(S, device=card)[None, :] < torch.tensor(
-            valid, device=card)[:, None]
-
-    audio = lengths(384, n0, n1)
-    llm_valid = torch.cat([audio, torch.ones(2, L - 384, dtype=torch.bool,
-                                             device=card)], dim=1)
-    steps, layers = ASR_ODE["steps"], 4
-    return [
-        attention_row("ASR Qwen2 encode", rand(2, L, 12, 128),
-                      rand(2, L, 2, 128), rand(2, L, 2, 128), llm_valid,
-                      True, 28, card),
-        attention_row("ASR cross d=96", rand(2, 96, 16, 96),
-                      rand(2, 384, 16, 96), rand(2, 384, 16, 96), audio,
-                      False, 1, card),
-        attention_row("ASR DiT self d=48", rand(2, 96, 16, 48),
-                      rand(2, 96, 16, 48), rand(2, 96, 16, 48),
-                      lengths(96, q0, q1), False, steps * layers, card),
-    ]
+    out = {}
+    for label in ("TTS DiT self d=48 T=192 B=4", "ASR Qwen2 encode L=461"):
+        row = next(r for r in ROWS if r[0] == label)
+        q, k, v, valid = row_inputs((label, 4) + row[2:], card, seed=2)
+        causal = row[7]
+        batch = attention_fwd(q, k, v, valid, causal)
+        equal = [torch.equal(batch[b], attention_fwd(
+            q[b:b + 1], k[b:b + 1], v[b:b + 1], valid[b:b + 1], causal)[0])
+            for b in range(4)]
+        log(f"  attention_fwd batch invariance, {label}: B=4 rows equal to "
+            f"B=1 launches, bit for bit: {equal}")
+        check(all(equal), f"attention_fwd {label}: a batch row differs "
+              f"from the row launched alone")
+        out[label] = sum(equal)
+    return out
 
 
-def phase_kernel_times(calm, voc, counts, errs, card):
+def phase_kernel_times(voc, counts, errs, card):
     """ms per launch at main-path shapes, beside bound, plain and library."""
     from audio_calm_torch.ops.vocoder_kernel import (stage_plan,
                                                      vocoder_stage,
@@ -2298,30 +2288,19 @@ def phase_kernel_times(calm, voc, counts, errs, card):
     })
     check(all(r["bound_by"] == "operations" for r in rows), "stage bound")
 
-    # attention: the 384-grid request's shapes, weighted by launches
-    B, S_txt = 2, 24
-    dt = calm.dtype
-    shapes = [  # (label, B, T, S, Hq, Hkv, d, causal, launches per request)
-        ("Qwen2 encode", B, S_txt + 1, S_txt + 1, 12, 2, 128, True, 28),
-        ("DiT self", 2 * B, 384, 384, 16, 16, 64, False, 96),
-        ("DiT cross", 2 * B, 384, S_txt, 16, 16, 64, False, 96),
-    ]
-    rows = []
-    for label, b_, T, S, Hq, Hkv, d, causal, n in shapes:
-        q = torch.randn(b_, T, Hq, d, generator=g, device=card).to(dt)
-        k = torch.randn(b_, S, Hkv, d, generator=g, device=card).to(dt)
-        v = torch.randn(b_, S, Hkv, d, generator=g, device=card).to(dt)
-        valid = torch.ones(b_, S, dtype=torch.bool, device=card)
-        if label != "DiT self":
-            valid[1::2, 16:S_txt] = False  # the shorter text's pad
-        rows.append(attention_row(label, q, k, v, valid, causal, n, card))
-    w = np.array([r["launches_per_request"] for r in rows], float)
+    # attention: every row of tools/attention_probe.ROWS (the flagship's
+    # request, calm.yaml's TTS head and text buckets, asr.yaml's request, two
+    # rows past the old 512 gate); the line's numbers are the mean weighted
+    # by each served row's launches a request
+    rows = [attention_row(row, card) for row in ROWS]
+    served = [r for r in rows if r["launches_per_request"] > 0]
+    w = np.array([r["launches_per_request"] for r in served], float)
 
     def wmean(key):
-        return float(np.dot(w, [r[key] for r in rows]) / w.sum())
+        return float(np.dot(w, [r[key] for r in served]) / w.sum())
 
     bound_by = max(("operations", "bytes"),
-                   key=lambda k: sum(wi for wi, r in zip(w, rows)
+                   key=lambda k: sum(wi for wi, r in zip(w, served)
                                      if r["bound_by"] == k))
     kernels.append({
         "name": "attention_fwd", "route": "cuda",
@@ -2329,13 +2308,18 @@ def phase_kernel_times(calm, voc, counts, errs, card):
         "replaces": "audio_calm_tpu/ops/pallas_attention.py:91",
         "also_replaces": "audio_calm_tpu/ops/pallas_attention.py:181",
         "launches": counts["attention_fwd"],
-        "max_abs_err": errs["attention_fwd"],
+        "max_abs_err": max(errs["attention_fwd"],
+                           max(r["max_abs_err"] for r in rows)),
         "ms": wmean("ms"), "plain_ms": wmean("plain_ms"),
         "bound_ms": wmean("bound_ms"), "bound_by": bound_by,
-        "library_ms": wmean("library_ms"),
-        "per_launch": "launch-weighted mean over the 384-grid request's "
-                      "shapes (28 Qwen2, 96 DiT self, 96 DiT cross)",
+        "library_ms": wmean("library_ms"), "earlier_ms": wmean("earlier_ms"),
+        "per_launch": "mean over the served rows of "
+                      "tools/attention_probe.ROWS (the flagship's request, "
+                      "calm.yaml's TTS head and text buckets, asr.yaml's "
+                      "request), weighted by each row's launches a request; "
+                      "earlier_ms: the earlier design (K3_EARLIER_MS)",
         "shapes": rows,
+        "batch_invariance": attention_batch_invariance(card),
     })
     return kernels
 
@@ -2384,7 +2368,7 @@ def kernel_time_attention_bwd(train_counts, train_steps, errs, card):
                                                     retain_graph=True), 50)
         # five products of 2*d per attended (query, key) pair and head;
         # bytes: q, k, v, o, dO read once, dq, dk, dv written once, the mask
-        flops = 2.5 * attn_cost(q, k, valid, causal, 2)[0]
+        flops = 2.5 * attn_cost(q, k, valid, causal)[0]
         nbytes = (4 * q.numel() + 4 * k.numel()) * 2 + valid.numel()
         b, by = bound_ms(flops, nbytes, H100_BF16_FLOPS)
         rows.append({"shape": label, "q": [B, T, Hq, d], "kv": [B, S, Hkv, d],
@@ -2476,7 +2460,7 @@ def main() -> int:
     # 5. main path at full width, with PyTorch's default numerics (the
     # plain fp32 convolutions of the VAE and the vocoder in TF32)
     t0 = time.perf_counter()
-    calm, voc, counts, serve, served = phase_main_path(card)
+    _, voc, counts, serve, served = phase_main_path(card)
     log(f"phase main path: ok in {time.perf_counter() - t0:.1f} s")
 
     # 5b. the training path at full width
@@ -2526,7 +2510,7 @@ def main() -> int:
     # 6. kernel times (the plain versions as they were compared)
     with exact_fp32():
         with torch.no_grad():
-            kernels = phase_kernel_times(calm, voc, counts, errs, card)
+            kernels = phase_kernel_times(voc, counts, errs, card)
             kernels[0]["v2_stages"] = kernel_time_narrow_stages(v2_card, card)
             kernels[0]["v2_render_launches"] = \
                 voc_counts["v2_hifigan"]["vocoder_stage"]
@@ -2541,8 +2525,6 @@ def main() -> int:
     kernels[1]["asr_launches"] = asr_launches
     kernels[1]["served_product_launches"] = served_launches
     kernels[1]["checkpoint_product_launches"] = ckpt_launches
-    with exact_fp32(), torch.no_grad():
-        kernels[1]["asr_shapes"] = kernel_time_asr_attention(asr, card)
 
     # 7. where the device time of the served requests goes (last: the
     # profiler slows what runs after it)

@@ -28,12 +28,15 @@ from audio_calm_torch.ops.attention_kernel import (attention_bwd,
                                                    attention_bwd_plain,
                                                    attention_fwd,
                                                    attention_fwd_plain,
+                                                   attention_plan,
+                                                   candidate_plans,
                                                    flash_attention)
 from audio_calm_torch.ops.vocoder_kernel import (_halo, fused_resblock,
                                                  fused_resblock_plain,
                                                  hifigan_apply_fused,
                                                  stage_plan, vocoder_stage,
                                                  vocoder_stage_plain)
+from audio_calm_torch.tools.attention_probe import ROWS, row_inputs
 
 pytestmark = pytest.mark.cuda
 
@@ -349,6 +352,133 @@ def test_attention_fully_masked_row_is_uniform(card, dtype):
                                atol=tol)
     torch.testing.assert_close(out, ref, rtol=0,
                                atol=2e-5 if dtype == torch.float32 else tol)
+
+
+def _bf16_bound(ref):
+    return 2 ** -7 * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("row", ROWS, ids=[r[0] for r in ROWS])
+def test_attention_fwd_matches_plain_at_served_rows(card, row):
+    """Every row chip_smoke.py's phase 6 times (tools/attention_probe.ROWS,
+    bf16, the served masks), under attention_plan and under every other
+    plan the kernel takes there."""
+    q, k, v, valid = row_inputs(row, card, seed=3)
+    causal = row[7]
+    ref = attention_fwd_plain(q, k, v, valid, causal).float()
+    B, T, Hq, d = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    for plan in [None] + candidate_plans(T, S, Hq, Hkv, d, causal):
+        out = attention_fwd(q, k, v, valid, causal, plan=plan).float()
+        assert (out - ref).abs().max().item() <= _bf16_bound(ref), plan
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [32, 48, 64, 96, 128])
+@pytest.mark.parametrize("T,S", [(70, 200), (200, 70), (130, 131)])
+def test_attention_head_dims_causal_t_ne_s(card, d, T, S, dtype):
+    """Every head width, causal with offset S - T both ways (T > S leaves
+    the first T - S rows no key: the uniform average), GQA 6/2, a ragged
+    key mask, every plan."""
+    dtype = getattr(torch, dtype)
+    g = torch.Generator(card).manual_seed(d + T)
+    q = torch.randn(2, T, 6, d, generator=g, device=card).to(dtype)
+    k = torch.randn(2, S, 2, d, generator=g, device=card).to(dtype)
+    v = torch.randn(2, S, 2, d, generator=g, device=card).to(dtype)
+    valid = torch.rand(2, S, generator=g, device=card) < 0.8
+    ref = attention_fwd_plain(q, k, v, valid, True).float()
+    bound = 2e-5 if dtype == torch.float32 else _bf16_bound(ref)
+    for plan in [None] + candidate_plans(T, S, 6, 2, d, True):
+        out = attention_fwd(q, k, v, valid, True, plan=plan).float()
+        assert (out - ref).abs().max().item() <= bound, plan
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_attention_causal_rows_with_no_valid_key(card, dtype):
+    """Causal rows that see no valid key (the first 100 keys masked, so
+    the first 100 rows of a T = S = 300 encode attend nothing) average
+    every one of the S keys, as the reference's -1e30 scores do, though
+    the kernel skips key tiles past the diagonal elsewhere."""
+    dtype = getattr(torch, dtype)
+    g = torch.Generator(card).manual_seed(4)
+    q = torch.randn(1, 300, 12, 128, generator=g, device=card).to(dtype)
+    k = torch.randn(1, 300, 2, 128, generator=g, device=card).to(dtype)
+    v = torch.randn(1, 300, 2, 128, generator=g, device=card).to(dtype)
+    valid = torch.ones(1, 300, dtype=torch.bool, device=card)
+    valid[0, :100] = False
+    ref = attention_fwd_plain(q, k, v, valid, True).float()
+    mean_v = v[0].float().mean(dim=0).repeat_interleave(6, dim=0)
+    bound = 2e-5 if dtype == torch.float32 else _bf16_bound(ref)
+    for plan in [None] + candidate_plans(300, 300, 12, 2, 128, True):
+        out = attention_fwd(q, k, v, valid, True, plan=plan).float()
+        assert (out - ref).abs().max().item() <= bound, plan
+        assert (out[0, :100] - mean_v).abs().max().item() <= max(bound, 1e-5)
+
+
+@pytest.mark.parametrize("row", [r for r in ROWS if r[1] > 1],
+                         ids=[r[0] for r in ROWS if r[1] > 1])
+def test_attention_batch_rows_equal_solo_launches(card, row):
+    """No tiling, packing or key split is chosen by B: each row of a
+    batch equals the same row launched alone, bit for bit (here as a
+    B = 4 batch against four B = 1 launches)."""
+    label, _, T, S, Hq, Hkv, d, causal, _, _ = row
+    q, k, v, valid = row_inputs((label, 4) + row[2:], card, seed=5)
+    batch = attention_fwd(q, k, v, valid, causal)
+    for b in range(4):
+        solo = attention_fwd(q[b:b + 1], k[b:b + 1], v[b:b + 1],
+                             valid[b:b + 1], causal)
+        assert torch.equal(solo[0], batch[b]), b
+
+
+@pytest.mark.parametrize("row", ROWS, ids=[r[0] for r in ROWS])
+def test_attention_fwd_is_deterministic(card, row):
+    """Two launches on the same inputs give the same bits (the key split
+    merges its warpgroups in a fixed order)."""
+    q, k, v, valid = row_inputs(row, card, seed=6)
+    first = attention_fwd(q, k, v, valid, row[7])
+    assert torch.equal(attention_fwd(q, k, v, valid, row[7]), first)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_attention_fwd_at_2048(card, dtype):
+    """Past the TPU's 512 gate: T = S = 2048, causal GQA 12/2, d = 128."""
+    dtype = getattr(torch, dtype)
+    g = torch.Generator(card).manual_seed(7)
+    q = torch.randn(1, 2048, 12, 128, generator=g, device=card).to(dtype)
+    k = torch.randn(1, 2048, 2, 128, generator=g, device=card).to(dtype)
+    v = torch.randn(1, 2048, 2, 128, generator=g, device=card).to(dtype)
+    valid = torch.ones(1, 2048, dtype=torch.bool, device=card)
+    valid[0, 1000:1100] = False
+    out = attention_fwd(q, k, v, valid, True).float()
+    ref = attention_fwd_plain(q, k, v, valid, True).float()
+    bound = 2e-5 if dtype == torch.float32 else _bf16_bound(ref)
+    assert (out - ref).abs().max().item() <= bound
+
+
+def test_flash_attention_past_512_refuses_in_k5(card):
+    """flash_attention's forward takes T = 640; its backward (K5) keeps
+    the 512 gate and says so."""
+    g = torch.Generator(card).manual_seed(8)
+    q, k, v = (torch.randn(1, 640, 4, 64, generator=g, device=card)
+               .bfloat16().requires_grad_() for _ in range(3))
+    out = flash_attention(q, k, v, None, True)
+    ref = attention_fwd_plain(q.detach(), k.detach(), v.detach(), None, True)
+    assert (out.detach().float() - ref.float()).abs().max().item() <= \
+        _bf16_bound(ref.float())
+    with pytest.raises(ValueError, match=r"attention_bwd \(K5"):
+        out.float().sum().backward()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_attention_packed_misaligned_views_match_aligned(card, dtype):
+    """The packed, key-split plan of the ASR encode (L = 461) on views one
+    element off a 16-byte boundary: realigned, the aligned result."""
+    dtype = getattr(torch, dtype)
+    q, k, v, _, valid = _bwd_inputs(card, 2, 461, 461, 12, 2, 128, dtype, 9)
+    assert attention_plan(461, 461, 12, 2, 128, True).group == 6
+    out = attention_fwd(q, k, v, valid, True)
+    mq, mk, mv = (_off_boundary(t) for t in (q, k, v))
+    assert torch.equal(attention_fwd(mq, mk, mv, valid, True), out)
 
 
 def _bwd_inputs(card, B, T, S, Hq, Hkv, d, dtype, seed=0):
