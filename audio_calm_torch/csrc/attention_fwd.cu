@@ -36,7 +36,8 @@
 //   filled past the sequence by the copy. One producer warp issues Q once
 //   and then K/V key tiles of 64 into a ring of mbarrier-completed stages
 //   while the consumers compute. The C entry encodes the three tensor maps
-//   on the host at every launch: their base addresses change every call.
+//   once per shape and keeps them; a launch copies its shape's maps and
+//   writes its tensors' addresses into them.
 // - Causal tiles stop at the diagonal: a query tile walks only the key
 //   tiles its last row sees (offset S - T included), and the grid launches
 //   the heaviest query tiles first. The per-score mask runs only on tiles
@@ -70,6 +71,10 @@
 #include "hopper.cuh"
 
 #include <math.h>
+
+#include <array>
+#include <map>
+#include <mutex>
 
 namespace {
 
@@ -513,18 +518,26 @@ typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, v
                                 const cuuint32_t*, CUtensorMapInterleave,
                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
                                 CUtensorMapFloatOOBfill);
+typedef CUresult (*ReplaceAddress)(CUtensorMap*, void*);
 
-// cuTensorMapEncodeTiled from the driver, found once through the runtime
+// A CUDA API entry point found through the runtime (nullptr if missing)
+void* cuda_entry(const char* name) {
+  void* p = nullptr;
+  cudaDriverEntryPointQueryResult found;
+  if (cudaGetDriverEntryPoint(name, &p, cudaEnableDefault, &found) != cudaSuccess ||
+      found != cudaDriverEntryPointSuccess)
+    return nullptr;
+  return p;
+}
+
 EncodeTiled encoder() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                                &found) != cudaSuccess ||
-        found != cudaDriverEntryPointSuccess)
-      return (EncodeTiled) nullptr;
-    return (EncodeTiled)p;
-  }();
+  static const EncodeTiled fn = (EncodeTiled)cuda_entry("cuTensorMapEncodeTiled");
+  return fn;
+}
+
+ReplaceAddress replacer() {
+  static const ReplaceAddress fn =
+      (ReplaceAddress)cuda_entry("cuTensorMapReplaceAddress");
   return fn;
 }
 
@@ -545,32 +558,65 @@ bool encode(CUtensorMap* map, const void* ptr, int rank, const cuuint64_t* dims,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+struct Maps {
+  CUtensorMap q, k, v;
+};
+
+// The q, k and v tensor maps of one call: each shape's are encoded once
+// (cuTensorMapEncodeTiled) and kept; a call of a kept shape copies them and
+// writes its own addresses in (cuTensorMapReplaceAddress).
+template <int D>
+bool tensor_maps(Maps* m, const void* q, const void* k, const void* v, int B, int T, int S,
+                 int Hq, int Hkv, int G) {
+  using L = Slab<D>;
+  static std::mutex mu;
+  static std::map<std::array<int, 6>, Maps> kept;  // one per d instantiation
+  const std::array<int, 6> shape = {B, T, S, Hq, Hkv, G};
+  {
+    std::lock_guard<std::mutex> lock(mu);
+    const auto it = kept.find(shape);
+    if (it != kept.end()) {
+      *m = it->second;
+    } else {
+      const int P = kRows / G;
+      const size_t row = 2 * (size_t)D;  // bytes of one head's vector
+      // q [B, T, Hq, D] as {D, G, Hq / G, T, B}: a box is P positions of G heads
+      const cuuint64_t qd[5] = {(cuuint64_t)D, (cuuint64_t)G, (cuuint64_t)(Hq / G),
+                                (cuuint64_t)T, (cuuint64_t)B};
+      const cuuint64_t qs[4] = {row, row * G, row * Hq, row * Hq * T};
+      const cuuint32_t qb[5] = {(cuuint32_t)L::W, (cuuint32_t)G, 1, (cuuint32_t)P, 1};
+      // k, v [B, S, Hkv, D] as {D, Hkv, S, B}: a box is 64 keys of one kv head
+      const cuuint64_t kd[4] = {(cuuint64_t)D, (cuuint64_t)Hkv, (cuuint64_t)S,
+                                (cuuint64_t)B};
+      const cuuint64_t ks[3] = {row, row * Hkv, row * Hkv * S};
+      const cuuint32_t kb[4] = {(cuuint32_t)L::W, 1, (cuuint32_t)kBK, 1};
+      if (!encode<D>(&m->q, q, 5, qd, qs, qb) || !encode<D>(&m->k, k, 4, kd, ks, kb) ||
+          !encode<D>(&m->v, v, 4, kd, ks, kb))
+        return false;
+      if (kept.size() >= 4096) kept.clear();  // a bound no served session nears
+      kept.emplace(shape, *m);
+      return true;
+    }
+  }
+  const ReplaceAddress fn = replacer();
+  return fn && fn(&m->q, const_cast<void*>(q)) == CUDA_SUCCESS &&
+         fn(&m->k, const_cast<void*>(k)) == CUDA_SUCCESS &&
+         fn(&m->v, const_cast<void*>(v)) == CUDA_SUCCESS;
+}
+
 template <int D, int NC>
 int launch(const void* q, const void* k, const void* v, const uint8_t* valid, void* out,
            int B, int T, int S, int Hq, int Hkv, int pack, int causal, cudaStream_t st) {
-  using L = Slab<D>;
   const int gq = Hq / Hkv, G = pack ? gq : 1, P = kRows / G;
   if (P < 1) return (int)cudaErrorInvalidValue;
   const int tiles = (T + P - 1) / P, groups = Hq / G;
-  const size_t row = 2 * (size_t)D;  // bytes of one head's vector
-  // q [B, T, Hq, D] as {D, G, Hq / G, T, B}: a box is P positions of G heads
-  const cuuint64_t qd[5] = {(cuuint64_t)D, (cuuint64_t)G, (cuuint64_t)groups,
-                            (cuuint64_t)T, (cuuint64_t)B};
-  const cuuint64_t qs[4] = {row, row * G, row * Hq, row * Hq * T};
-  const cuuint32_t qb[5] = {(cuuint32_t)L::W, (cuuint32_t)G, 1, (cuuint32_t)P, 1};
-  // k, v [B, S, Hkv, D] as {D, Hkv, S, B}: a box is 64 keys of one kv head
-  const cuuint64_t kd[4] = {(cuuint64_t)D, (cuuint64_t)Hkv, (cuuint64_t)S, (cuuint64_t)B};
-  const cuuint64_t ks[3] = {row, row * Hkv, row * Hkv * S};
-  const cuuint32_t kb[4] = {(cuuint32_t)L::W, 1, (cuuint32_t)kBK, 1};
-  CUtensorMap mq, mk, mv;
-  if (!encode<D>(&mq, q, 5, qd, qs, qb) || !encode<D>(&mk, k, 4, kd, ks, kb) ||
-      !encode<D>(&mv, v, 4, kd, ks, kb))
-    return (int)cudaErrorInvalidValue;
+  Maps m;
+  if (!tensor_maps<D>(&m, q, k, v, B, T, S, Hq, Hkv, G)) return (int)cudaErrorInvalidValue;
   auto kern = attention_kernel<D, NC>;
   static const int attr = set_smem(kern, smem_bytes<D, NC>());  // once per instantiation
   if (attr != 0) return attr;
   kern<<<tiles * groups * B, 128 * NC + 32, smem_bytes<D, NC>(), st>>>(
-      mq, mk, mv, valid, static_cast<bf16*>(out), T, S, Hq, gq, G, P, tiles, groups, B,
+      m.q, m.k, m.v, valid, static_cast<bf16*>(out), T, S, Hq, gq, G, P, tiles, groups, B,
       causal, 1.0f / sqrtf((float)D));
   return (int)cudaGetLastError();
 }

@@ -230,12 +230,18 @@ def _attn_lib() -> ctypes.CDLL:
 
 def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   key_valid: Optional[torch.Tensor] = None,
-                  causal: bool = False,
-                  plan: Optional[AttentionPlan] = None) -> torch.Tensor:
+                  causal: bool = False) -> torch.Tensor:
     """Fused SDPA: q [B, T, Hq, d], k/v [B, S, Hkv, d], key_valid [B, S]
     (nonzero = valid key), any T and S. CPU tensors take the plain
     version; CUDA tensors launch csrc/attention_fwd.cu, bf16 under
-    `attention_plan` (`plan` replaces it, for measurements)."""
+    `attention_plan`."""
+    return _attention_fwd(q, k, v, key_valid, causal, None)
+
+
+def _attention_fwd(q, k, v, key_valid, causal,
+                   plan: Optional[AttentionPlan]) -> torch.Tensor:
+    """`attention_fwd` under `plan` (None: `attention_plan`'s); another
+    plan only for measurements and tests (tools/attention_probe.py)."""
     if q.device.type == "cpu":
         return attention_fwd_plain(q, k, v, key_valid, causal)
     if q.device.type != "cuda":

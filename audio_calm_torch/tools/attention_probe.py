@@ -6,22 +6,23 @@ shapes, on one card.
 
 For every row of ROWS (the shapes the shipped configs launch, bf16, with
 the masks they carry) it checks the shipped kernel against its plain
-version (2^-7 of the largest output) and times, as device ms per launch
-under torch.profiler, the kernel, the plain version, PyTorch's
-scaled_dot_product_attention (a yardstick the port never calls) and the
-bound (the larger of the bytes over 3.35 TB/s and the attended pairs'
-products over 989 TFLOP/s).
+version (2^-7 of the largest output) and measures the kernel's device ms
+per launch under torch.profiler, the host us a call of the wrapper
+`attention_fwd` and of the library's C entry take to return, the plain
+version's and PyTorch's scaled_dot_product_attention's device ms (a
+yardstick the port never calls) and the bound (the larger of the bytes
+over 3.35 TB/s and the attended pairs' products over 989 TFLOP/s).
 
 --old-csrc DIR builds DIR/attention_fwd.cu (an earlier design, with the
-headers beside it) into a library of its own and times it in the same
-process, interleaved with the shipped kernel (old, new, new, old), through
-its C entry `attention_fwd(q, k, v, valid, out, is_bf16, B, T, S, Hq, Hkv,
-D, causal, stream)`. --plans also times the shipped kernel under every
-plan `attention_kernel.candidate_plans` offers for the row, and prints the
-fastest. Prints the card's name and power limit, a line per row and, last,
-one JSON object, also written to FILE when given.
+headers beside it) into a library of its own and measures it in the same
+process, interleaved with the shipped kernel (old, new, new, old),
+through its C entry `attention_fwd(q, k, v, valid, out, is_bf16, B, T, S,
+Hq, Hkv, D, causal, stream)`. --plans also times the shipped kernel under
+every plan `attention_kernel.candidate_plans` offers for the row, and
+prints the fastest. Prints the card's name and power limit, a line per
+row and, last, one JSON object, also written to FILE when given.
 
-chip_smoke.py's phase 6 times the same ROWS.
+chip_smoke.py's phase 6 measures the same ROWS through `time_row`.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ import ctypes
 import hashlib
 import json
 import subprocess
+from collections import defaultdict
 from pathlib import Path
 
 import numpy as np
@@ -38,10 +40,7 @@ import torch
 
 from audio_calm_torch.ops import attention_kernel as ak
 from audio_calm_torch.ops import cuda_build
-from audio_calm_torch.tools.profiler_probe import device_ms
-
-H100_BF16_FLOPS = 989e12  # dense tensor-core peak, NVIDIA H100 SXM data sheet
-H100_BYTES_PER_S = 3.35e12  # HBM3
+from audio_calm_torch.tools.profiler_probe import bound_ms, device_ms, host_us
 
 # (label, B, T, S, Hq, Hkv, d, causal, valid lengths per batch row or None
 # for all valid, launches per request). The valid lengths are the ones the
@@ -114,12 +113,6 @@ def attn_cost(q, k, valid, causal):
     return flops, nbytes
 
 
-def bound_ms(flops, nbytes):
-    t_ops, t_bytes = flops / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
-                                       else "bytes")
-
-
 def sdpa(q, k, v, valid, causal):
     import torch.nn.functional as F
 
@@ -153,64 +146,77 @@ def load_old(csrc: Path) -> ctypes.CDLL:
     return lib
 
 
-def old_fwd(lib, q, k, v, valid, causal):
+def c_entry(lib, q, k, v, valid, causal, plan=None):
+    """lib's C entry `attention_fwd` on these tensors into a new output,
+    checked once -> (call, output); `plan`: the shipped entry's packing and
+    warpgroups (the earlier design takes neither)."""
     B, T, Hq, d = q.shape
     S, Hkv = k.shape[1], k.shape[2]
     vb = valid.contiguous().view(torch.uint8)
     out = torch.empty_like(q)
-    status = lib.attention_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), vb.data_ptr(),
-        out.data_ptr(), int(q.dtype == torch.bfloat16), B, T, S, Hq, Hkv, d,
-        int(causal), torch.cuda.current_stream().cuda_stream)
-    cuda_build.check(lib, status, "old attention_fwd")
-    return out
+    args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), vb.data_ptr(),
+            out.data_ptr(), int(q.dtype == torch.bfloat16), B, T, S, Hq, Hkv,
+            d, int(causal)]
+    if plan is not None:
+        args += [int(plan.group > 1), plan.consumers]
+    args.append(torch.cuda.current_stream().cuda_stream)
+    call = lambda: lib.attention_fwd(*args)
+    cuda_build.check(lib, call(), "attention_fwd C entry")
+    return call, out
 
 
-def time_row(row, card, old=None, plans=False, reps=2):
+def time_row(row, card, old=None, plans=False, reps=2, seed=0):
+    """One row of ROWS: the shipped kernel held against its plain version
+    (SystemExit past 2^-7 of the largest output); its device ms a launch
+    and the host us a call of its C entry, interleaved over `reps` with
+    the earlier design's (`old`, a library from load_old; not past its
+    512 gate); the host us of a wrapper call; the plain version's and
+    SDPA's device ms; the bound; with `plans`, every candidate plan's
+    device ms."""
     label, B, T, S, Hq, Hkv, d, causal, _, launches = row
-    q, k, v, valid = row_inputs(row, card)
+    q, k, v, valid = row_inputs(row, card, seed)
+    plan = ak.attention_plan(T, S, Hq, Hkv, d, causal)
     ref = ak.attention_fwd_plain(q, k, v, valid, causal).float()
     bound = 2 ** -7 * ref.abs().max().item()
-    out = {"shape": label, "q": [B, T, Hq, d], "S": S, "Hkv": Hkv,
-           "causal": causal, "launches_per_request": launches}
     new = lambda: ak.attention_fwd(q, k, v, valid, causal)
     err = (new().float() - ref).abs().max().item()
-    out.update(max_abs_err=err, err_bound=bound)
     if not err <= bound:
-        raise SystemExit(f"attention_fwd {label}: error {err} > {bound}")
-    if max(T, S) > 512:
-        old = None  # the earlier design's gate
-    times = {"ms": [], "old_ms": []}
+        raise SystemExit(f"FAILED: attention_fwd {label}: bf16 max_abs_err "
+                         f"{err:.3e} > {bound:.3e}")
+    out = {"shape": label, "q": [B, T, Hq, d], "S": S, "Hkv": Hkv,
+           "causal": causal, "plan": plan._asdict(),
+           "launches_per_request": launches, "max_abs_err": err,
+           "err_bound": bound}
+    calls = {"": c_entry(ak._attn_lib(), q, k, v, valid, causal, plan)[0]}
+    if old is not None and max(T, S) <= 512:
+        calls["old_"], old_out = c_entry(old, q, k, v, valid, causal)
+        out["old_max_abs_err"] = (old_out.float() - ref).abs().max().item()
+    times = defaultdict(list)
     for rep in range(reps):
-        order = ["old_ms", "ms"] if rep % 2 == 0 else ["ms", "old_ms"]
-        for key in order:
-            if key == "ms":
-                times["ms"].append(device_ms(new, 50))
-            elif old is not None:
-                times["old_ms"].append(device_ms(
-                    lambda: old_fwd(old, q, k, v, valid, causal), 50))
-    out["ms"] = float(np.median(times["ms"]))
-    out["ms_reps"] = times["ms"]
-    if old is not None:
-        err_old = (old_fwd(old, q, k, v, valid, causal).float()
-                   - ref).abs().max().item()
-        out.update(old_ms=float(np.median(times["old_ms"])),
-                   old_ms_reps=times["old_ms"], old_max_abs_err=err_old)
+        for pre in (list(calls) if rep % 2 else list(calls)[::-1]):
+            times[pre + "ms"].append(
+                device_ms(new if pre == "" else calls[pre], 50))
+    for key, values in times.items():
+        out[key] = float(np.median(values))
+        out[key + "_reps"] = values
+    # host us a call: the wrapper's, and each C entry's, taking turns
+    us = host_us([new, *calls.values()])
+    out["host_us"] = us[0]
+    out.update({pre + "c_host_us": u for pre, u in zip(calls, us[1:])})
     out["plain_ms"] = device_ms(
         lambda: ak.attention_fwd_plain(q, k, v, valid, causal), 10)
     out["library_ms"] = device_ms(sdpa(q, k, v, valid, causal), 50)
     flops, nbytes = attn_cost(q, k, valid, causal)
     out["bound_ms"], out["bound_by"] = bound_ms(flops, nbytes)
-    if plans and hasattr(ak, "candidate_plans"):
-        shipped = ak.attention_plan(T, S, Hq, Hkv, d, causal)
-        out["plan"] = shipped._asdict()
+    if plans:
         sweep = []
-        for plan in ak.candidate_plans(T, S, Hq, Hkv, d, causal):
-            fn = lambda: ak.attention_fwd(q, k, v, valid, causal, plan=plan)
+        for p in ak.candidate_plans(T, S, Hq, Hkv, d, causal):
+            fn = lambda: ak._attention_fwd(q, k, v, valid, causal, p)
             e = (fn().float() - ref).abs().max().item()
             if not e <= bound:
-                raise SystemExit(f"attention_fwd {label} {plan}: error {e}")
-            sweep.append({**plan._asdict(), "ms": device_ms(fn, 50)})
+                raise SystemExit(f"FAILED: attention_fwd {label} {p}: "
+                                 f"error {e}")
+            sweep.append({**p._asdict(), "ms": device_ms(fn, 50)})
         out["plans"] = sweep
         out["fastest_plan"] = min(sweep, key=lambda p: p["ms"])
     return out

@@ -12,7 +12,9 @@ and a host pause before the work and closes it a host pause after the
 work's last synchronize, and `lost_launches` matches each launch call the
 work made with its device record by correlation id, so a session that
 lost one is known. `device_profile` profiles such a session again;
-`device_ms` times work with it (chip_smoke.py, attention_probe).
+`device_ms` times work with it, `host_us` times the host's side of a
+call, and `bound_ms` is the least time the card could take for a given
+work (chip_smoke.py, attention_probe).
 
 The probe runs sessions N rounds over three workloads: `small` (50 chained
 512 x 512 fp32 products on the main thread), `threaded` (the same launched
@@ -37,6 +39,8 @@ import torch
 MARKER_CYCLES = 1000  # about 0.5 us a marker kernel
 WARM_LAUNCHES = 4
 PAUSE_S = 0.02  # host time between the window's edges and the work
+H100_BF16_FLOPS = 989e12  # dense tensor-core peak, NVIDIA H100 SXM data sheet
+H100_BYTES_PER_S = 3.35e12  # HBM3
 # the share of a profiled session's launches whose device records may be
 # missing from its trace (device_profile)
 LOST_SHARE = 1e-3
@@ -159,6 +163,34 @@ def device_ms(fn, iters: int) -> float:
     fn()
     _, rows = device_profile(fn, iters, lead=fn)
     return 1e3 * sum(r[1] for r in rows) / iters
+
+
+def host_us(fns, calls: int = 200, reps: int = 20) -> list:
+    """Median host us a call of each of `fns` takes to return, over `reps`
+    runs of `calls` calls each started on an idle card, the functions
+    taking turns run by run (the host's speed drifts over seconds): the
+    launches queue (200 stay well inside the queue's depth), so the card's
+    time is not in it."""
+    per = [[] for _ in fns]
+    for fn in fns:
+        fn()
+    for _ in range(reps):
+        for fn, times in zip(fns, per):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            times.append((time.perf_counter() - t0) / calls * 1e6)
+    torch.cuda.synchronize()
+    return [sorted(times)[reps // 2] for times in per]
+
+
+def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
+    """The least device ms for `flops` dense bf16 products' operations and
+    `nbytes` moved once, and which of the two sets it."""
+    t_ops, t_bytes = flops / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
 
 
 def main(argv=None) -> dict:

@@ -88,10 +88,13 @@ Phases, in order; any failure exits non-zero and prints no result:
      ratio and the L2 weight bytes its tile plan reckons, beside the
      earlier three-buffer design's time quoted from PERF.md; the attention
      forward at every row of tools/attention_probe.ROWS (the flagship's,
-     calm.yaml's and asr.yaml's served shapes, T = S = 1024 and 2048), held
-     against its plain version and timed beside its earlier design
-     (K3_EARLIER_MS), SDPA and the bound, and each row of a B=4 launch
-     against the same row launched alone, bit for bit;
+     calm.yaml's and asr.yaml's served shapes, T = S = 1024 and 2048;
+     phase 5f holds the ASR rows to its request's shapes) through
+     attention_probe.time_row: held against its plain version, device
+     time beside SDPA's and the bound, the host time of a call, on a log
+     line the earlier design's time quoted from PERF.md (K3_EARLIER_MS),
+     and each row of a B=4 launch against the same row launched alone,
+     bit for bit;
   7. the served requests once more under torch.profiler (device activity
      only): the device's busy share, the kernels that take most time and
      the stage kernel's device time;
@@ -115,11 +118,11 @@ import time
 import numpy as np
 import torch
 
-from audio_calm_torch.tools.attention_probe import ROWS, attn_cost, row_inputs
-from audio_calm_torch.tools.profiler_probe import device_ms, device_profile
+from audio_calm_torch.tools.attention_probe import (ROWS, attn_cost,
+                                                    row_inputs, time_row)
+from audio_calm_torch.tools.profiler_probe import (H100_BYTES_PER_S, bound_ms,
+                                                   device_ms, device_profile)
 
-H100_BF16_FLOPS = 989e12  # dense tensor-core peak, NVIDIA H100 SXM data sheet
-H100_BYTES_PER_S = 3.35e12  # HBM3
 SEC_PER_FRAME = 4 * 256 / 16000  # one latent frame = 1024 samples at 16 kHz
 # the stage kernel's earlier design (three shared buffers, weights streamed
 # per warp from L2) at V1's three stages, B=2 on the 384-frame grid: PERF.md
@@ -405,12 +408,6 @@ def stage_reckoning(plan, C, C_in, r, k_up, geom, T_out):
     per_block = sum(k_up * C_in * C + 2 * len(dils) * k * C * C
                     for k, dils in geom) * 2
     return executed / useful, plan.grid[0] * plan.grid[1] * per_block
-
-
-def bound_ms(flops, nbytes, peak_flops):
-    t_ops, t_bytes = flops / peak_flops, nbytes / H100_BYTES_PER_S
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
-                                       else "bytes")
 
 
 # ---------------------------------------------------------------------------
@@ -1373,6 +1370,8 @@ def phase_asr_main_path(card):
           "ASR ids and query lengths")
     check(texts == [inf._asr_decode_row(ids[i], q_len[i]) for i in range(2)],
           "asr_batch's transcripts are its ids' decodes")
+    check_asr_rows(seq, [min(x.shape[0], cfg.max_audio_len) for x in lats],
+                   ids.shape[1], q_len.tolist(), cfg.max_audio_len)
     solo_texts = [inf.asr(x, s, **ASR_ODE) for x, s in zip(lats, ASR_SEEDS)]
     vs_solo = asr_batch_vs_solo(inf, lats, ids, card)
     log(f"  asr_batch rows vs solo asr: {vs_solo}; transcripts equal "
@@ -1414,6 +1413,23 @@ def phase_asr_main_path(card):
     for name, s_, n in rows[:8]:
         log(f"    {1e3 * s_:9.3f} ms {n:6d} calls  {name[:90]}")
     return launches, row
+
+
+def check_asr_rows(llm_len, frames, queries, q_len, audio_grid):
+    """The ASR rows phase 6 times (tools/attention_probe.ROWS) are this
+    request's shapes: the encode's length and audio frames, the query
+    cross-attention's queries, audio grid and frames, the ASR head's
+    queries and query lengths."""
+    rows = {r[0]: r for r in ROWS}
+    enc, cross, head = (rows["ASR Qwen2 encode L=461"], rows["ASR cross d=96"],
+                        rows["ASR DiT self d=48"])
+    got = [(enc[2], enc[3], enc[8][1]), (cross[2], cross[3], cross[8][1]),
+           (head[2], head[3], head[8][1])]
+    want = [(llm_len, llm_len, frames), (queries, audio_grid, frames),
+            (queries, queries, q_len)]
+    log(f"  phase 6's ASR rows {got}; this request's shapes {want}")
+    check(got == want, "phase 6's ASR rows (tools/attention_probe.ROWS) "
+          "are the ASR request's shapes")
 
 
 def http_call(port, method, path, body=None, ctype=None, chunks=None,
@@ -2121,7 +2137,7 @@ def kernel_time_resblock(vocs, v1_gen, launches, worst, card):
             plain = device_ms(lambda: fused_resblock_plain(x, block), 3)
             flops = 2.0 * 2 * n_d * x.shape[0] * T * k * C * C
             nbytes = 2 * x.numel() * 4 + 2 * n_d * (k * C * C * 2 + C * 4)
-            b, by = bound_ms(flops, nbytes, H100_BF16_FLOPS)
+            b, by = bound_ms(flops, nbytes)
             rows.append({"shape": label, "x": list(x.shape), "k": k,
                          "ms": ms, "plain_ms": plain, "bound_ms": b,
                          "bound_by": by, "flop": flops, "bytes": nbytes})
@@ -2163,51 +2179,12 @@ def kernel_time_narrow_stages(v2_gen, card):
         ms = device_ms(lambda: vocoder_stage(*args), 3)
         plain = device_ms(lambda: vocoder_stage_plain(*args), 3)
         flops, nbytes = stage_cost(args, 4, 2)
-        b, by = bound_ms(flops, nbytes, H100_BF16_FLOPS)
+        b, by = bound_ms(flops, nbytes)
         rows.append({"stage": f"V2 {index}", "x": list(args[0].shape),
                      "C": C_in // 2, "ms": ms, "plain_ms": plain,
                      "bound_ms": b, "bound_by": by})
         log("  vocoder_stage " + json.dumps(rows[-1]))
     return rows
-
-
-def attention_row(row, card):
-    """attention_fwd at one row of tools/attention_probe.ROWS: held against
-    its plain version (2^-7 of the largest output), its device ms per
-    launch beside the earlier design's (K3_EARLIER_MS), the plain
-    version's, SDPA's and the bound."""
-    import torch.nn.functional as F
-
-    from audio_calm_torch.ops.attention_kernel import (attention_fwd,
-                                                       attention_fwd_plain,
-                                                       attention_plan)
-
-    label, B, T, S, Hq, Hkv, d, causal, _, launches = row
-    q, k, v, valid = row_inputs(row, card, seed=1)
-    out = attention_fwd(q, k, v, valid, causal).float()
-    ref = attention_fwd_plain(q, k, v, valid, causal).float()
-    err = (out - ref).abs().max().item()
-    check(err <= 2 ** -7 * ref.abs().max().item(),
-          f"attention_fwd {label}: bf16 max_abs_err {err:.3e}")
-    ms = device_ms(lambda: attention_fwd(q, k, v, valid, causal), 50)
-    plain = device_ms(lambda: attention_fwd_plain(q, k, v, valid, causal), 50)
-    mask = valid[:, None, None, :].expand(B, 1, T, S)
-    if causal:
-        mask = mask & torch.ones(T, S, dtype=torch.bool,
-                                 device=card).tril(S - T)
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    lib = device_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, attn_mask=mask, enable_gqa=Hq != Hkv), 50)
-    flops, nbytes = attn_cost(q, k, valid, causal)
-    b, by = bound_ms(flops, nbytes, H100_BF16_FLOPS)
-    plan = attention_plan(T, S, Hq, Hkv, d, causal)
-    out = {"shape": label, "q": [B, T, Hq, d], "S": S, "Hkv": Hkv,
-           "causal": causal, "plan": plan._asdict(),
-           "launches_per_request": launches, "max_abs_err": err, "ms": ms,
-           "earlier_ms": K3_EARLIER_MS.get(label), "plain_ms": plain,
-           "library_ms": lib, "bound_ms": b, "bound_by": by}
-    log("  attention_fwd " + json.dumps(out))
-    return out
 
 
 def attention_batch_invariance(card):
@@ -2254,7 +2231,7 @@ def phase_kernel_times(voc, counts, errs, card):
         plain = device_ms(
             lambda: vocoder_stage_plain(*args, compute_dtype=cdt), 3)
         flops, nbytes = stage_cost(args, 4, 2 if cdt == torch.bfloat16 else 4)
-        b, by = bound_ms(flops, nbytes, H100_BF16_FLOPS)
+        b, by = bound_ms(flops, nbytes)
         # the bf16 kernel's tile plan and what it reckons (not measured):
         # this log line only, beside the earlier design's time (a constant)
         x, ups_w, _, blocks = args
@@ -2292,7 +2269,11 @@ def phase_kernel_times(voc, counts, errs, card):
     # request, calm.yaml's TTS head and text buckets, asr.yaml's request, two
     # rows past the old 512 gate); the line's numbers are the mean weighted
     # by each served row's launches a request
-    rows = [attention_row(row, card) for row in ROWS]
+    rows = []
+    for row in ROWS:
+        rows.append(time_row(row, card, reps=1, seed=1))
+        log(f"  attention_fwd {json.dumps(rows[-1])}; earlier design "
+            f"{K3_EARLIER_MS.get(row[0])} ms (PERF.md, run P)")
     served = [r for r in rows if r["launches_per_request"] > 0]
     w = np.array([r["launches_per_request"] for r in served], float)
 
@@ -2312,12 +2293,11 @@ def phase_kernel_times(voc, counts, errs, card):
                            max(r["max_abs_err"] for r in rows)),
         "ms": wmean("ms"), "plain_ms": wmean("plain_ms"),
         "bound_ms": wmean("bound_ms"), "bound_by": bound_by,
-        "library_ms": wmean("library_ms"), "earlier_ms": wmean("earlier_ms"),
+        "library_ms": wmean("library_ms"),
         "per_launch": "mean over the served rows of "
                       "tools/attention_probe.ROWS (the flagship's request, "
                       "calm.yaml's TTS head and text buckets, asr.yaml's "
-                      "request), weighted by each row's launches a request; "
-                      "earlier_ms: the earlier design (K3_EARLIER_MS)",
+                      "request), weighted by each row's launches a request",
         "shapes": rows,
         "batch_invariance": attention_batch_invariance(card),
     })
@@ -2370,7 +2350,7 @@ def kernel_time_attention_bwd(train_counts, train_steps, errs, card):
         # bytes: q, k, v, o, dO read once, dq, dk, dv written once, the mask
         flops = 2.5 * attn_cost(q, k, valid, causal)[0]
         nbytes = (4 * q.numel() + 4 * k.numel()) * 2 + valid.numel()
-        b, by = bound_ms(flops, nbytes, H100_BF16_FLOPS)
+        b, by = bound_ms(flops, nbytes)
         rows.append({"shape": label, "q": [B, T, Hq, d], "kv": [B, S, Hkv, d],
                      "causal": causal, "ms": ms, **passes, "plain_ms": plain,
                      "library_ms": lib, "bound_ms": b, "bound_by": by,

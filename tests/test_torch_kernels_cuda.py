@@ -24,7 +24,8 @@ import torch
 from audio_calm_torch.config import HiFiGANConfig
 from audio_calm_torch.models.vocoder import HiFiGANGenerator
 from audio_calm_torch.ops import cuda_build
-from audio_calm_torch.ops.attention_kernel import (attention_bwd,
+from audio_calm_torch.ops.attention_kernel import (_attention_fwd,
+                                                   attention_bwd,
                                                    attention_bwd_plain,
                                                    attention_fwd,
                                                    attention_fwd_plain,
@@ -369,7 +370,7 @@ def test_attention_fwd_matches_plain_at_served_rows(card, row):
     B, T, Hq, d = q.shape
     S, Hkv = k.shape[1], k.shape[2]
     for plan in [None] + candidate_plans(T, S, Hq, Hkv, d, causal):
-        out = attention_fwd(q, k, v, valid, causal, plan=plan).float()
+        out = _attention_fwd(q, k, v, valid, causal, plan).float()
         assert (out - ref).abs().max().item() <= _bf16_bound(ref), plan
 
 
@@ -389,7 +390,7 @@ def test_attention_head_dims_causal_t_ne_s(card, d, T, S, dtype):
     ref = attention_fwd_plain(q, k, v, valid, True).float()
     bound = 2e-5 if dtype == torch.float32 else _bf16_bound(ref)
     for plan in [None] + candidate_plans(T, S, 6, 2, d, True):
-        out = attention_fwd(q, k, v, valid, True, plan=plan).float()
+        out = _attention_fwd(q, k, v, valid, True, plan).float()
         assert (out - ref).abs().max().item() <= bound, plan
 
 
@@ -410,7 +411,7 @@ def test_attention_causal_rows_with_no_valid_key(card, dtype):
     mean_v = v[0].float().mean(dim=0).repeat_interleave(6, dim=0)
     bound = 2e-5 if dtype == torch.float32 else _bf16_bound(ref)
     for plan in [None] + candidate_plans(300, 300, 12, 2, 128, True):
-        out = attention_fwd(q, k, v, valid, True, plan=plan).float()
+        out = _attention_fwd(q, k, v, valid, True, plan).float()
         assert (out - ref).abs().max().item() <= bound, plan
         assert (out[0, :100] - mean_v).abs().max().item() <= max(bound, 1e-5)
 
