@@ -39,10 +39,9 @@ _MAX_DIL = 4  # csrc/vocoder_stage.cu and csrc/resblock.cu kMaxDil
 _KERNEL_MAX_CHANNELS = 128
 # the stage kernel's smallest width; narrower stages are zero-padded to it
 _STAGE_MIN_CHANNELS = 32
-# csrc/resblock.cu: widest C, largest k, tensor-core channel granules
+# csrc/resblock.cu: widest C, largest k
 _RESBLOCK_MAX_CHANNELS = 256
 _RESBLOCK_MAX_K = 11
-_RESBLOCK_GRANULES = (32, 64, 96, 128, 192, 256)
 _SMEM_BYTES = 227 * 1024  # shared memory one block may use on the H100
 
 
@@ -234,19 +233,6 @@ def weight_stream(ups_w: Optional[torch.Tensor], blocks: Sequence[Block],
     return torch.cat(parts).contiguous()
 
 
-def _mma_fragments(w: torch.Tensor) -> torch.Tensor:
-    """Conv weight [k, C_in, C_out] -> flat bf16 in the order the resblock
-    kernel's tensor-core path (csrc/resblock.cu) reads it: per (tap, 16-row
-    k slice, 32-channel group, half) the 32 lanes' mma.m16n8k16 B
-    fragments, 4 words a lane (n8 tiles 2*half and 2*half+1, registers b0
-    and b1 each), a word holding the bf16 pair (k, k+1). Lane 4n+q of register b_i holds B[k = 8i + 2q + e][n]."""
-    k, c_in, c_out = w.shape
-    w = w.to(torch.bfloat16).reshape(k, c_in // 16, 2, 4, 2, c_out // 32, 2,
-                                     2, 8)
-    # dims: tap, kk, b_i, q, e, group, half, tile-in-half, n
-    return w.permute(0, 1, 5, 6, 8, 3, 7, 2, 4).reshape(-1)
-
-
 def vocoder_stage(x: torch.Tensor, ups_w: Optional[torch.Tensor],
                   ups_b: Optional[torch.Tensor], blocks: Sequence[Block],
                   r: int = 2, slope: float = 0.1,
@@ -387,44 +373,210 @@ def _check_resblock(x: torch.Tensor, block: Block, compute_dtype) -> None:
         raise ValueError("fused_resblock: weights must be on x's device")
 
 
-def _resblock_plan(C: int, k: int, dils: Sequence[int], T: int,
-                   tensor_cores: bool) -> Tuple[int, int, int, bool]:
-    """csrc/resblock.cu's launch shape -> (C_k, Lp, tile, scratch): the
-    kernel's channel count (C zero-padded to a granule: a width of 32
-    channel groups for the tensor cores, a multiple of 4 on the CUDA cores),
-    the window rows Lp = tile + 2H (the most that fit in shared memory,
-    fewer for a short T; a multiple of 16 for the tensor cores), and whether
-    the fp32 residual lives in a device-memory scratch (C_k > 64) rather
-    than in shared memory. Raises ValueError when the halo leaves no tile."""
-    if tensor_cores:
-        C_k = next(g for g in _RESBLOCK_GRANULES if g >= C)
-    else:
-        C_k = -(-C // 4) * 4
+def simt_plan(C: int, k: int, dils: Sequence[int],
+              T: int) -> Tuple[int, int, int, bool]:
+    """csrc/resblock.cu's fp32 launch shape -> (C_k, Lp, tile, scratch):
+    C zero-padded to a multiple of 4, the window rows Lp = tile + 2H (the
+    most that fit in shared memory, fewer for a short T), and whether the
+    fp32 residual lives in a device-memory scratch (C_k > 64) rather than
+    in shared memory. Raises ValueError when the halo leaves no tile."""
+    C_k = -(-C // 4) * 4
     scratch = C_k > 64
-    if tensor_cores:  # two bf16 operand buffers (+ the fp32 residual)
-        row, unit = (C_k + 8) * 4 * (1 if scratch else 2), 16
-    else:  # conv1's fp32 output (+ the fp32 residual)
-        row, unit = (C_k + 1) * 4 * (1 if scratch else 2), 1
+    row = (C_k + 1) * 4 * (1 if scratch else 2)  # conv1's output (+ residual)
     H = _halo(k, dils)
-    lp_max = _SMEM_BYTES // row // unit * unit
+    lp_max = _SMEM_BYTES // row
     if lp_max - 2 * H < 1:
-        raise ValueError(
-            f"fused_resblock: the halo of k={k}, dilations={tuple(dils)} "
-            f"(H={H}) leaves no tile in shared memory at C={C}: the window "
-            f"holds {lp_max} rows, so H <= {(lp_max - 1) // 2}")
-    Lp = min(lp_max, -(-(T + 2 * H) // unit) * unit)
+        raise ValueError(_halo_error(C, k, dils, H, lp_max))
+    Lp = min(lp_max, T + 2 * H)
     return C_k, Lp, Lp - 2 * H, scratch
 
 
-def _resblock_lib() -> ctypes.CDLL:
-    lib = cuda_build.load("resblock")
+def _halo_error(C, k, dils, H, lp_max) -> str:
+    return (f"fused_resblock: the halo of k={k}, dilations={tuple(dils)} "
+            f"(H={H}) leaves no tile in a window at C={C}: the window "
+            f"holds {lp_max} rows, so H <= {(lp_max - 1) // 2}")
+
+
+# csrc/resblock.cu, bf16 path (namespace tc `Width`): per kernel width W (C
+# is zero-padded up to the next), (KP, NN, R): the operand channels (W
+# rounded up to 16: the k padding, zero weight rows), the output channels
+# one warpgroup product covers (W / NN passes over the weights a conv) and
+# the 64-row groups a warpgroup owns, whose residual it keeps in registers
+# (R * (W + NN) / 2 fp32 a thread). Then the warpgroups a block and the
+# ring's stage limit. The library reports them and `_resblock_lib` holds
+# them against these.
+_RESBLOCK_WIDTHS = {16: (16, 16, 12), 24: (32, 24, 8), 32: (32, 32, 6),
+                    48: (48, 48, 4), 64: (64, 64, 3), 96: (96, 96, 2),
+                    128: (128, 64, 2), 192: (192, 96, 1), 256: (256, 64, 1)}
+_RESBLOCK_CONSUMERS = 2
+_RESBLOCK_MAX_RING = 8
+_RESBLOCK_INFLIGHT = 1  # taps in flight a warp: the ring needs one more
+_RESBLOCK_HEADER = 256  # mbarriers, release counters, 128-byte alignment
+
+
+class ResblockPlan(NamedTuple):
+    """Launch shape of the bf16 resblock kernel; a function of (C, k,
+    dilations, T) alone, never of the batch."""
+    width: int      # W: the kernel's channels, C zero-padded up to it
+    kpad: int       # KP: operand channels, W rounded up to 16
+    split: int      # NN: output channels a product covers (W / NN passes)
+    groups: int     # 64-row groups a warpgroup owns at most
+    consumers: int  # warpgroups a block
+    Lp: int         # window rows, a multiple of 64
+    tile: int       # output rows a block: Lp - 2 halo
+    halo: int       # rows each side: the conv chain's receptive margin
+    margin: int     # rows of 16 bytes either side of the operand buffers
+    stages: int     # weight ring stages, one [KP, NN] tap image each
+    smem: int       # dynamic shared memory bytes
+
+
+def _plan_at(W: int, C: int, k: int, dils: Sequence[int], T: int,
+             Lp: Optional[int] = None) -> ResblockPlan:
+    KP, NN, R = _RESBLOCK_WIDTHS[W]
+    H = _halo(k, dils)
+    lp_max = 64 * _RESBLOCK_CONSUMERS * R
+    if lp_max - 2 * H < 1:
+        raise ValueError(_halo_error(C, k, dils, H, lp_max))
+    if Lp is None:
+        Lp = min(lp_max, -(-(T + 2 * H) // 64) * 64)
+    margin = (k - 1) // 2 * max(dils)  # the widest tap shift
+    # + two bf16 buffers of the widest window, whatever Lp (compile-time
+    # offsets in the kernel)
+    fixed = _RESBLOCK_HEADER + 32 * margin + 4 * lp_max * KP
+    unit = 2 * KP * NN
+    stages = min(_RESBLOCK_MAX_RING, (_SMEM_BYTES - fixed) // unit)
+    return ResblockPlan(W, KP, NN, R, _RESBLOCK_CONSUMERS, Lp, Lp - 2 * H, H,
+                        margin, stages, fixed + stages * unit)
+
+
+def resblock_plan(C: int, k: int, dils: Sequence[int],
+                  T: int) -> ResblockPlan:
+    """The bf16 resblock kernel's plan at width C, kernel k, dilations
+    `dils` and sequence length T: C zero-padded up to the next kernel
+    width (unpadded at 16, 24, 32, 48, 64, 96, 128, 192, 256; the k side
+    rounded up to 16), the largest window its warpgroups' registers hold
+    (64 x consumers x groups rows), fewer for a short T, and as many ring
+    stages as the shared memory left holds, up to 8. Raises ValueError
+    when the halo leaves no tile."""
+    W = next(w for w in _RESBLOCK_WIDTHS if w >= C)
+    return _plan_at(W, C, k, dils, T)
+
+
+def candidate_plans(C: int, k: int, dils: Sequence[int],
+                    T: int) -> List[ResblockPlan]:
+    """resblock_plan's choice first, then the windows one and two groups
+    of 64 rows smaller and, at width 24 (N = 24 takes no swizzled layout),
+    the width padded to 32 (tools/resblock_probe.py times them)."""
+    best = resblock_plan(C, k, dils, T)
+    plans = [best]
+    for less in (64, 128):
+        if best.Lp - less - 2 * best.halo >= 1:
+            plans.append(_plan_at(best.width, C, k, dils, T, best.Lp - less))
+    if best.width % 16:
+        plans.append(resblock_plan(-(-best.width // 16) * 16, k, dils, T))
+    return plans
+
+
+def resblock_products(plan: ResblockPlan, C: int, k: int,
+                      dils: Sequence[int]) -> Tuple[float, float]:
+    """(executed, useful) multiply-adds of one block with a full tile,
+    reckoned from the plan, not measured: executed over every 64-row group
+    the warpgroups own (each issues its products for every conv: csrc/
+    resblock.cu `conv`) at KP x W channels, useful 2 n_d tile k C^2."""
+    rows = 64 * plan.consumers * plan.groups * 2 * len(dils)
+    executed = float(rows) * k * plan.kpad * plan.width
+    return executed, 2.0 * len(dils) * plan.tile * k * C * C
+
+
+def resblock_stream(w1: torch.Tensor, w2: torch.Tensor,
+                    plan: ResblockPlan) -> torch.Tensor:
+    """The bf16 resblock kernel's weights, w1 and w2 [n_d, k, C, C] in the
+    JAX kernel layout: one [KP, NN] image a (dilation, conv, pass, tap),
+    in the order the kernel consumes them, zero-padded to [KP, W], each
+    the shared-memory image its ring stage takes as it is: wgmma's
+    no-swizzle MN-major layout of 8 x 8 core matrices (8 input channels x
+    8 output channels, 128 contiguous bytes, output channels innermost),
+    output-channel groups 128 bytes apart, input-channel groups 16 NN bytes
+    apart. Element (ci, co) of a pass's image sits at (ci // 8) * 8 NN +
+    (co // 8) * 64 + (ci % 8) * 8 + co % 8."""
+    W, KP, NN = plan.width, plan.kpad, plan.split
+    n_d, k = w1.shape[:2]
+    w = _pad_to(torch.stack((w1, w2), dim=1).to(torch.bfloat16), (KP, W))
+    w = w.reshape(n_d, 2, k, KP // 8, 8, W // NN, NN // 8, 8)
+    # dims: dilation, conv, tap, ci // 8, ci % 8, pass, co // 8, co % 8
+    return w.permute(0, 1, 5, 2, 3, 6, 4, 7).reshape(-1)
+
+
+def _resblock_lib(defines: Sequence[str] = ()) -> ctypes.CDLL:
+    """csrc/resblock.cu's library (a probe variant with `defines`), its
+    plan limits held against the copies `resblock_plan` plans with."""
+    lib = cuda_build.load("resblock", defines)
     if not getattr(lib, "_argtypes_set", False):
         P, I = ctypes.c_void_p, ctypes.c_int
-        lib.fused_resblock.argtypes = [P, P, P, P, P, I, I, I, I, I, I, I, P,
-                                       ctypes.c_float, I, P]
+        lib.fused_resblock.argtypes = [P, P, ctypes.c_longlong, P, P, P, I, I,
+                                       I, I, I, I, I, P, ctypes.c_float, I,
+                                       I, I, I, P]
         lib.fused_resblock.restype = I
+        n = len(_RESBLOCK_WIDTHS)
+        lib.resblock_limits.argtypes = [ctypes.POINTER(ctypes.c_int)]
+        lib.resblock_limits.restype = None
+        limits = (ctypes.c_int * (4 * n + 4))()
+        lib.resblock_limits(limits)
+        ours = [v for W, t in _RESBLOCK_WIDTHS.items() for v in (W, *t)] + [
+            _RESBLOCK_CONSUMERS, _RESBLOCK_MAX_RING, _RESBLOCK_INFLIGHT,
+            _RESBLOCK_HEADER]
+        if list(limits) != ours:
+            raise RuntimeError("fused_resblock: the library's plan limits "
+                               f"{list(limits)} differ from the wrapper's "
+                               f"{ours}")
         lib._argtypes_set = True
     return lib
+
+
+def _resblock_call(x: torch.Tensor, block: Block, slope: float,
+                   compute_dtype, plan: Optional[ResblockPlan] = None,
+                   defines: Sequence[str] = ()):
+    """Everything csrc/resblock.cu's C entry takes, laid out once -> (call,
+    out): call() launches the kernel into out (the [B, T, C] result, a
+    view when C was padded) and raises on an error. `plan` (bf16 only)
+    replaces resblock_plan's and `defines` picks a probe build of the
+    library (tools/resblock_probe.py)."""
+    w1, b1, w2, b2, k, dils = block
+    B, T, C = x.shape
+    n_d = len(dils)
+    if compute_dtype == torch.bfloat16:
+        plan = plan or resblock_plan(C, k, dils, T)
+        C_k, Lp, scratch = plan.width, plan.Lp, None
+        w = resblock_stream(w1, w2, plan)
+        kpad, split, stages = plan.kpad, plan.split, plan.stages
+    else:
+        C_k, Lp, tile, in_scratch = simt_plan(C, k, dils, T)
+        w = _pad_to(torch.stack((w1, w2), dim=1).float(), (C_k, C_k))
+        w = w.reshape(-1)
+        scratch = (torch.empty(-(-T // tile) * B * Lp * C_k,
+                               dtype=torch.float32, device=x.device)
+                   if in_scratch else None)
+        kpad = split = stages = 0
+    # zero channels stay zero (zero weights and biases, lrelu(0) = 0):
+    # exact, sliced off below
+    x = _pad_to(x, (C_k,)).contiguous()
+    bias = _pad_to(torch.stack((b1, b2), dim=1).float(), (C_k,)).reshape(-1)
+    out = torch.empty(B, T, C_k, dtype=x.dtype, device=x.device)
+    dil = (ctypes.c_int * n_d)(*[int(d) for d in dils])
+    lib = _resblock_lib(defines)
+    args = (x.data_ptr(), w.data_ptr(), w.numel(), bias.data_ptr(),
+            out.data_ptr(), None if scratch is None else scratch.data_ptr(),
+            int(x.dtype == torch.bfloat16),
+            int(compute_dtype == torch.bfloat16), B, T, C_k, k, n_d, dil,
+            float(slope), Lp, kpad, split, stages,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    keep = (x, w, bias, scratch)  # alive as long as the call is
+
+    def call():
+        cuda_build.check(lib, lib.fused_resblock(*args), "fused_resblock")
+        return keep
+
+    return call, out[..., :C] if C_k > C else out
 
 
 def fused_resblock(x: torch.Tensor, block: Block, slope: float = 0.1,
@@ -444,34 +596,10 @@ def fused_resblock(x: torch.Tensor, block: Block, slope: float = 0.1,
                              compute_dtype=compute_dtype)
     cuda_build.refuse_autograd("fused_resblock", (x, *block[:4]))
     _check_resblock(x, block, compute_dtype)
-    w1, b1, w2, b2, k, dils = block
-    B, T, _ = x.shape
-    tensor_cores = compute_dtype == torch.bfloat16
-    C_k, Lp, tile, in_scratch = _resblock_plan(C, k, dils, T, tensor_cores)
-    if C_k > C:  # zero channels stay zero: exact, sliced off below
-        x = _pad_to(x, (C_k,))
-        w1, w2 = _pad_to(w1, (C_k, C_k)), _pad_to(w2, (C_k, C_k))
-        b1, b2 = _pad_to(b1, (C_k,)), _pad_to(b2, (C_k,))
-    layout = _mma_fragments if tensor_cores else (
-        lambda t: t.float().reshape(-1))
-    n_d = len(dils)
-    w = torch.cat([layout(t) for i in range(n_d) for t in (w1[i], w2[i])])
-    bias = torch.cat([t.float() for i in range(n_d) for t in (b1[i], b2[i])])
-    x = x.contiguous()
-    out = torch.empty(B, T, C_k, dtype=x.dtype, device=x.device)
-    scratch = (torch.empty(-(-T // tile) * B * Lp * C_k, dtype=torch.float32,
-                           device=x.device) if in_scratch else None)
-    lib = _resblock_lib()
-    status = lib.fused_resblock(
-        x.data_ptr(), w.data_ptr(), bias.data_ptr(),
-        out.data_ptr(), None if scratch is None else scratch.data_ptr(),
-        int(x.dtype == torch.bfloat16), int(tensor_cores), B, T, C_k, k, n_d,
-        (ctypes.c_int * n_d)(*[int(d) for d in dils]), float(slope), Lp,
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    cuda_build.check(lib, status, "fused_resblock")
+    call, out = _resblock_call(x, block, slope, compute_dtype)
+    call()
     fused_resblock.launches += 1
-    return out[..., :C] if C_k > C else out
+    return out
 
 
 fused_resblock.launches = 0

@@ -94,7 +94,12 @@ Phases, in order; any failure exits non-zero and prints no result:
      time beside SDPA's and the bound, the host time of a call, on a log
      line the earlier design's time quoted from PERF.md (K3_EARLIER_MS),
      and each row of a B=4 launch against the same row launched alone,
-     bit for bit;
+     bit for bit; the resblock kernel at the odd-width render's 9 shapes
+     and V1's C = 128 and 256 through tools/resblock_probe.time_shape on
+     the generators' weights: the kernel alone and the whole wrapper call,
+     the plain version and the bound, and on each shape's log line the
+     plan (tile, window, ring stages, N split) and the earlier design's
+     time quoted from PERF.md (K6_EARLIER_MS);
   7. the served requests once more under torch.profiler (device activity
      only): the device's busy share, the kernels that take most time and
      the stage kernel's device time;
@@ -151,6 +156,21 @@ K3_EARLIER_MS = {
     "ASR Qwen2 encode L=461": 0.033552,
     "ASR cross d=96": 0.015127,
     "ASR DiT self d=48": 0.005034,
+}
+# the resblock kernel's earlier design (mma.sync on 32-channel
+# granules, weights read from L2 per warp, the residual in device memory
+# above C = 64) at tools/resblock_probe.SHAPES, (label, k) -> device ms a
+# launch of the kernel alone: PERF.md section 6, run U14 (the probe's
+# --old-csrc timing, in one process with the redesign)
+K6_EARLIER_MS = {
+    ("odd-width C=96", 3): 0.9155, ("odd-width C=96", 7): 1.7985,
+    ("odd-width C=96", 11): 2.5715,
+    ("odd-width C=48", 3): 0.7275, ("odd-width C=48", 7): 1.4873,
+    ("odd-width C=48", 11): 2.2365,
+    ("odd-width C=24", 3): 0.5713, ("odd-width C=24", 7): 0.9466,
+    ("odd-width C=24", 11): 1.2790,
+    ("V1 C=128", 3): 1.4346, ("V1 C=128", 7): 2.9338, ("V1 C=128", 11): 4.9345,
+    ("V1 C=256", 3): 1.1018, ("V1 C=256", 7): 1.9982, ("V1 C=256", 11): 4.0990,
 }
 TRAIN_STEPS = 5
 # configs/asr.yaml, written out by hand: the card's machine has no YAML
@@ -514,9 +534,9 @@ def phase_vocoder_kernels(v2_gen, card):
     ragged last one, the first and last H frames held on their own; the
     stage kernel (K1) at V2's C=16 and C=8 stages, with the upsample.
     Returns the worst bf16 errors."""
-    from audio_calm_torch.ops.vocoder_kernel import (_halo, _resblock_plan,
-                                                     fused_resblock,
+    from audio_calm_torch.ops.vocoder_kernel import (_halo, fused_resblock,
                                                      fused_resblock_plain,
+                                                     resblock_plan, simt_plan,
                                                      vocoder_stage,
                                                      vocoder_stage_plain)
 
@@ -525,8 +545,8 @@ def phase_vocoder_kernels(v2_gen, card):
     for C in (12, 24, 48, 96, 128, 256):
         for k in (3, 7, 11):
             # two of the larger of the two paths' tiles and a ragged third
-            tile = max(_resblock_plan(C, k, (1, 3, 5), 10 ** 7, tc)[2]
-                       for tc in (True, False))
+            tile = max(resblock_plan(C, k, (1, 3, 5), 10 ** 7).tile,
+                       simt_plan(C, k, (1, 3, 5), 10 ** 7)[2])
             T = 2 * tile + tile // 3 + 1
             H = _halo(k, (1, 3, 5))
             x, block = resblock_inputs(C, k, T, card, g)
@@ -2115,11 +2135,15 @@ def kernel_time_resblock(vocs, v1_gen, launches, worst, card):
     """K6 per launch at the odd-width render's resblock shapes (B=2,
     384-frame grid: [2, 98304, 96], [2, 196608, 48], [2, 393216, 24], k =
     3, 7, 11) and at V1's C=128 and C=256 resblock shapes, fp32
-    activations and bf16 operands as the render runs it, beside the bound,
-    the plain version; no single library call computes a resblock."""
-    from audio_calm_torch.ops.vocoder_kernel import (fused_resblock,
-                                                     fused_resblock_plain,
-                                                     stack_resblock)
+    activations and bf16 operands as the render runs them, on the
+    generators' own weights, through tools/resblock_probe.time_shape: the
+    kernel alone (`ms`) and the whole wrapper call, weight layout included
+    (`call_ms`), beside the bound and the plain version; no single library
+    call computes a resblock. Each shape's log line carries its plan and
+    the earlier design's time (K6_EARLIER_MS), which the `kernels` line
+    does not."""
+    from audio_calm_torch.ops.vocoder_kernel import stack_resblock
+    from audio_calm_torch.tools.resblock_probe import time_shape
 
     g = torch.Generator(card).manual_seed(6)
     odd = vocs["odd_width"].generator
@@ -2131,17 +2155,19 @@ def kernel_time_resblock(vocs, v1_gen, launches, worst, card):
                                  ("V1 C=256", v1_gen, 0, 12288)):
         for rb in gen.resblocks[index]:
             block = stack_resblock(rb)
-            k, n_d, C = block[4], len(block[5]), block[0].shape[-1]
+            k, C = block[4], block[0].shape[-1]
             x = torch.randn(2, T, C, generator=g, device=card)
-            ms = device_ms(lambda: fused_resblock(x, block), 3)
-            plain = device_ms(lambda: fused_resblock_plain(x, block), 3)
-            flops = 2.0 * 2 * n_d * x.shape[0] * T * k * C * C
-            nbytes = 2 * x.numel() * 4 + 2 * n_d * (k * C * C * 2 + C * 4)
-            b, by = bound_ms(flops, nbytes)
-            rows.append({"shape": label, "x": list(x.shape), "k": k,
-                         "ms": ms, "plain_ms": plain, "bound_ms": b,
-                         "bound_by": by, "flop": flops, "bytes": nbytes})
-            log("  fused_resblock " + json.dumps(rows[-1]))
+            row = time_shape(label, x, block, reps=1)
+            rows.append(row)
+            p = row["plan"]
+            log(f"  fused_resblock {label} k={k}: {row['ms']:.4f} ms "
+                f"(call {row['call_ms']:.4f}; earlier design "
+                f"{K6_EARLIER_MS.get((label, k))} ms, PERF.md run U14), plain "
+                f"{row['plain_ms']:.4f}, bound {row['bound_ms']:.4f} "
+                f"({row['bound_by']}); plan: tile {p['tile']}, window "
+                f"{p['Lp']}, {p['stages']} stages, N {p['split']} of "
+                f"{p['width']} (k padded to {p['kpad']}); executed/useful "
+                f"{row['executed']:.3f}")
     path = [r for r in rows if r["shape"].startswith("odd-width")]
 
     def mean(key):
@@ -2154,14 +2180,17 @@ def kernel_time_resblock(vocs, v1_gen, launches, worst, card):
         "source": "audio_calm_torch/csrc/resblock.cu",
         "replaces": "audio_calm_tpu/ops/pallas_vocoder.py:249",
         "launches": launches, "max_abs_err": worst,
-        "ms": mean("ms"), "plain_ms": mean("plain_ms"),
-        "bound_ms": mean("bound_ms"), "bound_by": bound_by,
-        "library_ms": None, "library": "none (no single call computes a "
-                                       "resblock)",
+        "ms": mean("ms"), "call_ms": mean("call_ms"),
+        "plain_ms": mean("plain_ms"), "bound_ms": mean("bound_ms"),
+        "bound_by": bound_by, "library_ms": None,
+        "library": "none (no single call computes a resblock)",
         "per_launch": "mean over the odd-width render's 9 resblock shapes "
-                      "(B=2, 384-frame grid: C=96, 48, 24 x k=3, 7, 11); "
+                      "(B=2, 384-frame grid: C=96, 48, 24 x k=3, 7, 11), "
+                      "the kernel alone; call_ms the whole wrapper call; "
                       "V1's C=128 and C=256 shapes listed beside",
-        "shapes": rows,
+        "shapes": [{key: r[key] for key in (
+            "shape", "x", "k", "ms", "call_ms", "plain_ms", "bound_ms",
+            "bound_by", "executed", "padding", "max_abs_err")} for r in rows],
     }
 
 

@@ -211,11 +211,11 @@ def _resblock_inputs(C, k, T, device, dils=(1, 3, 5), seed=0):
 
 @pytest.mark.parametrize("cdt", ["float32", "bfloat16"])
 @pytest.mark.parametrize("k", [3, 7, 11])
-@pytest.mark.parametrize("C", [12, 24, 48, 96, 128, 256])
+@pytest.mark.parametrize("C", [12, 24, 48, 96, 128, 192, 256])
 def test_fused_resblock_matches_plain(card, C, k, cdt):
-    """K6 at the odd widths, V1's C=128 and C=256; T gives several tiles
-    and a ragged last one on both paths; the first and last H frames (the
-    sequence edges) are held on their own too."""
+    """K6 at the odd widths, V1's C=128 and C=256 and at C=192; T gives
+    several tiles and a ragged last one on both paths; the first and last
+    H frames (the sequence edges) are held on their own too."""
     cdt = getattr(torch, cdt)
     x, block = _resblock_inputs(C, k, 2500, card)
     launches = fused_resblock.launches
@@ -244,6 +244,43 @@ def test_fused_resblock_bf16_io_and_short_rows(card, cdt):
         out, ref = out.float(), ref.float()
         assert (out - ref).abs().max().item() <= \
             2 ** -7 * ref.abs().max().item(), (C, k, T)
+
+
+@pytest.mark.parametrize("C,k", [(24, 11), (48, 7), (96, 11), (256, 3)])
+def test_fused_resblock_batch_rows_equal_solo_launches(card, C, k):
+    """The plan is a function of (C, k, dilations, T), never of B, and a
+    block's work depends on its (tile, batch row) alone: row 1 of a B=2
+    launch equals the same row launched alone, bit for bit."""
+    x, block = _resblock_inputs(C, k, 3000, card, seed=5)
+    both = fused_resblock(x, block)
+    alone = fused_resblock(x[1:].contiguous(), block)
+    assert torch.equal(both[1:], alone)
+
+
+@pytest.mark.parametrize("C", [24, 48, 96])
+def test_fused_resblock_is_deterministic(card, C):
+    """The weight ring changes no order of any sum and no output is summed
+    by atomics: two launches give the same bits."""
+    x, block = _resblock_inputs(C, 11, 2000, card, seed=6)
+    assert torch.equal(fused_resblock(x, block), fused_resblock(x, block))
+
+
+def test_fused_resblock_refuses_a_short_weight_stream(card, monkeypatch):
+    """The bf16 kernel's bulk copies read every tap image of the weight
+    stream, so it holds the buffer's length against what the shapes read: a
+    stream one image short is refused with a CUDA error, not read past its
+    end."""
+    from audio_calm_torch.ops import vocoder_kernel
+
+    x, block = _resblock_inputs(96, 3, 300, card, seed=7)
+    stream = vocoder_kernel.resblock_stream
+    monkeypatch.setattr(vocoder_kernel, "resblock_stream",
+                        lambda w1, w2, p: stream(w1, w2, p)[
+                            :-p.kpad * p.split])
+    launches = fused_resblock.launches
+    with pytest.raises(RuntimeError, match="fused_resblock: CUDA error"):
+        fused_resblock(x, block)
+    assert fused_resblock.launches == launches
 
 
 def test_fused_resblock_routes_as_jax(card):

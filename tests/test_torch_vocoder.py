@@ -35,12 +35,11 @@ from audio_calm_torch.models.vocoder import (GriffinLimVocoder as TGriffinLim,
                                              fold_weight_norm as t_fold,
                                              griffin_lim as t_griffin_lim)
 from audio_calm_torch.ops.vocoder_kernel import (_check_resblock,
-                                                 _mma_fragments,
-                                                 _resblock_plan,
                                                  fused_resblock,
                                                  fused_resblock_plain,
                                                  hifigan_apply_fused as
                                                  t_apply_fused, pad_stage,
+                                                 resblock_plan, simt_plan,
                                                  vocoder_stage,
                                                  vocoder_stage_plain)
 from audio_calm_tpu.config import VAEModelConfig
@@ -183,23 +182,6 @@ def test_hifigan_generator_matches_flax(v1):
     assert np.max(np.abs(out - ref)) < 1e-4
 
 
-def test_mma_fragment_order_matches_ptx_layout():
-    """The tensor-core path's weight order: for tap j, k16 slice kk, channel
-    group g and n8 tile nt, lane 4n+q's register b_i holds the bf16 pair
-    B[k = 16kk + 8i + 2q + e][n = 32g + 8nt + n], e = 0, 1 (PTX
-    mma.m16n8k16 B fragment), 4 words a lane per half (tiles 2h, 2h+1)."""
-    k, c_in, c_out = 3, 32, 64
-    w = (torch.arange(k * c_in * c_out, dtype=torch.float32) % 251).reshape(
-        k, c_in, c_out)  # integers below 256: exact in bf16
-    packed = _mma_fragments(w).float().numpy().reshape(
-        k, c_in // 16, c_out // 32, 2, 32, 4, 2)  # j kk g half lane word e
-    j, kk, g, half, lane, word, e = np.indices(packed.shape)
-    nt = 2 * half + word // 2
-    row = 16 * kk + 8 * (word % 2) + 2 * (lane % 4) + e
-    col = 32 * g + 8 * nt + lane // 4
-    np.testing.assert_array_equal(packed, w.numpy()[j, row, col])
-
-
 def test_fold_weight_norm_matches_jax():
     rng = np.random.default_rng(3)
     g = rng.standard_normal((8, 1, 1)).astype(np.float32)
@@ -335,8 +317,9 @@ def test_stage_channel_padding_is_exact():
 
 def test_resblock_kernel_domain_and_plan():
     """The resblock kernel's limits raise ValueError naming the limit
-    (checked before any launch), and its plan: channel granules, the
-    window and tile each width gets at k=11, dilations 1/3/5."""
+    (checked before any launch), and its plan: the kernel width, k
+    padding, N split, window and tile each width gets at k=11, dilations
+    1/3/5."""
     def block(C, k=3, dils=(1, 3, 5)):
         n = len(dils)
         return (torch.zeros(n, k, C, C), torch.zeros(n, C),
@@ -353,17 +336,19 @@ def test_resblock_kernel_domain_and_plan():
                         ((x, block(48)), r"\[n_d, k, C, C\]")):
         with pytest.raises(ValueError, match=match):
             _check_resblock(*args, torch.bfloat16)
-    tiles = {C: _resblock_plan(C, 11, (1, 3, 5), 10 ** 6, True)
+    plans = {C: resblock_plan(C, 11, (1, 3, 5), 10 ** 6)
              for C in (12, 24, 48, 96, 128, 192, 256)}
-    assert {C: (p[0], p[2], p[3]) for C, p in tiles.items()} == {
-        12: (32, 600, False), 24: (32, 600, False), 48: (64, 280, False),
-        96: (96, 424, True), 128: (128, 296, True), 192: (192, 168, True),
-        256: (256, 88, True)}
-    assert _resblock_plan(24, 3, (1, 3, 5), 10 ** 6, False)[:3] == (24, 1162,
-                                                                    1138)
-    assert _resblock_plan(96, 3, (1, 3, 5), 70, True)[1:3] == (96, 72)
+    assert {C: (p.width, p.kpad, p.split, p.Lp, p.tile)
+            for C, p in plans.items()} == {
+        12: (16, 16, 16, 1536, 1416), 24: (24, 32, 24, 1024, 904),
+        48: (48, 48, 48, 512, 392), 96: (96, 96, 96, 256, 136),
+        128: (128, 128, 64, 256, 136), 192: (192, 192, 96, 128, 8),
+        256: (256, 256, 64, 128, 8)}
+    assert simt_plan(24, 3, (1, 3, 5), 10 ** 6)[:3] == (24, 1162, 1138)
+    p = resblock_plan(96, 3, (1, 3, 5), 70)
+    assert (p.Lp, p.tile) == (128, 104)
     with pytest.raises(ValueError, match="halo"):
-        _resblock_plan(256, 11, (1, 9, 11, 13), 100, True)
+        resblock_plan(256, 11, (1, 9, 11, 13), 100)
 
 
 @pytest.fixture(scope="module")
