@@ -11,8 +11,10 @@ tts_dur_predictor, asr_cross_attn, asr_query_embed, asr_flow_head) so
 weights carry across one-to-one (models/convert.py); the ASR modules are
 registered after the TTS ones, so the TTS dropout sites keep their
 numbers. Training: `forward_tts` with the reference's solo semantics
-(every row one utterance). Still to be ported: `forward_asr` and the
-packed forwards.
+(every row one utterance) and `forward_tts_packed` (several [text | SOA]
+segments share an LLM row under a block-diagonal mask; dummy slots drop
+out of every loss term). Still to be ported: `forward_asr` and
+`forward_asr_packed` (ROADMAP Queue 1 item 4).
 
 The model computes in `compute_dtype` (default: the dtype of its weights;
 fp32 for the parity tests, bf16 for serving and training) and casts its
@@ -222,10 +224,16 @@ class QwenCALM(nn.Module):
 
     def _tts_condition_and_loss(self, cond_vec, text_ctx, text_pad, gt,
                                 tgt_mask, train, generator, seed, t=None,
-                                x0=None, drop=None
+                                x0=None, drop=None, real=None, dens=None
                                 ) -> Dict[str, torch.Tensor]:
-        """MAS + len/dur predictors + flow loss on the LLM outputs; every
-        term a plain mean (the reference's solo semantics)."""
+        """MAS + len/dur predictors + flow loss on the LLM outputs.
+
+        real=None: the reference's solo semantics (every row one utterance,
+        each term a plain mean). real [B] bool (packed batches, with dummy
+        slots): each term a masked sum over real rows over `dens`, the
+        (slot count, valid frame count) of the full batch, so that
+        microbatch slices sum to the full batch's loss; dens=None takes
+        them from this batch. Adds `loss_den`, the real row count."""
         c = self.cfg
         T_aud = gt.shape[1]
 
@@ -239,7 +247,13 @@ class QwenCALM(nn.Module):
         min_f = torch.clamp_min(text_len * 2.0, 10.0)
         max_f = torch.clamp_max(text_len * 12.0, float(c.max_audio_len))
         len_pred_c = torch.minimum(torch.maximum(len_pred, min_f), max_f)
-        len_loss = smooth_l1(torch.log1p(len_pred_c), torch.log1p(gt_len))
+        if real is None:
+            len_loss = smooth_l1(torch.log1p(len_pred_c), torch.log1p(gt_len))
+        else:
+            real_f = real.float()
+            d = (torch.log1p(len_pred_c) - torch.log1p(gt_len)).abs()
+            len_num = (torch.where(d < 1.0, 0.5 * d * d, d - 0.5)
+                       * real_f).sum()
 
         # MAS duration targets, without gradient (JAX: stop_gradient); the
         # similarity in fp32 after L2 normalisation, as JAX computes it
@@ -263,8 +277,12 @@ class QwenCALM(nn.Module):
         dur_pred = torch.where(text_pad, 0.0, dur_pred)
         dur_sum = dur_pred.sum(dim=1, keepdim=True).clamp_min(1e-4)
         dur_scaled = dur_pred * (T_aud / dur_sum)
-        dur_loss = (torch.log1p(dur_scaled * valid_f)
-                    - torch.log1p(gt_dur * valid_f)).abs().mean()
+        dur_abs = (torch.log1p(dur_scaled * valid_f)
+                   - torch.log1p(gt_dur * valid_f)).abs()
+        if real is None:
+            dur_loss = dur_abs.mean()
+        else:
+            dur_num = (dur_abs * real_f[:, None]).sum()
 
         # condition + flow loss (teacher-forced MAS alignment)
         aligned = torch.einsum("bnt,bnd->btd", align_gt.to(text_ctx.dtype),
@@ -283,7 +301,72 @@ class QwenCALM(nn.Module):
             cfg_dropout_prob=c.cfg_dropout_prob if train else 0.0,
             context=text_ctx, context_mask=text_pad, train=train,
             t=t, x0=x0, drop=drop)
+        out: Dict[str, torch.Tensor] = {}
+        if real is not None:
+            # dummy slots have no frames, so the flow loss's masked mean
+            # already leaves them out: rescale its local denominator to the
+            # global one
+            frames = tgt_mask.float().sum()
+            n_real = real_f.sum()
+            if dens is None:
+                den_slots, den_frames = n_real.clamp_min(1.0), \
+                    frames.clamp_min(1.0)
+            else:
+                den_slots, den_frames = dens
+            tts_loss = tts_loss * (frames / den_frames)
+            len_loss = len_num / den_slots
+            dur_loss = dur_num / (den_slots * float(text_pad.shape[1]))
+            out["loss_den"] = n_real
         loss = (tts_loss * c.tts_loss_weight + len_loss * c.len_pred_loss_weight
                 + dur_loss * c.dur_pred_loss_weight)
-        return {"loss": loss, "loss_tts": tts_loss, "loss_len": len_loss,
-                "loss_dur": dur_loss}
+        out.update(loss=loss, loss_tts=tts_loss, loss_len=len_loss,
+                   loss_dur=dur_loss)
+        return out
+
+    def forward_tts_packed(self, latents: torch.Tensor,
+                           audio_mask: torch.Tensor, text_mask: torch.Tensor,
+                           tok_ids: torch.Tensor, kind: torch.Tensor,
+                           segment_ids: torch.Tensor,
+                           position_ids: torch.Tensor, ctx_idx: torch.Tensor,
+                           soa_idx: torch.Tensor, global_den=None,
+                           train: bool = True,
+                           generator: Optional[torch.Generator] = None,
+                           seed: int = 0, t: Optional[torch.Tensor] = None,
+                           x0: Optional[torch.Tensor] = None,
+                           drop: Optional[torch.Tensor] = None
+                           ) -> Dict[str, torch.Tensor]:
+        """Packed TTS training (JAX calm.py:314-373; the batch layout is
+        data/collator.pack_tts_window's): per-slot raw latents [R, S, T_aud,
+        D] + mask, text mask [R, S, T_txt]; per row the text ids, `kind`
+        (0 pad / 1 text / 2 SOA), segment ids (0 = pad), positions within
+        the segment; `ctx_idx` [R, S, T_txt] and `soa_idx` [R, S] index the
+        row's hidden states plus one zero column (T_pack). The LLM sees only
+        real tokens; each utterance's text states and SOA condition are
+        gathered back for the per-utterance MAS / duration / flow tail, on
+        R x S rows in slot order. global_den: the full batch's (slot count,
+        frame count), fp32 scalars. Draws as in forward_tts (t, x0, drop on
+        the R x S rows)."""
+        R, S, T_aud, D = latents.shape
+        T_txt = text_mask.shape[-1]
+        H = self.cfg.qwen.hidden_size
+        gt = self.normalize_latents(latents.reshape(R * S, T_aud, D))
+        tok = self.embed_tokens(tok_ids).to(self.dtype)
+        soa = self.soa_embed.to(self.dtype)
+        kindb = kind[..., None]
+        inp = (torch.where(kindb == 1, tok, torch.zeros_like(tok))
+               + torch.where(kindb == 2, soa, torch.zeros_like(soa)))
+        hidden = self.llm(inp, attention_mask=(kind != 0).int(),
+                          position_ids=position_ids, train=train, seed=seed,
+                          segment_ids=segment_ids)
+        hflat = torch.cat([hidden, hidden.new_zeros(R, 1, H)], dim=1)
+        text_ctx = torch.gather(
+            hflat, 1, ctx_idx.reshape(R, S * T_txt, 1).long().expand(
+                -1, -1, H)).reshape(R * S, T_txt, H)
+        cond_vec = torch.gather(
+            hflat, 1, soa_idx.reshape(R, S, 1).long().expand(-1, -1, H)
+        ).reshape(R * S, 1, H)
+        flat_text = text_mask.reshape(R * S, T_txt)
+        return self._tts_condition_and_loss(
+            cond_vec, text_ctx, flat_text == 0, gt,
+            audio_mask.reshape(R * S, T_aud).bool(), train, generator, seed,
+            t, x0, drop, real=flat_text.any(dim=-1), dens=global_den)

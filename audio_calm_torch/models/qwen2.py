@@ -9,13 +9,21 @@ the card) when no gradient is needed and through `flash_attention` (K4
 forward, K5 backward) when autograd records. `train=True` turns on the LoRA
 adapter dropout. `remat_policy="full"` recomputes each block in the
 backward (`torch.utils.checkpoint`, non-reentrant); "none" keeps every
-activation; JAX's "dots" is still to be ported. The `segment_ids` packing
-path is still to be ported (packed training).
+activation; JAX's "dots" is still to be ported.
+
+Packed rows (`segment_ids`, several sequences in one row, segment 0 =
+padding): the mask is causal, key-valid and block-diagonal, and the
+attention takes the plain differentiable route (`masked_attention`: the
+float32-min mask and an fp32 softmax), as JAX sends such rows to XLA; the
+kernels know key validity only. The route follows from the arguments, the
+same on every device.
 """
 
 from __future__ import annotations
 
 from typing import Optional, Tuple
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -71,6 +79,23 @@ def _proj(lora: Optional[LoRAConfig], name: str, d_in: int, d_out: int,
     return LoRADense(d_in, d_out, bias=bias)
 
 
+def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     mask: torch.Tensor) -> torch.Tensor:
+    """JAX's XLA attention (`sdpa` in audio_calm_tpu/models/qwen2.py), plain
+    and differentiable: q [B, T, Hq, d], k/v [B, S, Hkv, d] (GQA), mask
+    [B, 1, T, S] (True = attend). Scores in fp32, masked to float32 min, an
+    fp32 softmax, the probabilities cast to v's dtype, P V summed in fp32,
+    the output in q's dtype."""
+    d = q.shape[-1]
+    group = q.shape[2] // k.shape[2]
+    kf = k.float().repeat_interleave(group, dim=2)
+    vf = v.float().repeat_interleave(group, dim=2)
+    scores = torch.einsum("bthd,bshd->bhts", q.float(), kf) / math.sqrt(d)
+    scores = scores.masked_fill(~mask, torch.finfo(torch.float32).min)
+    probs = torch.softmax(scores, dim=-1).to(v.dtype).float()
+    return torch.einsum("bhts,bshd->bthd", probs, vf).to(q.dtype)
+
+
 class Qwen2Attention(nn.Module):
     def __init__(self, cfg: Qwen2Config, lora: Optional[LoRAConfig] = None):
         super().__init__()
@@ -86,7 +111,9 @@ class Qwen2Attention(nn.Module):
                             False)
 
     def forward(self, x, cos, sin, key_valid, train: bool = False,
-                seed: int = 0):
+                seed: int = 0, mask: Optional[torch.Tensor] = None):
+        """mask [B, 1, T, T] (packed rows) selects `masked_attention`;
+        without it the fused causal attention over `key_valid`."""
         c = self.cfg
         B, T, _ = x.shape
         q = self.q_proj(x, train, seed).reshape(B, T, c.num_attention_heads,
@@ -97,8 +124,12 @@ class Qwen2Attention(nn.Module):
                                                 c.head_dim)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
-        attend = flash_attention if torch.is_grad_enabled() else attention_fwd
-        out = attend(q, k, v, key_valid, True)
+        if mask is not None:
+            out = masked_attention(q, k, v, mask)
+        else:
+            attend = (flash_attention if torch.is_grad_enabled()
+                      else attention_fwd)
+            out = attend(q, k, v, key_valid, True)
         return self.o_proj(out.reshape(B, T, -1), train, seed)
 
 
@@ -125,9 +156,9 @@ class Qwen2Block(nn.Module):
         self.mlp = Qwen2MLP(cfg, lora)
 
     def forward(self, x, cos, sin, key_valid, train: bool = False,
-                seed: int = 0):
+                seed: int = 0, mask: Optional[torch.Tensor] = None):
         x = x + self.self_attn(self.input_layernorm(x), cos, sin, key_valid,
-                               train, seed)
+                               train, seed, mask)
         return x + self.mlp(self.post_attention_layernorm(x), train, seed)
 
 
@@ -154,7 +185,10 @@ class Qwen2Model(nn.Module):
     def forward(self, inputs_embeds: torch.Tensor,
                 attention_mask: Optional[torch.Tensor] = None,
                 position_ids: Optional[torch.Tensor] = None,
-                train: bool = False, seed: int = 0) -> torch.Tensor:
+                train: bool = False, seed: int = 0,
+                segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """segment_ids [B, T] (packed rows; 0 = padding): a token attends
+        only within its own segment, through `masked_attention`."""
         c = self.cfg
         B, T, _ = inputs_embeds.shape
         x = inputs_embeds
@@ -165,15 +199,23 @@ class Qwen2Model(nn.Module):
             position_ids = (attention_mask.long().cumsum(-1) - 1).clamp_min(0)
         cos, sin = make_rope_cache(position_ids, c.head_dim, c.rope_theta)
         key_valid = attention_mask != 0  # once for all layers
+        mask = None
+        if segment_ids is not None:
+            causal = torch.ones(T, T, dtype=torch.bool,
+                                device=x.device).tril()
+            mask = (causal[None, None] & key_valid[:, None, None, :]
+                    & (segment_ids[:, None, :, None]
+                       == segment_ids[:, None, None, :]))
         remat = self.remat_policy == "full" and torch.is_grad_enabled()
         for layer in self.layers:
             if remat:
                 # dropout masks come from (seed, site), not the global RNG,
                 # so the recomputation needs no RNG state restored
                 x = checkpoint(layer, x, cos, sin, key_valid, train, seed,
-                               use_reentrant=False, preserve_rng_state=False)
+                               mask, use_reentrant=False,
+                               preserve_rng_state=False)
             else:
-                x = layer(x, cos, sin, key_valid, train, seed)
+                x = layer(x, cos, sin, key_valid, train, seed, mask)
         return self.norm(x)
 
 

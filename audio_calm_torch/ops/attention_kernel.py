@@ -19,15 +19,23 @@ Backward: counterpart of `_flash_bwd_kernel` (K5), the backward of JAX
 backward is `attention_bwd`. `attention_fwd` itself returns a tensor with
 no gradient on the card, so it refuses inputs that require one. K5 keeps
 the TPU's 512 gate on T and S; the forward has none.
+
+FLOP counts (`counting_flops`, used by utils/profiling.count_flops): a
+ctypes launch is invisible to torch's FlopCounterMode, so while a count is
+taken each call adds its dense product count to a tally, and the plain
+versions (the CPU route) run hidden from the counter: the count is the
+same on both routes.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import math
 from typing import List, NamedTuple, Optional
 
 import torch
+from torch.utils._python_dispatch import _disable_current_modes
 
 from audio_calm_torch.ops import cuda_build
 
@@ -43,6 +51,40 @@ _SPLIT_MIN_WALK = 4  # key split only where a tile walks this many key tiles
 _SPLIT_PROGRAMS = 32  # ... and a batch row has at most this many programs,
 _SPLIT_PROGRAMS_CAUSAL = 192  # or this many where causal
 _FLASH = "audio_calm_torch.ops.attention_kernel.flash_attention"
+
+
+class FlopTally:
+    """Dense product FLOPs of the attention calls made while a count is
+    taken: 4 B Hq T S d a forward (Q K^T and P V), 10 B Hq T S d a backward
+    (its five products, P recomputed), masked and causal-skipped work
+    included, as a FLOP counter counts the plain versions' products."""
+    active = False
+    flops = 0.0
+
+
+_TALLY = FlopTally()
+
+
+@contextlib.contextmanager
+def counting_flops():
+    """Tally the attention calls' FLOPs for the block (yields the tally);
+    their plain versions run with the torch dispatch modes (a
+    FlopCounterMode) disabled."""
+    _TALLY.active, _TALLY.flops = True, 0.0
+    try:
+        yield _TALLY
+    finally:
+        _TALLY.active = False
+
+
+def _tally(q, k, products: int):
+    """Add a call's products to the tally -> the context its plain version
+    runs in."""
+    if not _TALLY.active:
+        return contextlib.nullcontext()
+    B, T, Hq, d = q.shape
+    _TALLY.flops += 2.0 * products * B * Hq * T * k.shape[1] * d
+    return _disable_current_modes()
 
 
 def _mask(key_valid, B, T, S, causal, device):
@@ -242,8 +284,10 @@ def _attention_fwd(q, k, v, key_valid, causal,
                    plan: Optional[AttentionPlan]) -> torch.Tensor:
     """`attention_fwd` under `plan` (None: `attention_plan`'s); another
     plan only for measurements and tests (tools/attention_probe.py)."""
+    hidden = _tally(q, k, 2)
     if q.device.type == "cpu":
-        return attention_fwd_plain(q, k, v, key_valid, causal)
+        with hidden:
+            return attention_fwd_plain(q, k, v, key_valid, causal)
     if q.device.type != "cuda":
         raise ValueError(f"attention_fwd: unsupported device {q.device}")
     cuda_build.refuse_autograd("attention_fwd", (q, k, v), _FLASH)
@@ -322,8 +366,10 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Gradients of `attention_fwd` -> (dq, dk, dv), given its inputs, its
     output and the output's gradient. CPU tensors take the plain version;
     CUDA tensors launch csrc/attention_bwd.cu."""
+    hidden = _tally(q, k, 5)
     if q.device.type == "cpu":
-        return attention_bwd_plain(q, k, v, out, dout, key_valid, causal)
+        with hidden:
+            return attention_bwd_plain(q, k, v, out, dout, key_valid, causal)
     if q.device.type != "cuda":
         raise ValueError(f"attention_bwd: unsupported device {q.device}")
     cuda_build.refuse_autograd("attention_bwd", (q, k, v, out, dout),

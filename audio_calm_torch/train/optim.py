@@ -153,6 +153,36 @@ class AdamW:
         self.count = 0  # real updates so far (the schedule's count)
         self.mini_step = 0
 
+    def state_dict(self) -> Dict:
+        """The optimizer state (for train/checkpoint.py): the moments `mu`
+        and `nu`, the MultiSteps accumulator `acc` (None when k = 1), the
+        update count and the position inside an accumulation."""
+        return {"mu": self.mu, "nu": self.nu, "acc": self.acc,
+                "count": self.count, "mini_step": self.mini_step}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: Dict) -> None:
+        """Copy a `state_dict()` into this optimizer's tensors in place
+        (their devices and dtypes stay); names and shapes must match."""
+        if (state["acc"] is None) != (self.acc is None):
+            raise ValueError("optimizer state: gradient_accumulation_steps "
+                             "differs from the saved run's")
+        for key in ("mu", "nu", "acc"):
+            mine, saved = getattr(self, key), state[key]
+            if mine is None:
+                continue
+            if set(mine) != set(saved):
+                raise ValueError(f"optimizer state {key}: the saved tensors "
+                                 "are not this optimizer's")
+            for n, t in mine.items():
+                if t.shape != saved[n].shape:
+                    raise ValueError(f"optimizer state {key}.{n}: shape "
+                                     f"{tuple(saved[n].shape)}, expected "
+                                     f"{tuple(t.shape)}")
+                t.copy_(saved[n])
+        self.count = int(state["count"])
+        self.mini_step = int(state["mini_step"])
+
     @torch.no_grad()
     def step(self, grads: Dict[str, Optional[torch.Tensor]]) -> torch.Tensor:
         g = {n: (grads.get(n) if grads.get(n) is not None

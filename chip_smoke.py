@@ -20,7 +20,11 @@ Phases, in order; any failure exits non-zero and prints no result:
      then one TTS training step (forward_tts + backward) at full widths
      with 2 LLM layers, fp32, dropouts off, on both, same weights and flow
      noise: loss terms, every trainable gradient, and the card's attention
-     kernel launches (Qwen2 and DiT attention both through K4/K5);
+     kernel launches (Qwen2 and DiT attention both through K4/K5); then
+     one packed TTS step (forward_tts_packed: 7 utterances in 2 rows of
+     256 tokens x 4 slots, one dummy slot, the 96-frame grid) the same
+     way: the Qwen2 rows, which carry segment ids, launch no kernel (the
+     plain masked attention on both devices), the DiT K3/K5;
   5. the serving path at full width: the flagship (28-layer Qwen2-1.5B, DiT
      1024x4, VAE, HiFi-GAN V1, random bf16 weights from a seed) serves a
      batch of 2 texts on the 384-frame grid and 1 text on the 192-frame grid
@@ -33,7 +37,8 @@ Phases, in order; any failure exits non-zero and prints no result:
      steps through run_training; finite metrics, frozen tensors unchanged,
      trainable ones unchanged after the LR-0 first step and changed after
      the second, kernel launches as full remat requires; step time,
-     samples/s, peak memory;
+     samples/s, MFU (the step's FLOPs counted once before the run by
+     train/steps.count_step_flops), peak memory;
   5c. the vocoder layer as the product loads it: weight-normed torch
      checkpoints of two generators made from a seed (odd widths: V1's rates
      with 384 initial channels, whose resblocks at C = 96, 48, 24 take the
@@ -81,6 +86,20 @@ Phases, in order; any failure exits non-zero and prints no result:
      card, the hidden state and latents stay within 2e-2 and 0.1 of bf16,
      a /tts and an /asr complete; engine memory and the B=1 encode's
      device time in bf16 and int8, with the card's name and power limit;
+  5i. (run after phase 6) the shipped TTS training recipe:
+     configs/tts.yaml at full width
+     (packed rows, 16 x 256 tokens in 2 slices, length-grouped buckets)
+     through `python -m audio_calm_torch.train.train_calm` in this
+     process, on a synthetic store written by audio_calm_torch.data.
+     synth_corpus (640 utterances, 16 held out, the byte tokenizer):
+     2 steps with an eval and a checkpoint at step 2, the train state
+     restored bit for bit, a second run resuming from that checkpoint to
+     step 6 (evals, checkpoints, best-model retention), finite loss,
+     samples/s and MFU in its metrics.jsonl, K3/K4 only in the eval
+     forwards; 4 more steps of the recipe's batches timed one by one
+     (step time, utterances/s, MFU, peak memory, launches a step); the
+     exported components served through build_engine's --components
+     equal to the trained tensors;
   6. per kernel: its launches on its main path, its device time per launch
      at main-path shapes, the bound, the plain version's and the library
      call's device time; for the stage kernel, per V1 stage on a log line
@@ -103,7 +122,8 @@ Phases, in order; any failure exits non-zero and prints no result:
   7. the served requests once more under torch.profiler (device activity
      only): the device's busy share, the kernels that take most time and
      the stage kernel's device time;
-     then one more training step, the same way, with K5's share of it.
+     then one more training step, the same way, with K5's share of it,
+     and one more packed step (its busy share).
 Then the card, one `kernels` JSON line, and as the last line
 {"ok": true, "device": {...}}.
 """
@@ -795,15 +815,19 @@ def phase_train_main_path(card):
                                                        attention_fwd)
     from audio_calm_torch.train.loop import run_training
     from audio_calm_torch.train.optim import AdamW, freeze
-    from audio_calm_torch.train.steps import make_calm_step
+    from audio_calm_torch.train.steps import count_step_flops, make_calm_step
+    from audio_calm_torch.utils.profiling import device_peak_flops
 
     steps = TRAIN_STEPS
-    # configs/tts.yaml, training: (plain batches)
+    # configs/tts.yaml, training: (plain batches); metrics.jsonl to a
+    # temporary directory
+    out_dir = tempfile.mkdtemp(prefix="plain_training_")
     tcfg = TrainingConfig(
         per_device_train_batch_size=32, microbatch_steps=2, soa_lr_mult=3.0,
         proj_lr_mult=1.0, head_lr_mult=3.0, learning_rate=5e-5,
         frozen_weights_dtype="bfloat16", lr_scheduler_type="cosine",
-        warmup_ratio=0.1, max_grad_norm=1.0, logging_steps=1)
+        warmup_ratio=0.1, max_grad_norm=1.0, logging_steps=1,
+        output_dir=out_dir)
     cfg = flagship_config()
     t0 = time.perf_counter()
     with torch.device(card):
@@ -834,11 +858,15 @@ def phase_train_main_path(card):
             snaps.append({n: p.detach().clone() for n, p in trainable.items()}
                          if len(snaps) < 2 else None)
 
+    # the step's FLOPs (one slice run under the counter, before the run)
+    flops = count_step_flops(model, batches[0], "tts", k)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     attention_fwd.launches = 0
     attention_bwd.launches = 0
-    history = run_training(step, feed(), tcfg, total_steps=steps)
+    history = run_training(step, feed(), tcfg, total_steps=steps,
+                           step_flops=lambda b: flops, device=card)
+    shutil.rmtree(out_dir, ignore_errors=True)
     counts = {"attention_fwd": attention_fwd.launches,
               "attention_bwd": attention_bwd.launches}
     peak = torch.cuda.max_memory_allocated()
@@ -883,6 +911,8 @@ def phase_train_main_path(card):
                "step_s_first": history[0]["step_s"],
                "step_s_median_after_first": step_s,
                "samples_per_s": B / step_s, "peak_mem_gb": peak / 1e9,
+               "tflop_per_step": flops / 1e12,
+               "mfu_pct": 100.0 * flops / step_s / device_peak_flops(card),
                "launches": counts, "losses": [r["loss"] for r in history],
                "grad_norms": [r["grad_norm"] for r in history]}
     log("  training " + json.dumps(summary))
@@ -2402,6 +2432,321 @@ def kernel_time_attention_bwd(train_counts, train_steps, errs, card):
     }
 
 
+# the packed training recipe (phase 5i): configs/tts.yaml through the port's
+# train_calm on a synthetic store the port writes (the byte tokenizer; no
+# download); run 1 takes PACKED_STEPS steps, run 2 resumes from its
+# checkpoint to PACKED_RESUME_TO, then PACKED_TIMED more steps are timed
+PACKED_STORE = ["--asr-n", "0", "--tts-n", "640", "--dev-n", "16",
+                "--seed", "3"]
+PACKED_EVAL_BATCHES = 2  # 16 dev items in eval batches of 8
+PACKED_STEPS, PACKED_RESUME_TO, PACKED_TIMED = 2, 6, 4
+
+
+def packed_train_argv(store, out, max_steps, *extra):
+    """train_calm's argv for configs/tts.yaml at full width on `store`: a
+    log every step, a save and an eval every 2, everything else the
+    recipe's."""
+    argv = ["--config", "configs/tts.yaml", "--byte-tokenizer",
+            "--max-steps", str(max_steps)]
+    for ov in (f"data.datasets.tts.latent_dir={store}/train/LibriTTS_R",
+               f"data.datasets.tts.eval_latent_dir={store}/dev/LibriTTS_R",
+               "data.datasets.tts.subsets=train-clean-100",
+               "model.qwen_path=null", f"training.output_dir={out}",
+               "training.logging_steps=1", "training.save_steps=2",
+               "training.eval_steps=2") + extra:
+        argv += ["--override", ov]
+    return argv
+
+
+def packed_records(out):
+    """metrics.jsonl of a run -> (train records, eval records)."""
+    with open(os.path.join(out, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    return ([r for r in recs if "loss" in r],
+            [r for r in recs if "eval_loss" in r])
+
+
+def check_packed_run(run, out, counts, first_step, cfg):
+    """Finite metrics.jsonl with samples_per_sec and mfu_pct each step, the
+    steps numbered on from `first_step`, and the launches: none in the
+    packed steps (Qwen2 rows with segment ids take the plain masked
+    attention, the DiT with its dropout on plain torch), K3/K4 once a
+    Qwen2 layer and twice a DiT layer in each eval forward."""
+    train, evals = packed_records(out)
+    steps = [r["step"] for r in train]
+    check(steps == list(range(first_step, first_step + len(steps)))
+          and [r["step"] for r in run.history] == steps,
+          f"packed run steps {steps}")
+    for r in train:
+        check(all(np.isfinite(r[k]) and r[k] > 0 for k in (
+            "loss", "samples_per_sec", "mfu_pct", "loss_den")),
+            f"packed step {r['step']} metrics {r}")
+    check(len(evals) >= 1 and all(np.isfinite(r["eval_loss"])
+                                  for r in evals), "packed run eval loss")
+    per_eval = cfg.qwen.num_hidden_layers + 2 * cfg.tts_flow_num_layers
+    want = {"attention_fwd": len(evals) * PACKED_EVAL_BATCHES * per_eval,
+            "attention_bwd": 0}
+    log(f"  launches: {counts} (expected {want}: 0 in {len(train)} packed "
+        f"steps, {per_eval} in each of {len(evals) * PACKED_EVAL_BATCHES} "
+        "eval forwards)")
+    check(counts == want, "kernel launches of the packed training run")
+    return train, evals
+
+
+def phase_packed_training(card, smi):
+    """The shipped TTS training recipe at full width: configs/tts.yaml
+    (Qwen2-1.5B 28 layers, frozen bf16 base, LoRA r64, DiT 1024 x 4, full
+    remat, packed rows of 256 tokens, 16 rows in 2 slices) through
+    `python -m audio_calm_torch.train.train_calm` in this process, on a
+    synthetic store written by audio_calm_torch.data.synth_corpus: run 1
+    takes 2 steps (an eval and a checkpoint at step 2), its train state
+    restores bit for bit, run 2 resumes from it to step 6 (evals and
+    checkpoints at 4 and 6, the best kept), then 4 more steps on the
+    recipe's own batches are timed one by one; the exported components
+    load through the served product's --components path (build_engine)
+    and equal the trained tensors."""
+    import gc
+
+    from audio_calm_torch.config import TrainingConfig
+    from audio_calm_torch.data import synth_corpus
+    from audio_calm_torch.ops.attention_kernel import (attention_bwd,
+                                                       attention_fwd)
+    from audio_calm_torch.serving.server import build_engine
+    from audio_calm_torch.serving.server import parse_args as serve_args
+    from audio_calm_torch.train import checkpoint as ckpt
+    from audio_calm_torch.train import train_calm
+    from audio_calm_torch.train.optim import AdamW
+    from audio_calm_torch.utils.profiling import device_peak_flops
+
+    def counters():
+        return {"attention_fwd": attention_fwd.launches,
+                "attention_bwd": attention_bwd.launches}
+
+    def zero():
+        attention_fwd.launches = attention_bwd.launches = 0
+
+    walls = {}
+    tmp = tempfile.mkdtemp(prefix="packed_training_")
+    try:
+        store = os.path.join(tmp, "store")
+        t0 = time.perf_counter()
+        check(synth_corpus.main(["--out", store] + PACKED_STORE) == 0,
+              "synthetic store")
+        walls["store_s"] = time.perf_counter() - t0
+
+        out1 = os.path.join(tmp, "run1")
+        zero()
+        run1, walls["run1_s"] = synced(lambda: train_calm.train(
+            packed_train_argv(store, out1, PACKED_STEPS)))
+        cfg = run1.model.cfg
+        run_launches = {"run1": counters()}
+        check_packed_run(run1, out1, run_launches["run1"], 1, cfg)
+
+        # the train state of step 2 restores bit for bit
+        opt = run1.optimizer
+        clone = AdamW({n: torch.zeros_like(p) for n, p in opt.params.items()},
+                      opt.group, TrainingConfig(), 1)
+        manager = ckpt.make_manager(out1, best_metric=None)
+        check(manager.all_steps() == [PACKED_STEPS]
+              and ckpt.restore_train_state(manager, clone) == PACKED_STEPS,
+              "run 1's checkpoint")
+        exact = all(torch.equal(getattr(clone, k)[n], getattr(opt, k)[n])
+                    for k in ("params", "mu", "nu") for n in opt.params)
+        check(exact and (clone.count, clone.mini_step)
+              == (opt.count, opt.mini_step) == (PACKED_STEPS, 0),
+              "the restored train state is bit for bit the saved one")
+        n_train = sum(p.numel() for p in opt.params.values())
+        log(f"  run 1: {PACKED_STEPS} steps in {walls['run1_s']:.1f} s; "
+            f"{len(opt.params)} trainable tensors ({n_train / 1e6:.1f} M) "
+            f"and their moments restored bit for bit")
+        del run1, opt, clone
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        out2 = os.path.join(tmp, "run2")
+        zero()
+        run2, walls["run2_s"] = synced(lambda: train_calm.train(
+            packed_train_argv(store, out2, PACKED_RESUME_TO,
+                              f"training.resume_from_checkpoint={out1}")))
+        run_launches["run2"] = counters()
+        train, evals = check_packed_run(run2, out2, run_launches["run2"],
+                                        PACKED_STEPS + 1, cfg)
+        kept = ckpt.make_manager(out2, 2, "loss").all_steps()
+        check(len(kept) == 2 and max(kept) <= PACKED_RESUME_TO,
+              f"run 2's checkpoints {kept}")
+        for r in train:
+            log(f"  step {r['step']}: " + " ".join(
+                f"{k}={r[k]:.5f}" for k in ("loss", "loss_tts", "loss_dur",
+                                            "grad_norm", "loss_den",
+                                            "step_s", "samples_per_sec",
+                                            "mfu_pct") if k in r))
+        log(f"  run 2 resumed at step {PACKED_STEPS}: steps "
+            f"{train[0]['step']}-{train[-1]['step']} in "
+            f"{walls['run2_s']:.1f} s, eval loss "
+            f"{[round(r['eval_loss'], 5) for r in evals]}, checkpoints "
+            f"kept {kept}")
+
+        # the recipe's steps timed one by one (FLOPs counted first)
+        it = run2.batches(0)
+        raws = [next(it) for _ in range(PACKED_TIMED)]
+        it.close()  # its prefetch thread ends
+        flops = [run2.step_flops(raw) for raw in raws]
+        batches = [run2.batch_filter(raw) for raw in raws]
+        synced(lambda: run2.step(batches[0]))  # this shape warm
+        torch.cuda.reset_peak_memory_stats()
+        zero()
+        times = [synced(lambda b=b: run2.step(b))[1] for b in batches]
+        timed_counts = counters()
+        peak_mem = torch.cuda.max_memory_allocated()
+        check(timed_counts == {"attention_fwd": 0, "attention_bwd": 0},
+              f"no attention kernel in a packed step ({timed_counts})")
+        n_utt = [raw["n_samples"] for raw in raws]
+        peak = device_peak_flops(card)
+        summary = {
+            "steps": PACKED_TIMED, "rows": raws[0]["tok_ids"].shape[0],
+            "row_len": raws[0]["tok_ids"].shape[1],
+            "t_aud": [raw["latents"].shape[2] for raw in raws],
+            "utterances": n_utt, "step_s": times,
+            "step_s_median": sorted(times)[len(times) // 2],
+            "utterances_per_s": sum(n_utt) / sum(times),
+            "tflop_per_step": [f / 1e12 for f in flops],
+            "mfu_pct": 100.0 * sum(flops) / sum(times) / peak,
+            "peak_mem_gb": peak_mem / 1e9,
+            "launches_per_step": {k: v // PACKED_TIMED
+                                  for k, v in timed_counts.items()},
+            "run_launches": run_launches,
+            "loop_step_s": [r["step_s"] for r in train],
+            "loop_mfu_pct": [r["mfu_pct"] for r in train],
+            "card": smi}
+        log("  packed training " + json.dumps(summary))
+
+        # the components through the served product's --components path
+        t0 = time.perf_counter()
+        engine = build_engine(serve_args([
+            "--config", "configs/tts.yaml", "--byte-tokenizer",
+            "--components", run2.components_dir,
+            "--override", "model.vae_path=null",
+            "--override", "evaluation.compute_dtype=float32"]))
+        served = engine.inf.model.state_dict()
+        trained = ckpt.component_state_dict(run2.model)
+        same = [n for n, v in trained.items()
+                if torch.equal(served[n], v.float())]
+        walls["serve_load_s"] = time.perf_counter() - t0
+        log(f"  --components: {len(same)} of {len(trained)} component and "
+            f"LoRA tensors served equal to the trained ones "
+            f"({walls['serve_load_s']:.1f} s)")
+        check(len(same) == len(trained) > 0,
+              "the exported components load through --components")
+        del engine, served
+        probe = (run2.step, batches[0], summary["step_s_median"])
+        return summary, walls, probe
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def phase_packed_step_card_vs_cpu(card):
+    """One packed TTS step's loss and gradients (forward_tts_packed,
+    backward), full widths, 2 LLM layers, fp32, dropouts off (the flow
+    draws and the CFG drop injected), card vs CPU, with the bound of the
+    plain step's check. The Qwen2 rows take the plain masked attention on
+    both devices, the DiT attention K3/K5 on the card."""
+    import copy
+
+    from audio_calm_torch.config import TrainingConfig
+    from audio_calm_torch.data.collator import pack_tts_window
+    from audio_calm_torch.data.datasets import CalmExample
+    from audio_calm_torch.models.calm import QwenCALM
+    from audio_calm_torch.models.flagship import flagship_config, random_normal_
+    from audio_calm_torch.ops.attention import MultiheadAttention
+    from audio_calm_torch.ops.attention_kernel import (attention_bwd,
+                                                       attention_fwd)
+    from audio_calm_torch.train.optim import freeze
+    from audio_calm_torch.train.steps import PACKED_KEYS
+
+    cfg = flagship_config(2)
+    cfg.lora.dropout = 0.0
+    cpu = QwenCALM(cfg)
+    random_normal_(cpu, seed=4)
+    for m in cpu.modules():
+        if isinstance(m, MultiheadAttention):
+            m.dropout = 0.0
+    labels = freeze(cpu, TrainingConfig())
+    dev = copy.deepcopy(cpu).to(card)
+    rng = np.random.default_rng(8)
+    exs = [CalmExample(input_ids=rng.integers(10, 5000, n).astype(np.int32),
+                       labels=np.full((n,), -100, np.int32),
+                       audio=(0.039775 + 1.190864 * rng.standard_normal(
+                           (a, 128))).astype(np.float32), mode="tts")
+           for n, a in zip([96, 60, 33, 71, 12, 45, 90], [96, 80, 20, 64,
+                                                          11, 50, 70])]
+    batch, left = pack_tts_window(exs, 2, 256, 4, 96, 128, 96)
+    check(not left, "the card-vs-CPU packed batch holds every utterance")
+    slots = batch["text_mask"].shape[0] * batch["text_mask"].shape[1]
+    g = torch.Generator().manual_seed(6)
+    flow = {"t": torch.rand(slots, generator=g),
+            "x0": torch.randn(slots, 96, 128, generator=g),
+            "drop": torch.arange(slots) == 2}
+    res = {}
+    for name, model, device in (("cpu", cpu, "cpu"), ("card", dev, card)):
+        args = [torch.from_numpy(batch[k]).to(device) for k in PACKED_KEYS]
+        attention_fwd.launches = attention_bwd.launches = 0
+        out = model.forward_tts_packed(*args, train=True, seed=1,
+                                       **{k: v.to(device)
+                                          for k, v in flow.items()})
+        out["loss"].backward()
+        res[name] = ({k: float(v.detach()) for k, v in out.items()},
+                     {n: p.grad.detach().cpu() for n, p in
+                      model.named_parameters() if p.grad is not None})
+    counts = {"attention_fwd": attention_fwd.launches,
+              "attention_bwd": attention_bwd.launches}
+    n_dit = 2 * cfg.tts_flow_num_layers
+    want = {"attention_fwd": n_dit, "attention_bwd": n_dit}
+    log(f"  packed step launches on the card: {counts} (expected {want}: "
+        f"none in the {cfg.qwen.num_hidden_layers} Qwen2 layers, {n_dit} "
+        "DiT attentions)")
+    check(counts == want, "kernel launches of the card's packed step")
+    check(res["cpu"][0]["loss_den"] == res["card"][0]["loss_den"]
+          == len(exs), "packed step loss_den")
+    for k, ref in res["cpu"][0].items():
+        err = abs(res["card"][0][k] - ref)
+        log(f"  packed step {k}: cpu {ref:.6f} card {res['card'][0][k]:.6f}")
+        check(err <= 1e-4 * abs(ref), f"packed step {k} card vs CPU")
+    grads_cpu, grads_card = res["cpu"][1], res["card"][1]
+    trainable = {n for n, lab in labels.items() if lab != "frozen"}
+    check(set(grads_card) == set(grads_cpu) and set(grads_cpu) <= trainable,
+          "the same tensors get gradients on both devices")
+    top = max(g.abs().max().item() for g in grads_cpu.values())
+    worst = 0.0
+    for n, ref in grads_cpu.items():
+        err = (grads_card[n] - ref).abs().max().item()
+        bound = 1e-3 * max(ref.abs().max().item(), 1e-3 * top)
+        worst = max(worst, err / bound)
+        check(err <= bound, f"packed step gradient of {n}")
+    log(f"  packed step: {len(grads_cpu)} trainable gradients agree, worst "
+        f"error {worst:.3f} of its bound (1e-3 of the tensor's largest "
+        "value)")
+
+
+def phase_packed_profile(probe):
+    """One more packed step under the profiler (device activity only): the
+    device's busy share of the step and the kernels that take the most
+    device time."""
+    step, batch, step_s = probe
+    p_wall, rows = device_profile(lambda: step(batch))
+    busy = sum(r[1] for r in rows)
+    check(busy > 0, "the profiler saw device time in the packed step")
+    log(f"  profiled packed step: wall {p_wall:.4f} s, device busy "
+        f"{busy:.4f} s: {100 * busy / p_wall:.1f}% of the profiled wall, "
+        f"{100 * busy / step_s:.1f}% of the unprofiled step {step_s:.4f} s")
+    for name, s_, n in rows[:12]:
+        log(f"    {1e3 * s_:9.3f} ms {n:6d} calls  {name[:90]}")
+    return {"profiled_step_wall_s": p_wall, "step_device_busy_s": busy,
+            "busy_share_of_step": busy / step_s,
+            "step_device_ops": sum(r[2] for r in rows)}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card is available", file=sys.stderr)
@@ -2464,6 +2809,11 @@ def main() -> int:
     with exact_fp32():
         phase_train_step_card_vs_cpu(card)
     log(f"phase training step card vs CPU: ok in "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    with exact_fp32():
+        phase_packed_step_card_vs_cpu(card)
+    log(f"phase packed training step card vs CPU: ok in "
         f"{time.perf_counter() - t0:.1f} s")
 
     # 5. main path at full width, with PyTorch's default numerics (the
@@ -2531,6 +2881,22 @@ def main() -> int:
                 vocs, gen, voc_counts["odd_width_hifigan"]["fused_resblock"],
                 errs["fused_resblock"], card))
     kernels[1]["training_launches"] = train_counts["attention_fwd"]
+
+    # 5i. the shipped TTS training recipe: packed steps at full width
+    # through train_calm, resume, eval, components served (after the
+    # kernel times: their short profiler sessions ran before it when they
+    # were chosen)
+    t0 = time.perf_counter()
+    packed, packed_walls, packed_probe = phase_packed_training(card, smi)
+    log(f"phase packed training: ok in {time.perf_counter() - t0:.1f} s "
+        + json.dumps(packed_walls))
+    # the packed recipe's run 2 (steps 3-6): K3/K4 in its eval forwards
+    # only, no K5
+    kernels[1]["packed_training_launches"] = \
+        packed["run_launches"]["run2"]["attention_fwd"]
+    next(k for k in kernels if k["name"] == "attention_bwd")[
+        "packed_training_launches"] = \
+        packed["run_launches"]["run2"]["attention_bwd"]
     kernels[1]["asr_launches"] = asr_launches
     kernels[1]["served_product_launches"] = served_launches
     kernels[1]["checkpoint_product_launches"] = ckpt_launches
@@ -2546,7 +2912,13 @@ def main() -> int:
         train_probe, trained["step_s_median_after_first"]))
     del train_probe
     log(f"phase training profile: ok in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    packed.update(phase_packed_profile(packed_probe))
+    del packed_probe
+    log(f"phase packed training profile: ok in "
+        f"{time.perf_counter() - t0:.1f} s")
     log("trained " + json.dumps(trained))
+    log("packed_training " + json.dumps(packed))
     log("vocoder_path " + json.dumps(voc_path))
     log("reconstruction " + json.dumps(recon))
     log("asr " + json.dumps({**asr, "reduced_depth": asr_reduced}))

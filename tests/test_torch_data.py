@@ -1,0 +1,212 @@
+"""The port's data pipeline vs the JAX package's, on the CPU: the synthetic
+store writer, the latent store reader, the TTS batch iterator and the
+prefetch thread.
+
+Bounds: none. Every comparison is exact (array_equal with equal dtypes,
+equal lists): the pipeline is numpy and host code on the same files and
+seeds.
+"""
+
+import importlib.util
+import shutil
+import threading
+import time
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from audio_calm_torch.data import collator as tcol
+from audio_calm_torch.data import datasets as tds
+from audio_calm_torch.data import synth_corpus
+from audio_calm_torch.data.prefetch import prefetch
+from audio_calm_torch.data.tokenizer import ByteTokenizer as TByteTokenizer
+from audio_calm_tpu.data import collator as jcol
+from audio_calm_tpu.data import datasets as jds
+from audio_calm_tpu.data.tokenizer import ByteTokenizer
+
+REPO = Path(__file__).resolve().parents[1]
+LAT = 8
+
+
+def _script_main():
+    spec = importlib.util.spec_from_file_location(
+        "make_synth_corpus", REPO / "scripts" / "make_synth_corpus.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.main
+
+
+def _files(root):
+    return sorted(str(p.relative_to(root)) for p in Path(root).rglob("*")
+                  if p.is_file())
+
+
+@pytest.fixture(scope="module")
+def store(tmp_path_factory):
+    """A synthetic TTS store by the port's writer, with a few files made
+    odd: a corrupt npz, a reference-style .pt payload ({"latent": (D, T)})
+    and an npy stored (D, T)."""
+    root = tmp_path_factory.mktemp("store")
+    argv = ["--asr-n", "0", "--tts-n", "40", "--dev-n", "6",
+            "--latent-dim", str(LAT), "--chunk", "16", "--seed", "5"]
+    assert synth_corpus.main(["--out", str(root)] + argv) == 0
+    chunk = root / "train" / "LibriTTS_R" / "train-clean-100" / "0000"
+    (chunk / "tts-train-000003.npz").write_bytes(b"not an npz")
+    lat = np.load(chunk / "tts-train-000004.npz")["latent"]
+    (chunk / "tts-train-000004.npz").unlink()
+    torch.save({"latent": torch.from_numpy(lat.T.copy())},
+               chunk / "tts-train-000004.pt")
+    lat = np.load(chunk / "tts-train-000005.npz")["latent"]
+    (chunk / "tts-train-000005.npz").unlink()
+    np.save(chunk / "tts-train-000005.npy", lat.T.copy())
+    return root, argv
+
+
+def test_synth_corpus_writes_the_scripts_files(store, tmp_path, capsys):
+    """For one seed the port's writer and scripts/make_synth_corpus.py
+    write the same files: transcripts byte for byte, arrays equal."""
+    _, argv = store
+    ours, theirs = tmp_path / "port", tmp_path / "script"
+    assert synth_corpus.main(["--out", str(ours)] + argv) == 0
+    assert _script_main()(["--out", str(theirs)] + argv) == 0
+    out = capsys.readouterr().out.strip().splitlines()
+    assert out[0].replace(str(ours), "") == out[1].replace(str(theirs), "")
+    files = _files(ours)
+    assert files == _files(theirs) and len(files) == 46 + 4
+    for f in files:
+        a, b = ours / f, theirs / f
+        if f.endswith(".npz"):
+            za, zb = np.load(a), np.load(b)
+            assert za.files == zb.files == ["latent"]
+            assert za["latent"].dtype == zb["latent"].dtype == np.float32
+            np.testing.assert_array_equal(za["latent"], zb["latent"])
+        else:
+            assert a.read_bytes() == b.read_bytes(), f
+
+
+def _datasets(root, split="train", subsets="train-clean-100", **kw):
+    args = dict(tts_latent_dir=str(root / split / "LibriTTS_R"),
+                tts_subsets=subsets, max_text_len=48, max_audio_len=64,
+                task_mode="tts", latent_dim=LAT, **kw)
+    return (tds.CalmDataset(TByteTokenizer(), **args),
+            jds.CalmDataset(ByteTokenizer(), **args))
+
+
+def test_calm_dataset_matches_jax(store):
+    root, _ = store
+    tset, jset = _datasets(root)
+    assert len(tset) == len(jset) == 40
+    assert tset.tts_items == jset.tts_items
+    np.testing.assert_array_equal(tset.asr_prompt_ids, jset.asr_prompt_ids)
+    for i in range(len(tset)):
+        assert tset.meta("tts", i) == jset.meta("tts", i), i
+        a, b = tset.get("tts", i), jset.get("tts", i)
+        if b is None:  # the corrupt file
+            assert a is None and i == 3
+            continue
+        assert a.mode == b.mode == "tts"
+        for k in ("input_ids", "labels", "audio"):
+            x, y = getattr(a, k), getattr(b, k)
+            np.testing.assert_array_equal(x, y)
+            assert x.dtype == y.dtype
+    assert tset.supports_meta("tts") == jset.supports_meta("tts") is True
+    assert tset.meta("tts", 4) is None  # .pt has no cheap header
+    assert tset.get("tts", 4).audio.shape[1] == LAT  # (D, T) transposed
+    assert tset.get("tts", 5).audio.shape[1] == LAT
+    for path in sorted(Path(root).rglob("*.np[yz]")):
+        for dim in (None, LAT):
+            assert tds.array_frames(str(path), expected_dim=dim) == \
+                jds.array_frames(str(path), expected_dim=dim)
+    for shape in [(8, 300), (300, 8), (128, 64), (64, 128), (80, 80)]:
+        for dim in (None, 8, 128, 80):
+            assert tds._is_dt_layout(shape, dim) == jds._is_dt_layout(
+                shape, dim)
+    cap = dict(max_samples=7)
+    assert len(_datasets(root, **cap)[0]) == len(_datasets(root, **cap)[1])
+
+
+ITER_CASES = {
+    "plain": dict(batch_size=4),
+    "bucketed": dict(batch_size=4, audio_buckets=[64, 16, 32]),
+    "grouped": dict(batch_size=3, audio_buckets=[16, 32, 48, 64],
+                    length_group_window=3),
+    "packed": dict(batch_size=4, audio_buckets=[32, 64],
+                   tts_pack_rows=2, tts_pack_len=120, tts_pack_segments=3),
+    "packed_grouped": dict(batch_size=4, audio_buckets=[16, 32, 48, 64],
+                           length_group_window=2, tts_pack_rows=2,
+                           tts_pack_len=110, tts_pack_segments=2),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ITER_CASES))
+def test_tts_batch_iterator_matches_jax(store, case):
+    """Two epochs of training batches (and one eval pass): the same
+    batches, in the same order, as the JAX iterator with the same seed."""
+    root, _ = store
+    tset, jset = _datasets(root)
+    kw = dict(ITER_CASES[case], pad_token_id=0, latent_dim=LAT, seed=17,
+              task_prob_tts=1.0)
+    for training, epochs in ((True, 2), (False, 1)):
+        got = list(tcol.calm_batch_iterator(tset, training=training,
+                                            epochs=epochs, **kw))
+        ref = list(jcol.calm_batch_iterator(jset, training=training,
+                                            epochs=epochs, **kw))
+        assert len(got) == len(ref) > 2
+        for a, b in zip(got, ref):
+            assert set(a) == set(b)
+            assert a["task"] == b["task"] == (
+                "tts_packed" if "packed" in case else "tts")
+            assert a.get("n_samples") == b.get("n_samples")
+            for k in a:
+                if k not in ("task", "n_samples"):
+                    np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+                    assert a[k].dtype == b[k].dtype, k
+
+
+def test_iterator_refuses_what_is_not_ported(store, tmp_path):
+    root, _ = store
+    tset, _ = _datasets(root)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+        next(tcol.calm_batch_iterator(tset, 4, 0, LAT, process_count=2))
+    asr = tmp_path / "asr"
+    shutil.copytree(root / "train" / "LibriTTS_R", asr / "LibriSpeech")
+    mixed = tds.CalmDataset(TByteTokenizer(), asr_latent_dir=str(asr /
+                            "LibriSpeech"), asr_subsets="train-clean-100",
+                            task_mode="mix", latent_dim=LAT)
+    assert len(mixed.asr_items) == 40
+    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+        next(tcol.calm_batch_iterator(mixed, 4, 0, LAT))
+    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+        tcol.pack_asr_window([], np.zeros(3, np.int32), 1, 8, 1, 4, LAT, 4)
+    with pytest.raises(ValueError, match="no full batch"):
+        next(tcol.calm_batch_iterator(tset, 64, 0, LAT))
+
+
+def test_prefetch_keeps_order_and_passes_errors():
+    def slow(n, fail_at=None):
+        for i in range(n):
+            if i == fail_at:
+                raise KeyError("producer failed")
+            time.sleep(0.001 * (i % 3))
+            yield {"i": i}
+
+    assert [b["i"] for b in prefetch(slow(50), buffer_size=3)] == \
+        list(range(50))
+    seen = []
+    with pytest.raises(KeyError, match="producer failed"):
+        for b in prefetch(slow(10, fail_at=6), buffer_size=2):
+            seen.append(b["i"])
+    assert seen == list(range(6))  # every item made before the error
+    assert list(prefetch(iter(()))) == []
+    # a consumer that stops early ends the producer thread
+    before = threading.active_count()
+    it = prefetch(slow(1000), buffer_size=2)
+    assert next(it)["i"] == 0
+    assert threading.active_count() == before + 1
+    it.close()
+    deadline = time.monotonic() + 5.0
+    while threading.active_count() > before and time.monotonic() < deadline:
+        time.sleep(0.01)
+    assert threading.active_count() == before

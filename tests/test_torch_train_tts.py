@@ -448,7 +448,7 @@ def test_checkpointed_block_equals_plain_with_dropout():
         TQwen2Model(TQwen2Config.tiny(), lora, remat_policy="dots")
 
 
-def test_training_loop_bf16_compute(calm_setup):
+def test_training_loop_bf16_compute(calm_setup, tmp_path):
     """The flagship recipe at a tiny size: frozen weights stored bf16, fp32
     masters, bf16 compute, full remat, B=4 in 2 slices, warmup-cosine over
     4 steps: LR 0 at the first update, every trainable group moves at the
@@ -459,7 +459,7 @@ def test_training_loop_bf16_compute(calm_setup):
     tmodel.compute_dtype = torch.bfloat16
     tcfg = TTrainingConfig(frozen_weights_dtype="bfloat16", logging_steps=1,
                            microbatch_steps=2, warmup_ratio=0.1,
-                           learning_rate=1e-3)
+                           learning_rate=1e-3, output_dir=str(tmp_path))
     labels = toptim.freeze(tmodel, tcfg, task_mode="tts")
     trainable = {n: p for n, p in tmodel.named_parameters() if p.requires_grad}
     opt = toptim.AdamW(trainable, labels, tcfg, total_steps=4)

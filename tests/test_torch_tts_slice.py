@@ -204,7 +204,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                  "data.tokenizer", "config", "serving.batcher",
                  "serving.stats", "serving.wav_stream", "serving.server",
                  "models.convert_export", "models.quant",
-                 "train.checkpoint"):
+                 "train.checkpoint", "train.train_calm", "data.datasets",
+                 "data.collator", "data.prefetch", "data.synth_corpus",
+                 "utils.profiling"):
         assert f"audio_calm_torch.{name}" in modules, name
     from audio_calm_torch.ops import cuda_build
     for src in cuda_build.SOURCES:
