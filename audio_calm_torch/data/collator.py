@@ -1,14 +1,13 @@
 """Batching for CALM training (counterpart of audio_calm_tpu/data/
-collator.py, its TTS stream): static-shape collation, the first-fit-
-decreasing pack plan of TTS texts into LLM rows, and the task-homogeneous
-batch iterator. Batches are numpy arrays, equal to the JAX package's for
-the same store and seed.
+collator.py): static-shape collation with SpecAugment on ASR batches, the
+first-fit-decreasing pack plan of TTS texts and of ASR [audio | SOA |
+prompt] segments into LLM rows, and the task-homogeneous batch iterator
+(the Bernoulli task draw of the mix, buckets, length grouping, packing).
+Batches are numpy arrays, equal to the JAX package's for the same store
+and seed.
 
-Not ported yet, and raising NotImplementedError where reached: the ASR
-stream (`spec_augment`, `pack_asr_window`, `materialize_asr_rows`, and in
-the iterator a dataset with ASR items, whose batches `asr_text_pad` and
-ASR packing shape; ROADMAP Queue 1 item 4) and multi-host iteration
-(`process_count > 1`; Queue 1 item 8).
+Not ported yet, and raising NotImplementedError where reached: multi-host
+iteration (`process_count > 1`; ROADMAP Queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -19,26 +18,19 @@ import numpy as np
 
 from audio_calm_torch.data.datasets import CalmDataset, CalmExample
 
-_ASR = "ROADMAP Queue 1 item 4, ASR training and the mix"
 
-
-def _asr_not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet ({_ASR})")
-
-
-def spec_augment(audio, rng, min_len: int = 5, max_len: int = 10):
-    """SpecAugment of ASR training batches."""
-    raise _asr_not_ported("spec_augment")
-
-
-def materialize_asr_rows(*args, **kwargs):
-    """The packed-ASR rows."""
-    raise _asr_not_ported("materialize_asr_rows")
-
-
-def pack_asr_window(*args, **kwargs):
-    """The packed-ASR window."""
-    raise _asr_not_ported("pack_asr_window")
+def spec_augment(audio: np.ndarray, rng: np.random.Generator,
+                 min_len: int = 5, max_len: int = 10) -> np.ndarray:
+    """Zero one random time span of min_len..max_len frames (T > 20
+    only); a copy, the input stays as it is."""
+    T = audio.shape[0]
+    if T <= 20:
+        return audio
+    mask_len = int(rng.integers(min_len, max_len + 1))
+    t0 = int(rng.integers(0, T - mask_len + 1))
+    audio = audio.copy()
+    audio[t0: t0 + mask_len] = 0.0
+    return audio
 
 
 def collate_calm(examples: List[CalmExample], pad_token_id: int,
@@ -92,6 +84,80 @@ def plan_pack(costs: List[int], rows: int, row_len: int, segments: int
         else:
             leftover.append(i)
     return assign, leftover
+
+
+def materialize_asr_rows(row_items: List[List[Optional[CalmExample]]],
+                         prompt_ids: np.ndarray, row_len: int, segments: int,
+                         seg_frames: int, latent_dim: int, max_text_len: int,
+                         training: bool = False,
+                         rng: Optional[np.random.Generator] = None
+                         ) -> Dict[str, np.ndarray]:
+    """The packed-ASR arrays of `row_items` (None = a failed load, a dummy
+    slot). Each segment is [audio (its exact length) | SOA | prompt]; in
+    training the audio is SpecAugmented per slot from `rng`. Indices are
+    row-local, so any row subset (a microbatch slice) stands alone; the
+    gathers of empty positions point at the zero column (`segments *
+    seg_frames` for the embeddings, `row_len` for the hidden states)."""
+    rows = len(row_items)
+    P = len(prompt_ids)
+    latents = np.zeros((rows, segments, seg_frames, latent_dim), np.float32)
+    latent_mask = np.zeros((rows, segments, seg_frames), np.int32)
+    labels = np.full((rows, segments, max_text_len), -100, np.int32)
+    tok_ids = np.zeros((rows, row_len), np.int32)
+    kind = np.zeros((rows, row_len), np.int32)
+    gather_idx = np.full((rows, row_len), segments * seg_frames, np.int32)
+    segment_ids = np.zeros((rows, row_len), np.int32)
+    position_ids = np.zeros((rows, row_len), np.int32)
+    ctx_idx = np.full((rows, segments, seg_frames), row_len, np.int32)
+    for r, items in enumerate(row_items):
+        t = 0
+        for s, ex in enumerate(items):
+            if ex is None:
+                continue
+            a = ex.audio[:seg_frames]
+            if training and rng is not None:
+                a = spec_augment(a, rng)
+            n = len(a)
+            latents[r, s, :n] = a
+            latent_mask[r, s, :n] = 1
+            lab = ex.labels[:max_text_len]
+            labels[r, s, : len(lab)] = lab
+            kind[r, t: t + n] = 1
+            gather_idx[r, t: t + n] = s * seg_frames + np.arange(n)
+            ctx_idx[r, s, :n] = t + np.arange(n)
+            segment_ids[r, t: t + n + 1 + P] = s + 1
+            position_ids[r, t: t + n + 1 + P] = np.arange(n + 1 + P)
+            kind[r, t + n] = 2
+            kind[r, t + n + 1: t + n + 1 + P] = 3
+            tok_ids[r, t + n + 1: t + n + 1 + P] = prompt_ids
+            t += n + 1 + P
+    return {"latents": latents, "latent_mask": latent_mask, "labels": labels,
+            "tok_ids": tok_ids, "kind": kind, "gather_idx": gather_idx,
+            "segment_ids": segment_ids, "position_ids": position_ids,
+            "ctx_idx": ctx_idx}
+
+
+def pack_asr_window(examples: List[CalmExample], prompt_ids: np.ndarray,
+                    rows: int, row_len: int, segments: int, seg_frames: int,
+                    latent_dim: int, max_text_len: int,
+                    training: bool = False,
+                    rng: Optional[np.random.Generator] = None
+                    ) -> Tuple[Dict[str, np.ndarray], List[int]]:
+    """FFD-pack ASR examples into `rows` LLM rows -> (the batch of
+    QwenCALM.forward_asr_packed, leftover example indices). Segments are
+    [audio | SOA | prompt] with no padding between them."""
+    P = len(prompt_ids)
+    if row_len < seg_frames + 1 + P:
+        raise ValueError(f"asr_pack_len={row_len} cannot fit a max-length "
+                         f"segment ({seg_frames} frames + SOA + {P}-token "
+                         "prompt)")
+    costs = [min(len(e.audio), seg_frames) + 1 + P for e in examples]
+    assign, leftover = plan_pack(costs, rows, row_len, segments)
+    batch = materialize_asr_rows(
+        [[examples[i] for i in idxs] for idxs in assign], prompt_ids,
+        row_len, segments, seg_frames, latent_dim, max_text_len,
+        training=training, rng=rng)
+    return batch, leftover
 
 
 def materialize_tts_rows(row_items: List[List[Optional[CalmExample]]],
@@ -185,6 +251,8 @@ def estimate_packed_steps_per_epoch(dataset: CalmDataset, task: str,
     return max(int(np.ceil(n / utts)), 1)
 
 
+
+
 def calm_batch_iterator(
     dataset: CalmDataset,
     batch_size: int,
@@ -206,75 +274,121 @@ def calm_batch_iterator(
     process_index: int = 0,
     process_count: int = 1,
 ) -> Iterator[Dict[str, np.ndarray]]:
-    """Yield static TTS batches (`task` "tts" or "tts_packed"), dropping
-    ragged tails; the JAX iterator's order for the same seed.
+    """Yield task-homogeneous static batches (`task` "tts", "asr",
+    "tts_packed" or "asr_packed"), dropping ragged tails; the JAX
+    iterator's batches and task sequence for the same seed.
 
-    Each epoch draws a permutation of the items; a sample that does not
-    load is skipped and backfilled. audio_buckets (ascending): a batch pads
-    its audio to the smallest bucket that fits its longest example.
-    length_group_window = N > 0: examples are drawn N batches at a time,
-    sorted by audio length, sliced into batches and the batches shuffled
-    (their own generator, so the order stream does not move).
-    tts_pack_rows > 0: pools of rows x segments utterances (x N with
-    grouping, sorted and sliced into groups alike) FFD-pack into the LLM
-    rows; what does not fit is carried into the next group, and the epoch's
-    tail pools are emitted underfull. A packed batch carries `n_samples`,
-    its utterance count. task_prob_tts and the asr_* arguments are the ASR
-    stream's, which is not ported: a dataset with ASR items raises."""
+    Each epoch draws a permutation per task (TTS first); each batch's task
+    is drawn ~ Bernoulli(task_prob_tts) among the tasks that can still form
+    one, from the same generator. A sample that does not load is skipped
+    and backfilled. audio_buckets (ascending): a plain batch, and a packed
+    TTS group, pads its audio to the smallest bucket that fits its longest
+    example. length_group_window = N > 0: examples are drawn N batches at
+    a time, sorted by audio length, sliced into batches and the batches
+    shuffled (their own generator, so the order and task stream does not
+    move). Plain ASR batches pad their prompt to asr_text_pad (clamped to
+    [len(prompt), max_text_len]) and are SpecAugmented in training, from a
+    third generator. Packing (`<task>_pack_rows` > 0): pools FFD-pack
+    into the LLM rows (TTS pools of rows x segments utterances, x N with
+    grouping, sorted and sliced into groups alike; ASR pools of rows x
+    segments utterances, exact frames, SpecAugmented per slot); what does
+    not fit is carried into the next pool, and the epoch's tail pools are
+    emitted underfull. A packed batch carries `n_samples`, its utterance
+    count."""
     if process_count > 1:
         raise NotImplementedError(
             "multi-host iteration (process_count > 1) is not ported yet "
             "(ROADMAP Queue 1 item 8)")
-    if dataset.asr_items:
-        raise _asr_not_ported("the ASR stream of calm_batch_iterator "
-                              "(ASR batches, asr_text_pad, ASR packing)")
-    if asr_pack_rows > 0:
-        p = len(dataset.asr_prompt_ids)
-        if asr_pack_len < dataset.max_audio_len + 1 + p:
-            raise ValueError(
-                f"asr_pack_len={asr_pack_len} cannot fit a max-length "
-                f"segment ({dataset.max_audio_len} frames + SOA + {p}-token "
-                "prompt)")
+    if audio_buckets:
+        audio_buckets = sorted(audio_buckets)
+    P = len(dataset.asr_prompt_ids)
+    if asr_pack_rows > 0 and asr_pack_len < dataset.max_audio_len + 1 + P:
+        raise ValueError(
+            f"asr_pack_len={asr_pack_len} cannot fit a max-length segment "
+            f"({dataset.max_audio_len} frames + SOA + {P}-token prompt)")
     if tts_pack_rows > 0 and tts_pack_len < dataset.max_text_len + 1:
         raise ValueError(
             f"tts_pack_len={tts_pack_len} cannot fit a max-length segment "
             f"({dataset.max_text_len} tokens + SOA)")
-    if audio_buckets:
-        audio_buckets = sorted(audio_buckets)
-    rng = np.random.default_rng(seed)
+    # the prompt is constant: never pad it narrower than itself
+    if asr_text_pad is not None:
+        asr_text_pad = min(dataset.max_text_len, max(int(asr_text_pad), P))
+    rng = np.random.default_rng(seed)  # orders and tasks
+    aug_rng = np.random.default_rng((seed, process_index))  # SpecAugment
     # the window shuffles draw from their own stream, so that grouping
-    # does not shift the order stream
+    # does not shift the order and task stream
     group_rng = np.random.default_rng((seed, 0x67726F75))
-    n_items = len(dataset.tts_items)
     epoch = 0
     while epochs is None or epoch < epochs:
-        if not n_items:
+        orders = {}
+        if dataset.tts_items:
+            orders["tts"] = list(rng.permutation(len(dataset.tts_items)))
+        if dataset.asr_items:
+            orders["asr"] = list(rng.permutation(len(dataset.asr_items)))
+        if not orders:
             return
-        order = list(rng.permutation(n_items))
-        cursor = 0
-        pending: List[List[CalmExample]] = []  # length-grouped batches
-        carry: List[CalmExample] = []  # a window's < batch_size leftover
-        pack_carry: list = []  # packed leftovers
-        pack_pending: list = []  # packed groups
+        cursors = {k: 0 for k in orders}
+        pending = {k: [] for k in orders}  # length-grouped batches
+        carry = {k: [] for k in orders}  # a window's < batch_size leftover
+        asr_carry: list = []  # packed-ASR leftovers
+        tts_carry: list = []  # packed-TTS leftovers
+        tts_pending: list = []  # packed-TTS groups
         yielded = False
 
-        def draw():
-            nonlocal cursor
-            ex = dataset.get("tts", order[cursor])
-            cursor += 1
+        def avail(k):
+            if k == "asr" and asr_pack_rows > 0:
+                # a pool of >= rows utterances fills every row once
+                return bool(asr_carry) or (
+                    cursors[k] + asr_pack_rows <= len(orders[k]))
+            if k == "tts" and tts_pack_rows > 0:
+                return bool(tts_pending or tts_carry) or (
+                    cursors[k] + tts_pack_rows <= len(orders[k]))
+            return bool(pending[k]) or (
+                cursors[k] + batch_size <= len(orders[k]))
+
+        def draw(k):
+            ex = dataset.get(k, orders[k][cursors[k]])
+            cursors[k] += 1
             return ex
 
         while True:
-            if tts_pack_rows > 0:
-                if not (pack_pending or pack_carry
-                        or cursor + tts_pack_rows <= n_items):
-                    break
-                if not pack_pending:
+            ready = [k for k in orders if avail(k)]
+            if not ready:
+                break
+            task = "tts" if "tts" in ready and (
+                "asr" not in ready or rng.random() < task_prob_tts) else "asr"
+            n_items = len(orders[task])
+            if task == "asr" and asr_pack_rows > 0:
+                want = asr_pack_rows * asr_pack_segments
+                pool, asr_carry = asr_carry, []
+                while len(pool) < want and cursors[task] < n_items:
+                    ex = draw(task)
+                    if ex is not None:
+                        pool.append((ex, P, min(len(ex.audio),
+                                                dataset.max_audio_len)))
+                if not pool:
+                    continue
+                assign, left = plan_pack([e[2] + 1 + P for e in pool],
+                                         asr_pack_rows, asr_pack_len,
+                                         asr_pack_segments)
+                row_items = [[pool[i][0] for i in idxs] for idxs in assign]
+                batch = materialize_asr_rows(
+                    row_items, dataset.asr_prompt_ids, asr_pack_len,
+                    asr_pack_segments, dataset.max_audio_len, latent_dim,
+                    dataset.max_text_len, training=training, rng=aug_rng)
+                asr_carry = [pool[i] for i in left]
+                batch["task"] = "asr_packed"
+                batch["n_samples"] = sum(len(row) for row in row_items)
+                yielded = True
+                yield batch
+                continue
+            if task == "tts" and tts_pack_rows > 0:
+                if not tts_pending:
                     gsize = tts_pack_rows * tts_pack_segments
                     want = gsize * max(length_group_window, 1)
-                    pool, pack_carry = pack_carry, []
-                    while len(pool) < want and cursor < n_items:
-                        ex = draw()
+                    pool, tts_carry = tts_carry, []
+                    while len(pool) < want and cursors[task] < n_items:
+                        ex = draw(task)
                         if ex is not None:
                             pool.append((ex, min(len(ex.input_ids),
                                                  dataset.max_text_len),
@@ -288,8 +402,8 @@ def calm_batch_iterator(
                               for i in range(0, len(pool), gsize)]
                     if length_group_window > 0:
                         group_rng.shuffle(groups)
-                    pack_pending.extend(groups)
-                group = pack_pending.pop(0)
+                    tts_pending.extend(groups)
+                group = tts_pending.pop(0)
                 t_aud = dataset.max_audio_len
                 if audio_buckets:
                     longest = max(e[2] for e in group)
@@ -302,36 +416,34 @@ def calm_batch_iterator(
                 batch = materialize_tts_rows(
                     row_items, tts_pack_len, tts_pack_segments, t_aud,
                     latent_dim, dataset.max_text_len)
-                pack_carry.extend(group[i] for i in left)
+                tts_carry.extend(group[i] for i in left)
                 batch["task"] = "tts_packed"
                 batch["n_samples"] = sum(len(row) for row in row_items)
                 yielded = True
                 yield batch
                 continue
-            if not (pending or cursor + batch_size <= n_items):
-                break
             if length_group_window > 0:
-                if not pending:
+                if not pending[task]:
                     want = batch_size * length_group_window
-                    window, carry = carry, []
-                    while len(window) < want and cursor < n_items:
-                        ex = draw()
+                    window, carry[task] = carry[task], []
+                    while len(window) < want and cursors[task] < n_items:
+                        ex = draw(task)
                         if ex is not None:
                             window.append(ex)
                     window.sort(key=lambda e: len(e.audio))  # stable
                     n_full = len(window) - len(window) % batch_size
                     groups = [window[i: i + batch_size]
                               for i in range(0, n_full, batch_size)]
-                    carry = window[n_full:]
+                    carry[task] = window[n_full:]
                     group_rng.shuffle(groups)
-                    pending.extend(groups)
-                if not pending:
+                    pending[task].extend(groups)
+                if not pending[task]:
                     break
-                examples = pending.pop(0)
+                examples = pending[task].pop(0)
             else:
                 examples = []
-                while len(examples) < batch_size and cursor < n_items:
-                    ex = draw()
+                while len(examples) < batch_size and cursors[task] < n_items:
+                    ex = draw(task)
                     if ex is not None:
                         examples.append(ex)
                 if len(examples) < batch_size:
@@ -341,15 +453,18 @@ def calm_batch_iterator(
                 longest = max(len(ex.audio) for ex in examples)
                 t_aud = next((b for b in audio_buckets if b >= longest),
                              dataset.max_audio_len)
-            batch = collate_calm(examples, pad_token_id, dataset.max_text_len,
-                                 t_aud, latent_dim, training=training)
-            batch["task"] = "tts"  # host-side routing key
+            batch = collate_calm(
+                examples, pad_token_id, dataset.max_text_len, t_aud,
+                latent_dim, training=training, rng=aug_rng,
+                text_pad=asr_text_pad if task == "asr" else None)
+            batch["task"] = task  # host-side routing key
             yielded = True
             yield batch
         if training and not yielded:
             # a zero-batch epoch would repeat forever with epochs=None
             raise ValueError(
-                f"no full batch can be formed: dataset has {n_items} tts "
+                f"no full batch can be formed: dataset has "
+                f"{len(dataset.tts_items)} tts + {len(dataset.asr_items)} asr "
                 f"items but batch_size={batch_size}; reduce the batch size "
                 "or add data")
         epoch += 1

@@ -10,11 +10,12 @@ cosine are the token ids. Module names follow the JAX parameter tree
 tts_dur_predictor, asr_cross_attn, asr_query_embed, asr_flow_head) so
 weights carry across one-to-one (models/convert.py); the ASR modules are
 registered after the TTS ones, so the TTS dropout sites keep their
-numbers. Training: `forward_tts` with the reference's solo semantics
-(every row one utterance) and `forward_tts_packed` (several [text | SOA]
-segments share an LLM row under a block-diagonal mask; dummy slots drop
-out of every loss term). Still to be ported: `forward_asr` and
-`forward_asr_packed` (ROADMAP Queue 1 item 4).
+numbers. Training: `forward_tts` and `forward_asr` with the reference's
+solo semantics (every row one utterance), `forward_tts_packed` (several
+[text | SOA] segments share an LLM row under a block-diagonal mask; dummy
+slots drop out of every loss term) and `forward_asr_packed` (several
+[audio | SOA | prompt] segments a row; the loss a masked mean over the
+valid label positions, whose count it returns as `loss_den`).
 
 The model computes in `compute_dtype` (default: the dtype of its weights;
 fp32 for the parity tests, bf16 for serving and training) and casts its
@@ -370,3 +371,116 @@ class QwenCALM(nn.Module):
             cond_vec, text_ctx, flat_text == 0, gt,
             audio_mask.reshape(R * S, T_aud).bool(), train, generator, seed,
             t, x0, drop, real=flat_text.any(dim=-1), dens=global_den)
+
+    # ------------------------------------------------------------------
+    # ASR training (JAX calm.py:375-528)
+    # ------------------------------------------------------------------
+    def forward_asr(self, text_ids: torch.Tensor,
+                    attention_mask: torch.Tensor, latents: torch.Tensor,
+                    audio_mask: torch.Tensor, labels: torch.Tensor,
+                    train: bool = True,
+                    generator: Optional[torch.Generator] = None,
+                    seed: int = 0, t: Optional[torch.Tensor] = None,
+                    x0: Optional[torch.Tensor] = None,
+                    drop: Optional[torch.Tensor] = None
+                    ) -> Dict[str, torch.Tensor]:
+        """prompt ids [B, T_txt] + mask, raw latents [B, T_aud, latent_dim]
+        + mask, target ids [B, T_text] (-100 = ignore) -> {loss, loss_asr,
+        loss_den}: [audio | SOA | prompt] through the LLM, then the
+        per-utterance tail on the audio positions. Draws as in
+        forward_tts."""
+        gt = self.normalize_latents(latents)
+        B, T_aud, _ = gt.shape
+        audio_embeds = self.input_proj(gt).to(self.dtype)
+        text_embeds = self.embed_tokens(text_ids).to(self.dtype)
+        soa = self.soa_embed.to(self.dtype).expand(B, 1, -1)
+        inp = torch.cat([audio_embeds, soa, text_embeds], dim=1)
+        audio_mask = audio_mask.int()
+        full_mask = torch.cat([audio_mask, torch.ones_like(audio_mask[:, :1]),
+                               attention_mask.int()], dim=1)
+        hidden = self._llm_encode(inp, full_mask, train, seed)
+        return self._asr_condition_and_loss(
+            hidden[:, :T_aud], audio_mask, labels, train, generator, seed, t,
+            x0, drop)
+
+    def _asr_condition_and_loss(self, audio_context, audio_mask, labels,
+                                train, generator, seed, t=None, x0=None,
+                                drop=None) -> Dict[str, torch.Tensor]:
+        """Positional-query cross-attention + flow loss on the LLM's audio
+        states [B, T_ctx, D] (mask [B, T_ctx], 1 = valid): the queries
+        clip(arange(T_text), 0, max_text_len - 1), the condition and the
+        target (the label embeddings) zeroed past the labels, the flow
+        loss over the valid label positions, whose count is `loss_den`."""
+        c = self.cfg
+        B, T_text = labels.shape
+        valid = labels != -100
+        target_embs = self.embed_tokens(torch.where(valid, labels, 0))
+        pos = torch.arange(T_text, device=labels.device).clamp(
+            0, c.max_text_len - 1)
+        queries = self.asr_query_embed(pos)[None].to(self.dtype).expand(
+            B, -1, -1)
+        attn_out = self.asr_cross_attn(queries, audio_context, audio_context,
+                                       key_padding_mask=audio_mask == 0,
+                                       train=train, seed=seed)
+        condition = attn_out * valid[:, :, None].to(attn_out.dtype)
+        target = target_embs.to(self.dtype) * valid[:, :, None].to(self.dtype)
+
+        def head_fn(cond, x, t_, ctx, cmask, xmask):
+            return self.asr_flow_head(cond, x, t_, x_mask=xmask, train=train,
+                                      seed=seed)
+
+        asr_loss = compute_flow_loss(
+            head_fn, generator, condition, target, valid,
+            cfg_dropout_prob=c.cfg_dropout_prob if train else 0.0,
+            x_mask=~valid, train=train, t=t, x0=x0, drop=drop)
+        return {"loss": asr_loss * c.asr_loss_weight, "loss_asr": asr_loss,
+                "loss_den": valid.float().sum()}
+
+    def forward_asr_packed(self, latents: torch.Tensor,
+                           latent_mask: torch.Tensor, labels: torch.Tensor,
+                           tok_ids: torch.Tensor, kind: torch.Tensor,
+                           gather_idx: torch.Tensor,
+                           segment_ids: torch.Tensor,
+                           position_ids: torch.Tensor, ctx_idx: torch.Tensor,
+                           train: bool = True,
+                           generator: Optional[torch.Generator] = None,
+                           seed: int = 0, t: Optional[torch.Tensor] = None,
+                           x0: Optional[torch.Tensor] = None,
+                           drop: Optional[torch.Tensor] = None
+                           ) -> Dict[str, torch.Tensor]:
+        """Packed ASR training (the batch layout is data/collator.
+        pack_asr_window's): per-slot raw latents [R, S, L, D] + mask,
+        target ids [R, S, T_text]; per row the prompt ids, `kind` (0 pad /
+        1 audio / 2 SOA / 3 prompt), `gather_idx` into the row's S x L
+        audio embeddings plus one zero column, segment ids (0 = pad),
+        positions within the segment; `ctx_idx` [R, S, L] indexes the
+        row's hidden states plus one zero column. The projector runs on
+        the per-slot layout (its causal convs never cross segments), the
+        LLM on the packed rows with segment ids (the plain masked
+        attention), and each utterance's audio states are gathered back
+        for the tail, on R x S rows in slot order. Draws as in forward_tts
+        (t, x0, drop on the R x S rows)."""
+        R, S, L, D = latents.shape
+        H = self.cfg.qwen.hidden_size
+        gt = self.normalize_latents(latents.reshape(R * S, L, D))
+        flat = self.input_proj(gt).to(self.dtype).reshape(R, S * L, H)
+        flat = torch.cat([flat, flat.new_zeros(R, 1, H)], dim=1)
+        audio_part = torch.gather(
+            flat, 1, gather_idx.long()[..., None].expand(-1, -1, H))
+        tok = self.embed_tokens(tok_ids).to(self.dtype)
+        soa = self.soa_embed.to(self.dtype)
+        kindb = kind[..., None]
+        inp = (torch.where(kindb == 1, audio_part,
+                           torch.zeros_like(audio_part))
+               + torch.where(kindb == 2, soa, torch.zeros_like(soa))
+               + torch.where(kindb == 3, tok, torch.zeros_like(tok)))
+        hidden = self.llm(inp, attention_mask=(kind != 0).int(),
+                          position_ids=position_ids, train=train, seed=seed,
+                          segment_ids=segment_ids)
+        hflat = torch.cat([hidden, hidden.new_zeros(R, 1, H)], dim=1)
+        ctx = torch.gather(hflat, 1, ctx_idx.reshape(R, S * L, 1).long()
+                           .expand(-1, -1, H))
+        return self._asr_condition_and_loss(
+            ctx.reshape(R * S, L, H), latent_mask.reshape(R * S, L),
+            labels.reshape(R * S, labels.shape[-1]), train, generator, seed,
+            t, x0, drop)

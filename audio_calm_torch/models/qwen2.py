@@ -8,8 +8,11 @@ Only hidden states are computed, in the dtype of the input embeddings
 the card) when no gradient is needed and through `flash_attention` (K4
 forward, K5 backward) when autograd records. `train=True` turns on the LoRA
 adapter dropout. `remat_policy="full"` recomputes each block in the
-backward (`torch.utils.checkpoint`, non-reentrant); "none" keeps every
-activation; JAX's "dots" is still to be ported.
+backward (`torch.utils.checkpoint`, non-reentrant); "dots" (JAX's
+`checkpoint_dots`) keeps the outputs of the block's matrix products and
+recomputes the rest (selective checkpointing; the hand-written attention,
+a ctypes launch no dispatch mode sees, is recomputed as under "full");
+"none" keeps every activation.
 
 Packed rows (`segment_ids`, several sequences in one row, segment 0 =
 padding): the mask is causal, key-valid and block-diagonal, and the
@@ -23,12 +26,14 @@ from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import functools
 import math
 
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from audio_calm_torch.config import LoRAConfig, Qwen2Config
 from audio_calm_torch.models.layers import Embed
@@ -36,6 +41,15 @@ from audio_calm_torch.models.lora import LoRADense
 from audio_calm_torch.ops.attention_kernel import attention_fwd, flash_attention
 
 REMAT_POLICIES = ("full", "dots", "none")
+_aten = torch.ops.aten
+_DOTS = (_aten.mm.default, _aten.addmm.default, _aten.bmm.default,
+         _aten.baddbmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """The "dots" policy: keep every matrix product's output."""
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
 
 
 class RMSNorm(nn.Module):
@@ -172,10 +186,6 @@ class Qwen2Model(nn.Module):
         if remat_policy not in REMAT_POLICIES:
             raise ValueError(f"unknown remat_policy {remat_policy!r}; "
                              f"expected one of {REMAT_POLICIES}")
-        if remat_policy == "dots":
-            raise NotImplementedError(
-                "remat_policy 'dots' (save the matmul outputs) is not ported "
-                "yet; use 'full' or 'none'")
         self.cfg = cfg
         self.remat_policy = remat_policy
         self.layers = nn.ModuleList(Qwen2Block(cfg, lora)
@@ -206,14 +216,18 @@ class Qwen2Model(nn.Module):
             mask = (causal[None, None] & key_valid[:, None, None, :]
                     & (segment_ids[:, None, :, None]
                        == segment_ids[:, None, None, :]))
-        remat = self.remat_policy == "full" and torch.is_grad_enabled()
+        remat = self.remat_policy != "none" and torch.is_grad_enabled()
+        kw = {}
+        if self.remat_policy == "dots":
+            kw["context_fn"] = functools.partial(
+                create_selective_checkpoint_contexts, _save_dots)
         for layer in self.layers:
             if remat:
                 # dropout masks come from (seed, site), not the global RNG,
                 # so the recomputation needs no RNG state restored
                 x = checkpoint(layer, x, cos, sin, key_valid, train, seed,
                                mask, use_reentrant=False,
-                               preserve_rng_state=False)
+                               preserve_rng_state=False, **kw)
             else:
                 x = layer(x, cos, sin, key_valid, train, seed, mask)
         return self.norm(x)

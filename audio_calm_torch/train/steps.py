@@ -2,26 +2,32 @@
 steps.py).
 
 `make_calm_step(model, optimizer, task, microbatch=k)` returns
-`step(batch) -> metrics`, one optimizer update a call. Tasks:
-  - "tts": a plain batch (`forward_tts`), split into k slices along its
-    leading axis; gradients and loss terms are the mean of the slices (the
-    reference's solo semantics, JAX steps.py:145-193);
-  - "tts_packed": a packed batch (`forward_tts_packed`, rows of several
-    utterances), split into k slices of rows. The full batch's
-    denominators (its slot count and valid frame count) are computed
-    before the slices run and every slice's loss is built against them, so
-    the slice gradients and loss terms are summed: the step equals the
-    full batch's however its rows fall into slices (JAX steps.py:128-190).
+`step(batch) -> metrics`, one optimizer update a call, the batch split
+into k slices along its leading axis. Tasks:
+  - "tts" (`forward_tts`) and "asr" (`forward_asr`): plain batches, every
+    row one utterance; gradients and loss terms are the mean of the slices
+    (the reference's solo semantics, JAX steps.py:145-193);
+  - "tts_packed" (`forward_tts_packed`): the full batch's denominators (its
+    slot count and valid frame count) are computed before the slices run
+    and every slice's loss is built against them, so the slice gradients
+    and loss terms are summed (JAX steps.py:128-190);
+  - "asr_packed" (`forward_asr_packed`): each slice's loss is a masked mean
+    over its valid label positions, whose count `loss_den` is data only; the
+    backward of loss x loss_den a slice, and one scale of every gradient
+    and loss term by 1 / the summed loss_den at the end, give the full
+    batch's masked mean however the rows fall into slices (FFD fills rows
+    front to back, so a tail slice can hold only dummy slots); the metric
+    loss_den is the sum (JAX steps.py:128, 170-190).
 Only one slice's activations are live at a time. Each slice draws its flow
 noise from a generator and its dropout masks from a seed, both derived
 from (seed, step, slice), so a step is reproducible; `step.count` is the
 step (run_training sets it before each call).
 
-Metrics (device scalars; the loop reads them back): loss, loss_tts,
-loss_len, loss_dur, grad_norm (the norm of the step's gradients before
-clipping) and, packed, loss_den (the real utterances of the batch).
-`make_calm_eval_step(model, "tts")` is the eval forward under no_grad.
-The ASR tasks are ROADMAP Queue 1 item 4.
+Metrics (device scalars; the loop reads them back): the forward's loss
+terms (loss and loss_tts, loss_len, loss_dur or loss_asr), grad_norm (the
+norm of the step's gradients before clipping) and, packed and ASR,
+loss_den. `make_calm_eval_step(model, task)` is the plain forward of
+"tts" or "asr" in eval mode under no_grad.
 """
 
 from __future__ import annotations
@@ -36,14 +42,16 @@ from audio_calm_torch.utils.profiling import count_flops
 TTS_KEYS = ("text_ids", "attention_mask", "latents", "audio_mask")
 PACKED_KEYS = ("latents", "audio_mask", "text_mask", "tok_ids", "kind",
                "segment_ids", "position_ids", "ctx_idx", "soa_idx")
-TASK_KEYS = {"tts": TTS_KEYS, "tts_packed": PACKED_KEYS}
+ASR_KEYS = TTS_KEYS + ("labels",)
+ASR_PACKED_KEYS = ("latents", "latent_mask", "labels", "tok_ids", "kind",
+                   "gather_idx", "segment_ids", "position_ids", "ctx_idx")
+TASK_KEYS = {"tts": TTS_KEYS, "tts_packed": PACKED_KEYS, "asr": ASR_KEYS,
+             "asr_packed": ASR_PACKED_KEYS}
+_FORWARD = {"tts": "forward_tts", "tts_packed": "forward_tts_packed",
+            "asr": "forward_asr", "asr_packed": "forward_asr_packed"}
 
 
 def _check_task(task: str) -> None:
-    if task in ("asr", "asr_packed"):
-        raise NotImplementedError(
-            f"task {task!r} is not ported yet (ROADMAP Queue 1 item 4, ASR "
-            "training and the mix); the port trains 'tts' and 'tts_packed'")
     if task not in TASK_KEYS:
         raise ValueError(f"unknown task {task!r}")
 
@@ -56,20 +64,17 @@ def global_dens(batch: Dict[str, torch.Tensor]
     return slots, frames
 
 
-def tts_slice_loss(model, batch: Dict[str, torch.Tensor], seed: int,
-                   task: str = "tts", dens=None) -> Dict[str, torch.Tensor]:
-    """The train-mode forward of one slice (`forward_tts`, or
-    `forward_tts_packed` against the denominators `dens`), its flow noise
-    drawn from a generator seeded by `seed` and its dropout masks fixed by
-    `seed`."""
+def slice_loss(model, batch: Dict[str, torch.Tensor], seed: int,
+               task: str = "tts", dens=None) -> Dict[str, torch.Tensor]:
+    """The train-mode forward of one slice of `task` (`forward_tts_packed`
+    against the denominators `dens`), its flow noise drawn from a
+    generator seeded by `seed` and its dropout masks fixed by `seed`."""
     gen = torch.Generator(device=batch["latents"].device)
     gen.manual_seed(derive_seed(seed, 0))
-    args = [batch[k] for k in TASK_KEYS[task]]
-    if task == "tts":
-        return model.forward_tts(*args, train=True, generator=gen,
-                                 seed=derive_seed(seed, 1))
-    return model.forward_tts_packed(*args, global_den=dens, train=True,
-                                    generator=gen, seed=derive_seed(seed, 1))
+    kw = {"global_den": dens} if task == "tts_packed" else {}
+    return getattr(model, _FORWARD[task])(
+        *(batch[k] for k in TASK_KEYS[task]), train=True, generator=gen,
+        seed=derive_seed(seed, 1), **kw)
 
 
 def _slices(batch: Dict[str, torch.Tensor], task: str, microbatch: int):
@@ -83,24 +88,44 @@ def _slices(batch: Dict[str, torch.Tensor], task: str, microbatch: int):
             for i in range(microbatch)]
 
 
-def accumulate_tts_grads(model, batch: Dict[str, torch.Tensor],
-                         microbatch: int, seed: int, task: str = "tts"
-                         ) -> Dict[str, torch.Tensor]:
+def accumulate_grads(model, batch: Dict[str, torch.Tensor],
+                     microbatch: int, seed: int, task: str = "tts"
+                     ) -> Dict[str, torch.Tensor]:
     """Backward of the step's loss into each trainable tensor's .grad
     (which the caller has cleared), slice i with derive_seed(seed, i):
-    "tts" the mean of the slice losses, "tts_packed" their sum against the
-    full batch's denominators. Returns the step's loss terms, detached."""
+    "tts" / "asr" the mean of the slice losses, "tts_packed" their sum
+    against the full batch's denominators, "asr_packed" their loss_den-
+    weighted mean. Returns the step's loss terms, detached, and loss_den
+    summed over the slices."""
     summed = task == "tts_packed"
+    weighted = task == "asr_packed"
     dens = global_dens(batch) if summed else None
     sums: Dict[str, torch.Tensor] = {}
     for i, sub in enumerate(_slices(batch, task, microbatch)):
-        out = tts_slice_loss(model, sub, derive_seed(seed, i), task, dens)
-        (out["loss"] if summed else out["loss"] / microbatch).backward()
+        out = slice_loss(model, sub, derive_seed(seed, i), task, dens)
+        w = out["loss_den"].detach() if weighted else None
+        if summed:
+            out["loss"].backward()
+        elif weighted:
+            (out["loss"] * w).backward()
+        else:
+            (out["loss"] / microbatch).backward()
         for k, v in out.items():
-            sums[k] = sums.get(k, 0.0) + v.detach()
+            v = v.detach()
+            if weighted and k != "loss_den":
+                v = v * w
+            sums[k] = sums.get(k, 0.0) + v
     if summed:
         return sums
-    return {k: v / microbatch for k, v in sums.items()}
+    total = microbatch
+    if weighted:
+        total = sums["loss_den"].clamp_min(1.0)
+        with torch.no_grad():
+            for p in model.parameters():
+                if p.grad is not None:
+                    p.grad.div_(total)
+    # loss_den, a count, is the sum over the slices
+    return {k: v if k == "loss_den" else v / total for k, v in sums.items()}
 
 
 def make_calm_step(model, optimizer, task: str = "tts", microbatch: int = 1,
@@ -113,8 +138,8 @@ def make_calm_step(model, optimizer, task: str = "tts", microbatch: int = 1,
     def step(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         for p in params.values():
             p.grad = None
-        metrics = accumulate_tts_grads(model, batch, microbatch,
-                                       derive_seed(seed, step.count), task)
+        metrics = accumulate_grads(model, batch, microbatch,
+                                   derive_seed(seed, step.count), task)
         metrics["grad_norm"] = optimizer.step(
             {n: p.grad for n, p in params.items()})
         step.count += 1
@@ -125,19 +150,21 @@ def make_calm_step(model, optimizer, task: str = "tts", microbatch: int = 1,
 
 
 def make_calm_eval_step(model, task: str) -> Callable:
-    """eval_step(batch, seed) -> the loss terms of `forward_tts(train=False)`
-    under no_grad (the fused attention forward, K3/K4 on the card), its
-    flow noise from a generator seeded by `seed`."""
-    _check_task(task)
-    if task != "tts":
-        raise ValueError("the eval step runs the plain forward: task 'tts'")
+    """eval_step(batch, seed) -> the loss terms of the plain forward of
+    `task` ("tts" or "asr") with train=False under no_grad (the fused
+    attention forward, K3/K4 on the card), its flow noise from a generator
+    seeded by `seed`."""
+    if task not in ("tts", "asr"):
+        raise ValueError(f"the eval step runs a plain forward: task 'tts' "
+                         f"or 'asr', not {task!r}")
+    forward = getattr(model, _FORWARD[task])
 
     @torch.no_grad()
     def eval_step(batch: Dict[str, torch.Tensor], seed: int = 0):
         gen = torch.Generator(device=batch["latents"].device)
         gen.manual_seed(seed)
-        return model.forward_tts(*(batch[k] for k in TTS_KEYS), train=False,
-                                 generator=gen)
+        return forward(*(batch[k] for k in TASK_KEYS[task]), train=False,
+                       generator=gen)
 
     return eval_step
 
@@ -158,7 +185,7 @@ def count_step_flops(model, batch: Dict[str, torch.Tensor], task: str,
     dens = global_dens(batch) if task == "tts_packed" else None
 
     def run():
-        tts_slice_loss(model, sub, seed, task, dens)["loss"].backward()
+        slice_loss(model, sub, seed, task, dens)["loss"].backward()
 
     flops = count_flops(run)
     for n, p in params.items():

@@ -8,7 +8,8 @@ Phases, in order; any failure exits non-zero and prints no result:
   2. build the CUDA kernels (one nvcc per source, in parallel);
   3. each kernel against its plain PyTorch version on the card, at the main
      paths' shapes, fp32 and bf16 (the attention backward at the Qwen2
-     training shape and the DiT self-attention shape, two launches giving
+     training shapes of TTS and of plain ASR (461 positions) and the DiT
+     self-attention shape, two launches giving
      the same bits, the forward also at the ASR path's three shapes and at
      T = S = 1024 and 2048, past the TPU's 512 gate, and the flash_attention Function against autograd
      through the plain forward; the resblock kernel at C = 12, 24, 48, 96,
@@ -100,6 +101,21 @@ Phases, in order; any failure exits non-zero and prints no result:
      (step time, utterances/s, MFU, peak memory, launches a step); the
      exported components served through build_engine's --components
      equal to the trained tensors;
+  5j. (run last, after phase 7's profiles of the served requests and the
+     TTS steps) ASR training and the mix: one asr_packed and one plain
+     asr step at asr.yaml's widths with 2 LLM layers, fp32, card vs CPU
+     (loss terms, every trainable gradient, launches); on a synthetic
+     store with both tasks (384 utterances each, 16 held out),
+     configs/asr.yaml at full width (packed ASR rows, 16 x 512 tokens in 8
+     slices) through train_calm for 3 steps (an eval and checkpoints),
+     K3/K4 only in its eval forwards; 4 of its packed steps timed one by
+     one (2 of them again in 2 slices), then 4 plain ASR steps (B = 16 in 8 slices, the 384 grid: rows
+     of 384 + SOA + the 76-token prompt) on the same model and optimizer,
+     K4 and K5 in every Qwen2 layer of every slice; configs/calm.yaml (the
+     mix, one optimizer over packed ASR at k = 8 and packed TTS at k = 2)
+     for 4 steps that take both tasks, an eval over both, its components
+     served through --components equal to the trained tensors, each
+     task's steps timed one by one;
   6. per kernel: its launches on its main path, its device time per launch
      at main-path shapes, the bound, the plain version's and the library
      call's device time; for the stage kernel, per V1 stage on a log line
@@ -123,7 +139,8 @@ Phases, in order; any failure exits non-zero and prints no result:
      only): the device's busy share, the kernels that take most time and
      the stage kernel's device time;
      then one more training step, the same way, with K5's share of it,
-     and one more packed step (its busy share).
+     and one more packed TTS step (its busy share); after phase 5j, one
+     more packed ASR and plain ASR step the same way.
 Then the card, one `kernels` JSON line, and as the last line
 {"ok": true, "device": {...}}.
 """
@@ -633,11 +650,29 @@ def dit_train_inputs(B, dt, card, seed=0):
     return q, k, v, dout, valid
 
 
+def asr_train_inputs(B, dt, card, seed=0):
+    """Qwen2 attention operands of a plain ASR training slice (asr.yaml:
+    B = 16 in 8 slices): q/dout [B, 461, 12, 128], k/v [B, 461, 2, 128]
+    (the 384-frame grid, SOA and the byte tokenizer's 76-token prompt),
+    the [audio frames | pads | SOA | prompt] key mask with mixed audio
+    lengths."""
+    g = torch.Generator(card).manual_seed(seed)
+    T = 384 + 1 + asr_prompt_len()
+    q, dout = (torch.randn(B, T, 12, 128, generator=g, device=card).to(dt)
+               for _ in range(2))
+    k, v = (torch.randn(B, T, 2, 128, generator=g, device=card).to(dt)
+            for _ in range(2))
+    frames = torch.randint(48, 385, (B,), generator=g, device=card)
+    valid = torch.arange(T, device=card)[None, :] < frames[:, None]
+    valid[:, 384:] = True  # SOA and the prompt
+    return q, k, v, dout, valid
+
+
 def phase_attention_bwd(card):
-    """K5 vs its plain version at the Qwen2 training shape and the DiT
-    self-attention shape, fp32 and bf16; two bf16 launches give the same
-    bits; the flash_attention Function vs autograd through the plain
-    forward."""
+    """K5 vs its plain version at the Qwen2 training shapes (TTS and plain
+    ASR) and the DiT self-attention shape, fp32 and bf16; two bf16
+    launches give the same bits; the flash_attention Function vs autograd
+    through the plain forward."""
     from audio_calm_torch.ops.attention_kernel import (attention_bwd,
                                                        attention_bwd_plain,
                                                        attention_fwd,
@@ -646,6 +681,8 @@ def phase_attention_bwd(card):
 
     worst = 0.0
     cases = [("Qwen2 [16, 97, 12/2, 128]", qwen_train_inputs, 16, True),
+             ("Qwen2 plain ASR [2, 461, 12/2, 128]", asr_train_inputs, 2,
+              True),
              ("DiT self [4, 384, 16, 64]", dit_train_inputs, 4, False)]
     for label, inputs, B, causal in cases:
         for dt in (torch.float32, torch.bfloat16):
@@ -737,6 +774,32 @@ def train_batch(B, card, gen, t_aud=384):
             "latents": lat, "audio_mask": amask.int()}
 
 
+def check_card_vs_cpu(res, trainable, what):
+    """A training step's results on both devices, res[device] = (loss terms,
+    {name: gradient}): every loss term within 1e-4 relative, the same
+    tensors with gradients (all trainable), each gradient within 1e-3 of
+    its largest value (fp32 on both, TF32 off: summation order; a floor of
+    1e-3 of the largest gradient for tensors whose gradient is zero
+    analytically, the key biases) -> the worst error over its bound."""
+    for k, ref in res["cpu"][0].items():
+        err = abs(res["card"][0][k] - ref)
+        log(f"  {what} {k}: cpu {ref:.6f} card {res['card'][0][k]:.6f}")
+        check(err <= 1e-4 * abs(ref), f"{what} {k} card vs CPU")
+    grads_cpu, grads_card = res["cpu"][1], res["card"][1]
+    check(set(grads_card) == set(grads_cpu) and set(grads_cpu) <= trainable,
+          f"{what}: the same tensors get gradients on both devices")
+    top = max(g.abs().max().item() for g in grads_cpu.values())
+    worst = 0.0
+    for n, ref in grads_cpu.items():
+        err = (grads_card[n] - ref).abs().max().item()
+        bound = 1e-3 * max(ref.abs().max().item(), 1e-3 * top)
+        worst = max(worst, err / bound)
+        check(err <= bound, f"{what} gradient of {n}")
+    log(f"  {what}: {len(grads_cpu)} trainable gradients agree, worst error "
+        f"{worst:.3f} of its bound (1e-3 of the tensor's largest value)")
+    return worst
+
+
 def phase_train_step_card_vs_cpu(card):
     """One TTS training step's loss and gradients, full widths, 2 LLM
     layers, fp32, dropouts off (the CFG drop injected), card vs CPU. With
@@ -783,26 +846,8 @@ def phase_train_step_card_vs_cpu(card):
     log(f"  train step launches on the card: {counts} (expected {want}: "
         f"{L} Qwen2 layers, {n_dit} DiT attentions)")
     check(counts == want, "kernel launch counts of the card's training step")
-    for k, ref in res["cpu"][0].items():
-        err = abs(res["card"][0][k] - ref)
-        log(f"  train step {k}: cpu {ref:.6f} card {res['card'][0][k]:.6f}")
-        check(err <= 1e-4 * abs(ref), f"train step {k} card vs CPU")
-    grads_cpu, grads_card = res["cpu"][1], res["card"][1]
-    trainable = {n for n, lab in labels.items() if lab != "frozen"}
-    check(set(grads_card) == set(grads_cpu) and set(grads_cpu) <= trainable,
-          "the same tensors get gradients on both devices")
-    top = max(g.abs().max().item() for g in grads_cpu.values())
-    worst = 0.0
-    for n, ref in grads_cpu.items():
-        err = (grads_card[n] - ref).abs().max().item()
-        # fp32 on both, TF32 off: summation order; a floor for tensors whose
-        # gradient is zero analytically (the key biases)
-        bound = 1e-3 * max(ref.abs().max().item(), 1e-3 * top)
-        worst = max(worst, err / bound)
-        check(err <= bound, f"train step gradient of {n}")
-    log(f"  train step: {len(grads_cpu)} trainable gradients agree, worst "
-        f"error {worst:.3f} of its bound (1e-3 of the tensor's largest "
-        "value)")
+    check_card_vs_cpu(res, {n for n, lab in labels.items()
+                            if lab != "frozen"}, "train step")
 
 
 def phase_train_main_path(card):
@@ -2365,11 +2410,13 @@ def phase_kernel_times(voc, counts, errs, card):
 
 def kernel_time_attention_bwd(train_counts, train_steps, errs, card):
     """K5 at the training path's shape (one Qwen2 layer of one microbatch
-    slice: B=16, bf16, causal, the [text | pads | SOA] key mask) and at the
-    DiT self-attention shape of a dropout-off training slice (B=16, 384
-    frames, the audio-frame key mask): device ms per launch beside the
-    bound, the plain version and autograd's backward of SDPA. The row's
-    top-level numbers are the Qwen2 shape's, the path's K5 launches."""
+    slice: B=16, bf16, causal, the [text | pads | SOA] key mask), at the
+    plain ASR step's (B=2 of asr.yaml's 16 in 8 slices, 461 positions, the
+    [audio | pads | SOA | prompt] key mask) and at the DiT self-attention
+    shape of a dropout-off training slice (B=16, 384 frames, the
+    audio-frame key mask): device ms per launch beside the bound, the
+    plain version and autograd's backward of SDPA. The row's top-level
+    numbers are the Qwen2 shape's, the path's K5 launches."""
     import torch.nn.functional as F
 
     from audio_calm_torch.ops.attention_kernel import (attention_bwd,
@@ -2377,10 +2424,11 @@ def kernel_time_attention_bwd(train_counts, train_steps, errs, card):
                                                        attention_fwd)
 
     rows = []
-    for label, inputs, causal in (
-            ("Qwen2 training slice", qwen_train_inputs, True),
-            ("DiT self training slice", dit_train_inputs, False)):
-        q, k, v, dout, valid = inputs(16, torch.bfloat16, card, seed=2)
+    for label, inputs, B, causal in (
+            ("Qwen2 training slice", qwen_train_inputs, 16, True),
+            ("Qwen2 plain-ASR training slice", asr_train_inputs, 2, True),
+            ("DiT self training slice", dit_train_inputs, 16, False)):
+        q, k, v, dout, valid = inputs(B, torch.bfloat16, card, seed=2)
         B, T, Hq, d = q.shape
         S, Hkv = k.shape[1], k.shape[2]
         with torch.no_grad():
@@ -2427,7 +2475,8 @@ def kernel_time_attention_bwd(train_counts, train_steps, errs, card):
                                      "library_ms")},
         "per_launch": "one Qwen2 layer's backward for one microbatch slice: "
                       "q [16, 97, 12, 128], k/v [16, 97, 2, 128], bf16, "
-                      "causal, ragged key mask; the DiT self shape beside",
+                      "causal, ragged key mask; the plain-ASR and DiT self "
+                      "shapes beside",
         "shapes": rows,
     }
 
@@ -2442,20 +2491,62 @@ PACKED_EVAL_BATCHES = 2  # 16 dev items in eval batches of 8
 PACKED_STEPS, PACKED_RESUME_TO, PACKED_TIMED = 2, 6, 4
 
 
-def packed_train_argv(store, out, max_steps, *extra):
-    """train_calm's argv for configs/tts.yaml at full width on `store`: a
-    log every step, a save and an eval every 2, everything else the
-    recipe's."""
-    argv = ["--config", "configs/tts.yaml", "--byte-tokenizer",
-            "--max-steps", str(max_steps)]
-    for ov in (f"data.datasets.tts.latent_dir={store}/train/LibriTTS_R",
-               f"data.datasets.tts.eval_latent_dir={store}/dev/LibriTTS_R",
-               "data.datasets.tts.subsets=train-clean-100",
-               "model.qwen_path=null", f"training.output_dir={out}",
-               "training.logging_steps=1", "training.save_steps=2",
-               "training.eval_steps=2") + extra:
+CORPUS = {"asr": "LibriSpeech", "tts": "LibriTTS_R"}
+
+
+def recipe_argv(config, tasks, store, out, max_steps, *extra):
+    """train_calm's argv for a shipped config at full width on `store`
+    (the synthetic corpus of each task in `tasks`, its dev split for
+    eval): the byte tokenizer, no Qwen2 base weights, a log every step,
+    then the overrides in `extra`; everything else the recipe's."""
+    argv = ["--config", config, "--byte-tokenizer", "--max-steps",
+            str(max_steps)]
+    ovs = []
+    for task in tasks:
+        src = f"data.datasets.{task}"
+        ovs += [f"{src}.latent_dir={store}/train/{CORPUS[task]}",
+                f"{src}.eval_latent_dir={store}/dev/{CORPUS[task]}",
+                f"{src}.subsets=train-clean-100"]
+    for ov in ovs + ["model.qwen_path=null", f"training.output_dir={out}",
+                     "training.logging_steps=1", *extra]:
         argv += ["--override", ov]
     return argv
+
+
+def packed_train_argv(store, out, max_steps, *extra):
+    """train_calm's argv for configs/tts.yaml at full width on `store`: a
+    save and an eval every 2 steps."""
+    return recipe_argv("configs/tts.yaml", ("tts",), store, out, max_steps,
+                       "training.save_steps=2", "training.eval_steps=2",
+                       *extra)
+
+
+def time_steps(step, raws, batches, flops, counters, zero, card):
+    """Each batch's step timed alone (the first batch's step once before,
+    to warm its shape): step seconds, utterances/s, MFU, peak memory (of
+    the process, whatever else it holds, and the steps' own: the peak's
+    rise above what was allocated before them) and the attention launches
+    a step."""
+    from audio_calm_torch.utils.profiling import device_peak_flops
+
+    synced(lambda: step(batches[0]))
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    zero()
+    times = [synced(lambda b=b: step(b))[1] for b in batches]
+    counts = counters()
+    n_utt = [raw.get("n_samples") or raw["latents"].shape[0] for raw in raws]
+    return {"steps": len(times), "utterances": n_utt, "step_s": times,
+            "step_s_median": sorted(times)[len(times) // 2],
+            "utterances_per_s": sum(n_utt) / sum(times),
+            "tflop_per_step": [f / 1e12 for f in flops],
+            "mfu_pct": 100.0 * sum(flops) / sum(times)
+            / device_peak_flops(card),
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "step_mem_gb": (torch.cuda.max_memory_allocated() - held) / 1e9,
+            "launches_per_step": {k: v // len(times)
+                                  for k, v in counts.items()},
+            "launches": counts}
 
 
 def packed_records(out):
@@ -2493,6 +2584,33 @@ def check_packed_run(run, out, counts, first_step, cfg):
     return train, evals
 
 
+def check_components_served(config, run):
+    """The components a train_calm run exported, loaded through the served
+    product's --components path (build_engine, fp32), equal the trained
+    tensors -> the load's wall seconds."""
+    from audio_calm_torch.serving.server import build_engine
+    from audio_calm_torch.serving.server import parse_args as serve_args
+    from audio_calm_torch.train import checkpoint as ckpt
+
+    t0 = time.perf_counter()
+    engine = build_engine(serve_args([
+        "--config", config, "--byte-tokenizer",
+        "--components", run.components_dir,
+        "--override", "model.vae_path=null",
+        "--override", "evaluation.compute_dtype=float32"]))
+    served = engine.inf.model.state_dict()
+    trained = ckpt.component_state_dict(run.model)
+    same = [n for n, v in trained.items()
+            if torch.equal(served[n], v.float())]
+    wall = time.perf_counter() - t0
+    log(f"  --components: {len(same)} of {len(trained)} component and "
+        f"LoRA tensors served equal to the trained ones ({wall:.1f} s)")
+    check(len(same) == len(trained) > 0,
+          "the exported components load through --components")
+    del engine, served
+    return wall
+
+
 def phase_packed_training(card, smi):
     """The shipped TTS training recipe at full width: configs/tts.yaml
     (Qwen2-1.5B 28 layers, frozen bf16 base, LoRA r64, DiT 1024 x 4, full
@@ -2511,12 +2629,9 @@ def phase_packed_training(card, smi):
     from audio_calm_torch.data import synth_corpus
     from audio_calm_torch.ops.attention_kernel import (attention_bwd,
                                                        attention_fwd)
-    from audio_calm_torch.serving.server import build_engine
-    from audio_calm_torch.serving.server import parse_args as serve_args
     from audio_calm_torch.train import checkpoint as ckpt
     from audio_calm_torch.train import train_calm
     from audio_calm_torch.train.optim import AdamW
-    from audio_calm_torch.utils.profiling import device_peak_flops
 
     def counters():
         return {"attention_fwd": attention_fwd.launches,
@@ -2592,28 +2707,14 @@ def phase_packed_training(card, smi):
         it.close()  # its prefetch thread ends
         flops = [run2.step_flops(raw) for raw in raws]
         batches = [run2.batch_filter(raw) for raw in raws]
-        synced(lambda: run2.step(batches[0]))  # this shape warm
-        torch.cuda.reset_peak_memory_stats()
-        zero()
-        times = [synced(lambda b=b: run2.step(b))[1] for b in batches]
-        timed_counts = counters()
-        peak_mem = torch.cuda.max_memory_allocated()
-        check(timed_counts == {"attention_fwd": 0, "attention_bwd": 0},
-              f"no attention kernel in a packed step ({timed_counts})")
-        n_utt = [raw["n_samples"] for raw in raws]
-        peak = device_peak_flops(card)
+        timed = time_steps(run2.steps["tts_packed"], raws, batches, flops,
+                           counters, zero, card)
+        check(timed["launches"] == {"attention_fwd": 0, "attention_bwd": 0},
+              f"no attention kernel in a packed step ({timed['launches']})")
         summary = {
-            "steps": PACKED_TIMED, "rows": raws[0]["tok_ids"].shape[0],
+            "rows": raws[0]["tok_ids"].shape[0],
             "row_len": raws[0]["tok_ids"].shape[1],
-            "t_aud": [raw["latents"].shape[2] for raw in raws],
-            "utterances": n_utt, "step_s": times,
-            "step_s_median": sorted(times)[len(times) // 2],
-            "utterances_per_s": sum(n_utt) / sum(times),
-            "tflop_per_step": [f / 1e12 for f in flops],
-            "mfu_pct": 100.0 * sum(flops) / sum(times) / peak,
-            "peak_mem_gb": peak_mem / 1e9,
-            "launches_per_step": {k: v // PACKED_TIMED
-                                  for k, v in timed_counts.items()},
+            "t_aud": [raw["latents"].shape[2] for raw in raws], **timed,
             "run_launches": run_launches,
             "loop_step_s": [r["step_s"] for r in train],
             "loop_mfu_pct": [r["mfu_pct"] for r in train],
@@ -2621,24 +2722,10 @@ def phase_packed_training(card, smi):
         log("  packed training " + json.dumps(summary))
 
         # the components through the served product's --components path
-        t0 = time.perf_counter()
-        engine = build_engine(serve_args([
-            "--config", "configs/tts.yaml", "--byte-tokenizer",
-            "--components", run2.components_dir,
-            "--override", "model.vae_path=null",
-            "--override", "evaluation.compute_dtype=float32"]))
-        served = engine.inf.model.state_dict()
-        trained = ckpt.component_state_dict(run2.model)
-        same = [n for n, v in trained.items()
-                if torch.equal(served[n], v.float())]
-        walls["serve_load_s"] = time.perf_counter() - t0
-        log(f"  --components: {len(same)} of {len(trained)} component and "
-            f"LoRA tensors served equal to the trained ones "
-            f"({walls['serve_load_s']:.1f} s)")
-        check(len(same) == len(trained) > 0,
-              "the exported components load through --components")
-        del engine, served
-        probe = (run2.step, batches[0], summary["step_s_median"])
+        walls["serve_load_s"] = check_components_served("configs/tts.yaml",
+                                                        run2)
+        probe = (run2.steps["tts_packed"], batches[0],
+                 summary["step_s_median"])
         return summary, walls, probe
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -2709,35 +2796,19 @@ def phase_packed_step_card_vs_cpu(card):
     check(counts == want, "kernel launches of the card's packed step")
     check(res["cpu"][0]["loss_den"] == res["card"][0]["loss_den"]
           == len(exs), "packed step loss_den")
-    for k, ref in res["cpu"][0].items():
-        err = abs(res["card"][0][k] - ref)
-        log(f"  packed step {k}: cpu {ref:.6f} card {res['card'][0][k]:.6f}")
-        check(err <= 1e-4 * abs(ref), f"packed step {k} card vs CPU")
-    grads_cpu, grads_card = res["cpu"][1], res["card"][1]
-    trainable = {n for n, lab in labels.items() if lab != "frozen"}
-    check(set(grads_card) == set(grads_cpu) and set(grads_cpu) <= trainable,
-          "the same tensors get gradients on both devices")
-    top = max(g.abs().max().item() for g in grads_cpu.values())
-    worst = 0.0
-    for n, ref in grads_cpu.items():
-        err = (grads_card[n] - ref).abs().max().item()
-        bound = 1e-3 * max(ref.abs().max().item(), 1e-3 * top)
-        worst = max(worst, err / bound)
-        check(err <= bound, f"packed step gradient of {n}")
-    log(f"  packed step: {len(grads_cpu)} trainable gradients agree, worst "
-        f"error {worst:.3f} of its bound (1e-3 of the tensor's largest "
-        "value)")
+    check_card_vs_cpu(res, {n for n, lab in labels.items()
+                            if lab != "frozen"}, "packed step")
 
 
-def phase_packed_profile(probe):
-    """One more packed step under the profiler (device activity only): the
-    device's busy share of the step and the kernels that take the most
+def phase_step_profile(probe, what):
+    """One more step of `what` under the profiler (device activity only):
+    the device's busy share of the step and the kernels that take the most
     device time."""
     step, batch, step_s = probe
     p_wall, rows = device_profile(lambda: step(batch))
     busy = sum(r[1] for r in rows)
-    check(busy > 0, "the profiler saw device time in the packed step")
-    log(f"  profiled packed step: wall {p_wall:.4f} s, device busy "
+    check(busy > 0, f"the profiler saw device time in the {what} step")
+    log(f"  profiled {what} step: wall {p_wall:.4f} s, device busy "
         f"{busy:.4f} s: {100 * busy / p_wall:.1f}% of the profiled wall, "
         f"{100 * busy / step_s:.1f}% of the unprofiled step {step_s:.4f} s")
     for name, s_, n in rows[:12]:
@@ -2745,6 +2816,335 @@ def phase_packed_profile(probe):
     return {"profiled_step_wall_s": p_wall, "step_device_busy_s": busy,
             "busy_share_of_step": busy / step_s,
             "step_device_ops": sum(r[2] for r in rows)}
+
+
+# ASR training and the mix (phase 5j): configs/asr.yaml and configs/
+# calm.yaml through train_calm on a synthetic store with both tasks (the
+# byte tokenizer: a 76-token ASR prompt); seed 42's first task draws over
+# 384 items a task are A T T A, so the mix's 4 steps train both tasks
+ASR_STORE = ["--asr-n", "384", "--tts-n", "384", "--dev-n", "16", "--seed",
+             "4"]
+ASR_EVAL_BATCHES = 2  # 16 dev utterances a task in eval batches of 8
+ASR_STEPS, MIX_STEPS, ASR_TIMED = 3, 4, 4
+ASR_PLAIN_B, ASR_PLAIN_K = 16, 8  # plain ASR: asr.yaml's batch and slices
+# asr.yaml's warm start reads tts.yaml's output, whose TTS head is 1024
+# wide against asr.yaml's 768 (ROADMAP Queue 3): no warm start here
+NO_WARM_START = [f"model.pretrained_{c}_path=null" for c in (
+    "projector", "tts_head", "tts_len_pred", "lora")]
+
+
+def asr_prompt_len():
+    """Tokens of the ASR prompt under the byte tokenizer."""
+    from audio_calm_torch.data.datasets import ASR_PROMPT
+    from audio_calm_torch.data.tokenizer import ByteTokenizer
+
+    return len(ByteTokenizer().encode(ASR_PROMPT, add_special_tokens=False))
+
+
+def asr_forward_launches(cfg):
+    """Attention launches of one eval forward: the plain ASR forward (the
+    Qwen2 layers K4, the query cross-attention and the head's layers K3)
+    and the TTS forward (the Qwen2 layers, the DiT's self and cross)."""
+    L = cfg.qwen.num_hidden_layers
+    return {"asr": L + 1 + cfg.asr_flow_num_layers,
+            "tts": L + 2 * cfg.tts_flow_num_layers}
+
+
+def asr_examples(frames, label_lens, seed):
+    """ASR examples at asr.yaml's widths: the byte tokenizer's prompt,
+    random label ids, latents at the flagship's statistics."""
+    from audio_calm_torch.data.datasets import ASR_PROMPT, CalmExample
+    from audio_calm_torch.data.tokenizer import ByteTokenizer
+
+    prompt = np.asarray(ByteTokenizer().encode(
+        ASR_PROMPT, add_special_tokens=False), np.int32)
+    rng = np.random.default_rng(seed)
+    return prompt, [CalmExample(
+        input_ids=prompt, labels=rng.integers(10, 5000, n).astype(np.int32),
+        audio=(0.039775 + 1.190864 * rng.standard_normal((a, 128))).astype(
+            np.float32), mode="asr") for a, n in zip(frames, label_lens)]
+
+
+def phase_asr_steps_card_vs_cpu(card):
+    """One asr_packed step's and one plain asr step's loss and gradients
+    (forward_asr_packed / forward_asr, backward) at asr.yaml's widths with
+    2 LLM layers, fp32, dropouts off (the flow draws and the CFG drop
+    injected), card vs CPU, with the bounds of the plain TTS step's check.
+    Packed rows take the plain masked attention on both devices; the plain
+    rows' Qwen2 attention K4/K5 on the card (the row 384 + SOA + the
+    prompt), the query cross-attention (d = 96) and the head (d = 48)
+    K3/K5."""
+    import copy
+
+    from audio_calm_torch.config import TrainingConfig
+    from audio_calm_torch.data.collator import collate_calm, pack_asr_window
+    from audio_calm_torch.models.calm import QwenCALM
+    from audio_calm_torch.models.flagship import random_normal_
+    from audio_calm_torch.ops.attention import MultiheadAttention
+    from audio_calm_torch.ops.attention_kernel import (attention_bwd,
+                                                       attention_fwd)
+    from audio_calm_torch.train.optim import freeze
+    from audio_calm_torch.train.steps import ASR_KEYS, ASR_PACKED_KEYS
+
+    cfg = asr_yaml_config(2)
+    cfg.lora.dropout = 0.0
+    cpu = QwenCALM(cfg)
+    random_normal_(cpu, seed=6)
+    for m in cpu.modules():
+        if isinstance(m, MultiheadAttention):
+            m.dropout = 0.0
+    labels = freeze(cpu, TrainingConfig(), task_mode="asr")
+    trainable = {n for n, lab in labels.items() if lab != "frozen"}
+    dev = copy.deepcopy(cpu).to(card)
+    prompt, exs = asr_examples([384, 200, 150], [96, 40, 17], seed=9)
+    packed, left = pack_asr_window(exs, prompt, 2, 512, 4, 384, 128, 96)
+    check(not left, "the card-vs-CPU packed ASR batch holds every "
+          "utterance")
+    P = len(prompt)
+    # asr.yaml's asr_text_pad 32, clamped up to the prompt as the iterator
+    # clamps it
+    plain = collate_calm(exs[:2], 0, 96, 384, 128, text_pad=max(32, P))
+    check(plain["text_ids"].shape[1] == P and 384 + 1 + P <= 512,
+          f"the plain ASR row: 384 frames + SOA + the {P}-token prompt "
+          "(asr_text_pad clamped up to it), within K5's 512")
+    L, n_head = cfg.qwen.num_hidden_layers, 1 + cfg.asr_flow_num_layers
+    remat = 2 if cfg.remat_policy != "none" else 1
+    cases = {"asr_packed": (packed, ASR_PACKED_KEYS, "forward_asr_packed",
+                            {"attention_fwd": n_head,
+                             "attention_bwd": n_head}),
+             "asr": (plain, ASR_KEYS, "forward_asr",
+                     {"attention_fwd": remat * L + n_head,
+                      "attention_bwd": L + n_head})}
+    worst = 0.0
+    for task, (batch, keys, forward, want) in cases.items():
+        rows = batch["labels"].reshape(-1, 96).shape[0]
+        g = torch.Generator().manual_seed(7)
+        flow = {"t": torch.rand(rows, generator=g),
+                "x0": torch.randn(rows, 96, cfg.qwen.hidden_size,
+                                  generator=g),
+                "drop": torch.arange(rows) == 1}
+        res = {}
+        for name, model, device in (("cpu", cpu, "cpu"), ("card", dev, card)):
+            model.zero_grad(set_to_none=True)
+            args = [torch.from_numpy(batch[k]).to(device) for k in keys]
+            attention_fwd.launches = attention_bwd.launches = 0
+            out = getattr(model, forward)(
+                *args, train=True, seed=1,
+                **{k: v.to(device) for k, v in flow.items()})
+            out["loss"].backward()
+            res[name] = ({k: float(v.detach()) for k, v in out.items()},
+                         {n: p.grad.detach().cpu() for n, p in
+                          model.named_parameters() if p.grad is not None})
+        counts = {"attention_fwd": attention_fwd.launches,
+                  "attention_bwd": attention_bwd.launches}
+        log(f"  {task} step launches on the card: {counts} (expected "
+            f"{want})")
+        check(counts == want, f"kernel launches of the card's {task} step")
+        n_valid = int((batch["labels"] != -100).sum())
+        check(res["cpu"][0]["loss_den"] == res["card"][0]["loss_den"]
+              == n_valid, f"{task} step loss_den")
+        worst = max(worst, check_card_vs_cpu(res, trainable, f"{task} step"))
+    return worst
+
+
+def run_tasks(run):
+    """The task of each step a train_calm run took, from its records."""
+    return ["asr" if "loss_asr" in r else "tts" for r in run.history]
+
+
+def check_recipe_run(run, out, counts, want, tasks):
+    """Finite metrics.jsonl with samples_per_sec and mfu_pct each step,
+    evals, the tasks the steps took and the run's attention launches."""
+    train, evals = packed_records(out)
+    check([r["step"] for r in train] == [r["step"] for r in run.history]
+          == list(range(1, len(train) + 1)), "the run's steps")
+    for r in train:
+        check(all(np.isfinite(r[k]) and r[k] > 0 for k in (
+            "loss", "samples_per_sec", "mfu_pct", "loss_den")),
+            f"step {r['step']} metrics {r}")
+    check(len(evals) >= 1 and all(np.isfinite(r["eval_loss"])
+                                  for r in evals), "the run's eval loss")
+    check(set(run_tasks(run)) == set(tasks),
+          f"the run's tasks {run_tasks(run)}")
+    log(f"  launches: {counts} (expected {want}: none in a packed step, "
+        "the rest in the eval forwards)")
+    check(counts == want, "kernel launches of the run")
+    for r in train:
+        log(f"  step {r['step']}: " + " ".join(
+            f"{k}={r[k]:.5f}" for k in ("loss", "loss_asr", "loss_tts",
+                                        "grad_norm", "loss_den", "step_s",
+                                        "samples_per_sec", "mfu_pct")
+            if k in r))
+    return train, evals
+
+
+def phase_asr_training(card, smi):
+    """ASR training and the mix at full width (Qwen2-1.5B 28 layers, frozen
+    bf16 base, LoRA r64, ASR and TTS heads 768 x 4 / 16, full remat)
+    through `python -m audio_calm_torch.train.train_calm` in this process,
+    on a synthetic store with both tasks: the two steps checked card vs CPU
+    at 2 layers first; configs/asr.yaml (packed ASR rows, 16 x 512 in 8
+    slices) for 3 steps with an eval and checkpoints, its packed steps
+    timed alone (and in 2 slices), then plain ASR steps (B = 16 in 8 slices, the 384 grid) on
+    the same model and optimizer timed alone; configs/calm.yaml (the mix:
+    packed ASR at k = 8, packed TTS at k = 2, one optimizer) for 4 steps
+    with an eval and checkpoints, its exported components served through
+    --components equal to the trained tensors, each task's steps timed
+    alone."""
+    import gc
+
+    from audio_calm_torch.data import synth_corpus
+    from audio_calm_torch.data.collator import calm_batch_iterator
+    from audio_calm_torch.data.datasets import CalmDataset
+    from audio_calm_torch.data.tokenizer import ByteTokenizer
+    from audio_calm_torch.ops.attention_kernel import (attention_bwd,
+                                                       attention_fwd)
+    from audio_calm_torch.train import checkpoint as ckpt
+    from audio_calm_torch.train import train_calm
+    from audio_calm_torch.train.steps import count_step_flops, make_calm_step
+
+    def counters():
+        return {"attention_fwd": attention_fwd.launches,
+                "attention_bwd": attention_bwd.launches}
+
+    def zero():
+        attention_fwd.launches = attention_bwd.launches = 0
+
+    walls, result = {}, {"card": smi}
+    t0 = time.perf_counter()
+    with exact_fp32():
+        result["card_vs_cpu_worst"] = phase_asr_steps_card_vs_cpu(card)
+    walls["card_vs_cpu_s"] = time.perf_counter() - t0
+    tmp = tempfile.mkdtemp(prefix="asr_training_")
+    try:
+        store = os.path.join(tmp, "store")
+        t0 = time.perf_counter()
+        check(synth_corpus.main(["--out", store] + ASR_STORE) == 0,
+              "synthetic store")
+        walls["store_s"] = time.perf_counter() - t0
+
+        # configs/asr.yaml: packed ASR
+        out = os.path.join(tmp, "asr")
+        zero()
+        run, walls["asr_run_s"] = synced(lambda: train_calm.train(
+            recipe_argv("configs/asr.yaml", ("asr",), store, out, ASR_STEPS,
+                        "training.save_steps=2", "training.eval_steps=2",
+                        *NO_WARM_START)))
+        cfg = run.model.cfg
+        per_eval = asr_forward_launches(cfg)
+        counts = counters()
+        check_recipe_run(run, out, counts, {
+            "attention_fwd": ASR_EVAL_BATCHES * per_eval["asr"],
+            "attention_bwd": 0}, ["asr"])
+        result["asr_run_launches"] = counts
+        check(ckpt.make_manager(out, 2, "loss").all_steps() == [2, ASR_STEPS],
+              "asr.yaml run's checkpoints")
+        it = run.batches(0)
+        raws = [next(it) for _ in range(ASR_TIMED)]
+        it.close()  # its prefetch thread ends
+        check(all(raw["task"] == "asr_packed" and raw["tok_ids"].shape == (
+            16, 512) for raw in raws), "asr.yaml's batches: 16 rows of 512")
+        flops = [run.step_flops(raw) for raw in raws]
+        batches = [run.batch_filter(raw) for raw in raws]
+        step = run.steps["asr_packed"]
+        packed = time_steps(step, raws, batches, flops, counters, zero, card)
+        check(packed["launches"] == {"attention_fwd": 0,
+                                     "attention_bwd": 0},
+              f"no attention kernel in a packed ASR step "
+              f"({packed['launches']})")
+        packed["slots_real"] = [int(raw["n_samples"]) for raw in raws]
+        log("  packed ASR " + json.dumps(packed))
+        # the same batches in 2 slices (asr.yaml's 8 fit a 16 GB chip):
+        # what the slice count costs the step
+        k2 = time_steps(make_calm_step(run.model, run.optimizer, "asr_packed",
+                                       microbatch=2, seed=1),
+                        raws[:2], batches[:2], flops[:2], counters, zero,
+                        card)
+        log("  packed ASR in 2 slices " + json.dumps(k2))
+        packed["two_slices"] = {k: k2[k] for k in (
+            "step_s", "step_s_median", "utterances_per_s", "mfu_pct",
+            "peak_mem_gb", "step_mem_gb")}
+        probes = {"asr_packed": (step, batches[0], packed["step_s_median"])}
+
+        # plain ASR steps on the same model and optimizer: asr.yaml with
+        # data.asr_pack_rows=0 (B = 16 in 8 slices, the 384 grid)
+        ds = CalmDataset(ByteTokenizer(), asr_latent_dir=os.path.join(
+            store, "train", CORPUS["asr"]), asr_subsets="train-clean-100",
+            max_text_len=96, max_audio_len=384, task_mode="asr",
+            latent_dim=128)
+        it = calm_batch_iterator(ds, ASR_PLAIN_B, 0, 128, task_prob_tts=0.0,
+                                 seed=5, asr_text_pad=32)
+        raws = [next(it) for _ in range(ASR_TIMED)]
+        row = 384 + 1 + raws[0]["text_ids"].shape[1]
+        check(row == 384 + 1 + asr_prompt_len() <= 512 and all(
+            raw["latents"].shape[1] == 384 for raw in raws),
+            f"the plain ASR row of {row} positions (K5 takes at most 512)")
+        plain_step = make_calm_step(run.model, run.optimizer, "asr",
+                                    microbatch=ASR_PLAIN_K, seed=1)
+        batches = [run.batch_filter(raw) for raw in raws]
+        flops = [count_step_flops(run.model, b, "asr", ASR_PLAIN_K)
+                 for b in batches[:1]] * ASR_TIMED
+        plain = time_steps(plain_step, raws, batches, flops, counters, zero,
+                           card)
+        L = cfg.qwen.num_hidden_layers
+        want = {"attention_fwd": 2 * L * ASR_PLAIN_K,
+                "attention_bwd": L * ASR_PLAIN_K}
+        log(f"  plain ASR launches a step {plain['launches_per_step']} "
+            f"(expected {want}: the Qwen2 layers' forward and recompute "
+            "K4, backward K5, in each slice; the cross-attention and the "
+            "head take plain torch while their dropout is on)")
+        check(plain["launches_per_step"] == want,
+              "kernel launches of the plain ASR step")
+        plain["row"] = row
+        log("  plain ASR " + json.dumps(plain))
+        probes["asr"] = (plain_step, batches[0], plain["step_s_median"])
+        result.update(asr_packed=packed, asr_plain=plain)
+        del run, step, plain_step, batches, it
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # configs/calm.yaml: the mix
+        out = os.path.join(tmp, "mix")
+        zero()
+        run, walls["mix_run_s"] = synced(lambda: train_calm.train(
+            recipe_argv("configs/calm.yaml", ("asr", "tts"), store, out,
+                        MIX_STEPS, "training.save_steps=2",
+                        f"training.eval_steps={MIX_STEPS}")))
+        counts = counters()
+        evals = ASR_EVAL_BATCHES * (per_eval["asr"] + per_eval["tts"])
+        check_recipe_run(run, out, counts, {"attention_fwd": evals,
+                                            "attention_bwd": 0},
+                         ["asr", "tts"])
+        tasks = run_tasks(run)
+        check(sorted(run.steps) == ["asr_packed", "tts_packed"]
+              and run.optimizer.count == MIX_STEPS // 2,
+              "the mix's two steps share one optimizer (MultiSteps of 2)")
+        check(ckpt.make_manager(out, 2, "loss").all_steps() == [2, MIX_STEPS],
+              "calm.yaml run's checkpoints")
+        # before the timed steps below update the model
+        walls["mix_serve_load_s"] = check_components_served(
+            "configs/calm.yaml", run)
+        it = run.batches(0)
+        raws = [next(it) for _ in range(2 * ASR_TIMED)]
+        it.close()
+        mix = {"tasks": tasks, "batch_tasks": [raw["task"] for raw in raws]}
+        for task in ("asr_packed", "tts_packed"):
+            mine = [raw for raw in raws if raw["task"] == task][:2]
+            check(len(mine) == 2, f"two {task} batches of the mix")
+            mix[task] = time_steps(
+                run.steps[task], mine, [run.batch_filter(r) for r in mine],
+                [run.step_flops(r) for r in mine], counters, zero, card)
+            check(mix[task]["launches"] == {"attention_fwd": 0,
+                                            "attention_bwd": 0},
+                  f"no attention kernel in the mix's {task} step")
+        log("  mix " + json.dumps(mix))
+        result["mix"] = mix
+        del run
+        return result, walls, probes
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -2913,12 +3313,41 @@ def main() -> int:
     del train_probe
     log(f"phase training profile: ok in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    packed.update(phase_packed_profile(packed_probe))
+    packed.update(phase_step_profile(packed_probe, "packed"))
     del packed_probe
     log(f"phase packed training profile: ok in "
         f"{time.perf_counter() - t0:.1f} s")
+
+    # 5j. ASR training and the mix: asr.yaml and calm.yaml at full width
+    # through train_calm, plain ASR steps, components served, then its
+    # steps profiled (after the profiles above: after 5j, each profiler
+    # session lost the records of its first 13-15 launches, more than a
+    # short session may lose)
+    t0 = time.perf_counter()
+    asr_trained, asr_walls, asr_probes = phase_asr_training(card, smi)
+    log(f"phase ASR training: ok in {time.perf_counter() - t0:.1f} s "
+        + json.dumps(asr_walls))
+    # the asr.yaml run: K3/K4 in its eval forwards only; a plain ASR step:
+    # K4 and K5 in every Qwen2 layer of every slice
+    kernels[1]["asr_training_launches"] = {
+        "asr_yaml_run": asr_trained["asr_run_launches"]["attention_fwd"],
+        "plain_asr_step": asr_trained["asr_plain"]["launches_per_step"][
+            "attention_fwd"]}
+    next(k for k in kernels if k["name"] == "attention_bwd")[
+        "asr_training_launches"] = {
+        "asr_yaml_run": asr_trained["asr_run_launches"]["attention_bwd"],
+        "plain_asr_step": asr_trained["asr_plain"]["launches_per_step"][
+            "attention_bwd"]}
+    t0 = time.perf_counter()
+    asr_trained["asr_packed"].update(phase_step_profile(
+        asr_probes.pop("asr_packed"), "packed ASR"))
+    asr_trained["asr_plain"].update(phase_step_profile(
+        asr_probes.pop("asr"), "plain ASR"))
+    log(f"phase ASR training profile: ok in "
+        f"{time.perf_counter() - t0:.1f} s")
     log("trained " + json.dumps(trained))
     log("packed_training " + json.dumps(packed))
+    log("asr_training " + json.dumps(asr_trained))
     log("vocoder_path " + json.dumps(voc_path))
     log("reconstruction " + json.dumps(recon))
     log("asr " + json.dumps({**asr, "reduced_depth": asr_reduced}))

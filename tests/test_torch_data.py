@@ -1,6 +1,7 @@
 """The port's data pipeline vs the JAX package's, on the CPU: the synthetic
-store writer, the latent store reader, the TTS batch iterator and the
-prefetch thread.
+store writer, the latent store reader, SpecAugment and the ASR pack plan,
+the batch iterator (TTS, ASR and the mix of both, plain and packed) and
+the prefetch thread.
 
 Bounds: none. Every comparison is exact (array_equal with equal dtypes,
 equal lists): the pipeline is numpy and host code on the same files and
@@ -8,7 +9,6 @@ seeds.
 """
 
 import importlib.util
-import shutil
 import threading
 import time
 from pathlib import Path
@@ -165,23 +165,149 @@ def test_tts_batch_iterator_matches_jax(store, case):
                     assert a[k].dtype == b[k].dtype, k
 
 
-def test_iterator_refuses_what_is_not_ported(store, tmp_path):
+def test_iterator_refuses_what_is_not_ported(store):
+    """Multi-host iteration is not ported and raises; what JAX refuses the
+    port refuses too (no full batch, packed rows too short for a segment)."""
     root, _ = store
     tset, _ = _datasets(root)
     with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
         next(tcol.calm_batch_iterator(tset, 4, 0, LAT, process_count=2))
-    asr = tmp_path / "asr"
-    shutil.copytree(root / "train" / "LibriTTS_R", asr / "LibriSpeech")
-    mixed = tds.CalmDataset(TByteTokenizer(), asr_latent_dir=str(asr /
-                            "LibriSpeech"), asr_subsets="train-clean-100",
-                            task_mode="mix", latent_dim=LAT)
-    assert len(mixed.asr_items) == 40
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        next(tcol.calm_batch_iterator(mixed, 4, 0, LAT))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        tcol.pack_asr_window([], np.zeros(3, np.int32), 1, 8, 1, 4, LAT, 4)
     with pytest.raises(ValueError, match="no full batch"):
         next(tcol.calm_batch_iterator(tset, 64, 0, LAT))
+    with pytest.raises(ValueError, match="cannot fit"):
+        next(tcol.calm_batch_iterator(tset, 4, 0, LAT, tts_pack_rows=2,
+                                      tts_pack_len=40))
+    with pytest.raises(ValueError, match="cannot fit"):
+        next(tcol.calm_batch_iterator(tset, 4, 0, LAT, asr_pack_rows=2,
+                                      asr_pack_len=100))
+
+
+# --------------------------------------------------------------------------
+# the ASR stream
+# --------------------------------------------------------------------------
+def _asr_examples(lengths, seed, cls):
+    rng = np.random.default_rng(seed)
+    return [cls(input_ids=np.asarray([5, 6, 7], np.int32),
+                labels=rng.integers(1, 200, int(rng.integers(1, 12))).astype(
+                    np.int32),
+                audio=rng.standard_normal((n, LAT)).astype(np.float32),
+                mode="asr") for n in lengths]
+
+
+def test_asr_packing_and_spec_augment_match_jax():
+    """spec_augment (short inputs untouched, the generators left in the
+    same state), pack_asr_window with SpecAugment per slot, and
+    materialize_asr_rows with failed loads: array-equal to JAX's."""
+    for T, seed in ((20, 0), (21, 1), (64, 2), (300, 3)):
+        a = np.random.default_rng(seed).standard_normal((T, LAT)).astype(
+            np.float32)
+        ra, rb = np.random.default_rng(seed), np.random.default_rng(seed)
+        got, ref = tcol.spec_augment(a, ra), jcol.spec_augment(a, rb)
+        np.testing.assert_array_equal(got, ref)
+        assert (got is a) == (ref is a) == (T <= 20)
+        assert ra.random() == rb.random()
+    prompt = np.asarray([5, 6, 7], np.int32)
+    lengths = [16, 4, 10, 7, 15, 3, 2, 12, 30, 25]
+    tex = _asr_examples(lengths, 1, tds.CalmExample)
+    jex = _asr_examples(lengths, 1, jds.CalmExample)
+    for training in (False, True):
+        ra, rb = np.random.default_rng(7), np.random.default_rng(7)
+        got, left = tcol.pack_asr_window(tex, prompt, 3, 60, 3, 24, LAT, 8,
+                                         training=training, rng=ra)
+        ref, jleft = jcol.pack_asr_window(jex, prompt, 3, 60, 3, 24, LAT,
+                                          max_text_len=8, training=training,
+                                          rng=rb)
+        assert left == jleft and left
+        assert set(got) == set(ref)
+        for k in got:
+            np.testing.assert_array_equal(got[k], ref[k], err_msg=k)
+            assert got[k].dtype == ref[k].dtype, k
+    rows_t = [[tex[0], None, tex[2]], [None, tex[1], None]]
+    rows_j = [[jex[0], None, jex[2]], [None, jex[1], None]]
+    got = tcol.materialize_asr_rows(rows_t, prompt, 60, 3, 24, LAT, 8,
+                                    training=True,
+                                    rng=np.random.default_rng(3))
+    ref = jcol.materialize_asr_rows(rows_j, prompt, 60, 3, 24, LAT, 8,
+                                    training=True,
+                                    rng=np.random.default_rng(3))
+    for k in got:
+        np.testing.assert_array_equal(got[k], ref[k], err_msg=k)
+    with pytest.raises(ValueError, match="cannot fit"):
+        tcol.pack_asr_window(tex, prompt, 3, 27, 3, 24, LAT, 8)
+
+
+@pytest.fixture(scope="module")
+def mixed_store(tmp_path_factory):
+    """A synthetic store with both tasks (ASR utterances capped at 64
+    frames, the byte tokenizer's 76-token ASR prompt)."""
+    root = tmp_path_factory.mktemp("mixed")
+    assert synth_corpus.main([
+        "--out", str(root), "--asr-n", "36", "--tts-n", "36", "--dev-n", "4",
+        "--latent-dim", str(LAT), "--chunk", "12", "--seed", "9"]) == 0
+    return root
+
+
+def _mixed_datasets(root, task_mode):
+    args = dict(asr_latent_dir=str(root / "train" / "LibriSpeech"),
+                asr_subsets="train-clean-100",
+                tts_latent_dir=str(root / "train" / "LibriTTS_R"),
+                tts_subsets="train-clean-100", max_text_len=96,
+                max_audio_len=64, task_mode=task_mode, latent_dim=LAT)
+    return (tds.CalmDataset(TByteTokenizer(), **args),
+            jds.CalmDataset(ByteTokenizer(), **args))
+
+
+PACK_ASR = dict(asr_pack_rows=2, asr_pack_len=300, asr_pack_segments=3)
+PACK_TTS = dict(tts_pack_rows=2, tts_pack_len=200, tts_pack_segments=3)
+MIX_CASES = {
+    "asr_plain": ("asr", dict(batch_size=4, asr_text_pad=32,
+                              audio_buckets=[64, 16, 32, 48])),
+    "asr_grouped": ("asr", dict(batch_size=3, asr_text_pad=90,
+                                audio_buckets=[16, 32, 48, 64],
+                                length_group_window=2)),
+    "asr_packed": ("asr", dict(batch_size=4, **PACK_ASR)),
+    "mix_plain": ("mix", dict(batch_size=4, asr_text_pad=32,
+                              audio_buckets=[32, 64], length_group_window=2)),
+    # calm.yaml's data settings, both streams packed
+    "mix_packed": ("mix", dict(batch_size=4, asr_text_pad=32,
+                               audio_buckets=[16, 32, 48, 64],
+                               length_group_window=2, **PACK_ASR,
+                               **PACK_TTS)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(MIX_CASES))
+def test_asr_and_mix_iterators_match_jax(mixed_store, case):
+    """Two epochs of training batches (SpecAugmented) and one eval pass:
+    the same batches and the same task sequence as the JAX iterator with
+    the same seed; the mix draws both tasks."""
+    task_mode, kw = MIX_CASES[case]
+    tset, jset = _mixed_datasets(mixed_store, task_mode)
+    assert len(tset.asr_items) == len(jset.asr_items) == 36
+    for i in range(len(tset.asr_items)):
+        a, b = tset.get("asr", i), jset.get("asr", i)
+        for k in ("input_ids", "labels", "audio"):
+            np.testing.assert_array_equal(getattr(a, k), getattr(b, k))
+    kw = dict(kw, pad_token_id=0, latent_dim=LAT, seed=23,
+              task_prob_tts=0.5 if task_mode == "mix" else 0.0)
+    for training, epochs in ((True, 2), (False, 1)):
+        got = list(tcol.calm_batch_iterator(tset, training=training,
+                                            epochs=epochs, **kw))
+        ref = list(jcol.calm_batch_iterator(jset, training=training,
+                                            epochs=epochs, **kw))
+        tasks = [b["task"] for b in got]
+        assert tasks == [b["task"] for b in ref] and len(tasks) > 2
+        want = {"asr_packed" if "asr_pack_rows" in kw else "asr"}
+        if task_mode == "mix":
+            want.add("tts_packed" if "tts_pack_rows" in kw else "tts")
+        assert set(tasks) == want
+        for a, b in zip(got, ref):
+            assert set(a) == set(b)
+            assert a.get("n_samples") == b.get("n_samples")
+            for k in a:
+                if k not in ("task", "n_samples"):
+                    np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+                    assert a[k].dtype == b[k].dtype, k
 
 
 def test_prefetch_keeps_order_and_passes_errors():

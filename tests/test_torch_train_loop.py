@@ -1,17 +1,22 @@
 """The port's training loop, train-state checkpoints and training entry
 point on the CPU (mirroring tests/test_resume.py and
-tests/test_observability.py of the JAX package).
+tests/test_observability.py of the JAX package), for task_mode tts, asr
+and mix.
 
-Bounds: none but exact ones. Restored tensors and optimizer state are
+Bounds: exact ones but two. Restored tensors and optimizer state are
 compared bit for bit; checkpoint retention is compared with orbax's
 manager under the options the JAX package sets; MFU is checked against
-its own formula to 1e-6 relative (float arithmetic on logged values).
+its own formula to 1e-6 relative (float arithmetic on logged values); the
+optimizer over a mix's tasks against optax to 1e-6 of the largest value
+(fp32 Adam arithmetic, the schedule in float64 here, the bound of
+tests/test_torch_train_tts.py).
 """
 
 import json
 import os
 
 import numpy as np
+import optax
 import orbax.checkpoint as ocp
 import pytest
 import torch
@@ -22,9 +27,12 @@ from audio_calm_torch.models.calm import QwenCALM
 from audio_calm_torch.train import checkpoint as tckpt
 from audio_calm_torch.train import train_calm
 from audio_calm_torch.train.loop import run_training
-from audio_calm_torch.train.optim import AdamW
+from audio_calm_torch.train.optim import AdamW, calm_param_label
 from audio_calm_torch.utils import profiling
+from audio_calm_tpu.config import TrainingConfig as JTrainingConfig
 from audio_calm_tpu.train.checkpoint import make_manager as j_make_manager
+from audio_calm_tpu.train.optim import calm_param_label as j_label
+from audio_calm_tpu.train.optim import make_optimizer as j_make_optimizer
 
 TINY_YAML = """\
 model:
@@ -347,7 +355,7 @@ def test_train_calm_entry_point_on_cpu(tmp_path, capsys):
             "--max-steps", "3"]
     run = train_calm.train(argv)
     log = capsys.readouterr().out
-    assert "dataset: 20 tts items" in log and "[step 2] eval_loss=" in log
+    assert "dataset: 20 tts + 0 asr items" in log and "[step 2] eval_loss=" in log
     recs = [json.loads(l) for l in open(out / "metrics.jsonl")]
     train_recs = [r for r in recs if "loss" in r]
     assert [r["step"] for r in train_recs] == [1, 2, 3]
@@ -375,3 +383,151 @@ def test_train_calm_entry_point_on_cpu(tmp_path, capsys):
     assert len(names) > 40
     for n in names:  # fp32 masters through the reference layout, exactly
         assert torch.equal(loaded[n], trained[n].float()), n
+
+
+# --------------------------------------------------------------------------
+# ASR and the mix
+# --------------------------------------------------------------------------
+MIX_DATA = """\
+data:
+  task_mode: {mode}
+  task_prob_tts: 0.5
+  datasets:
+    asr:
+      latent_dir: {store}/train/LibriSpeech
+      eval_latent_dir: {store}/dev/LibriSpeech
+      subsets: train-clean-100
+    tts:
+      latent_dir: {store}/train/LibriTTS_R
+      eval_latent_dir: {store}/dev/LibriTTS_R
+      subsets: train-clean-100
+  eval_subsets: dev-clean
+  max_text_len: 96
+  max_audio_len: 48
+  audio_buckets: [24, 48]
+  length_group_window: 2
+  asr_text_pad: 32
+  asr_pack_rows: 4
+  asr_pack_len: 160
+  asr_pack_segments: 2
+  tts_pack_rows: 4
+  tts_pack_len: 128
+  tts_pack_segments: 2
+training:
+  output_dir: {out}
+  per_device_train_batch_size: 4
+  gradient_accumulation_steps: 2
+  microbatch_steps: 4
+  tts_microbatch_steps: 2
+"""
+
+
+def _mix_yaml(tmp_path, store, out, mode):
+    """TINY_YAML's model and training with both tasks' data: packed ASR
+    rows in 4 slices, packed TTS rows in 2, updates every 2 steps."""
+    model = TINY_YAML[:TINY_YAML.index("data:")]
+    train = TINY_YAML[TINY_YAML.index("training:"):].split("\n", 2)[2]
+    path = tmp_path / f"{mode}.yaml"
+    path.write_text(model + MIX_DATA.replace("{mode}", mode).replace(
+        "{store}", str(store)).replace("{out}", str(out)) + train)
+    return path
+
+
+@pytest.mark.parametrize("mode, steps", [("asr", 3), ("mix", 4)])
+def test_train_calm_asr_and_mix_on_cpu(tmp_path, capsys, mode, steps):
+    """train_calm in-process on a store with both tasks: task_mode asr
+    trains packed ASR steps only; the mix (seed 42) trains both tasks'
+    packed steps on one optimizer, whose update count runs across them;
+    evals (over both tasks in the mix), checkpoints, and the components
+    loaded back through load_component."""
+    store, out = tmp_path / "store", tmp_path / "out"
+    assert synth_corpus.main(["--out", str(store), "--asr-n", "16",
+                              "--tts-n", "16", "--dev-n", "4",
+                              "--latent-dim", "8", "--chunk", "8"]) == 0
+    argv = ["--config", str(_mix_yaml(tmp_path, store, out, mode)),
+            "--byte-tokenizer", "--device", "cpu", "--max-steps", str(steps)]
+    run = train_calm.train(argv)
+    log = capsys.readouterr().out
+    tts = 16 if mode == "mix" else 0
+    assert f"dataset: {tts} tts + 16 asr items" in log
+    assert "asr_packed step: " in log and ("tts_packed step: " in log) == (
+        mode == "mix")
+    assert "[step 2] eval_loss=" in log
+    assert sorted(run.steps) == (["asr_packed", "tts_packed"]
+                                 if mode == "mix" else ["asr_packed"])
+    kinds = ["asr" if "loss_asr" in r else "tts" for r in run.history]
+    assert [r["step"] for r in run.history] == list(range(1, steps + 1))
+    assert set(kinds) == ({"asr", "tts"} if mode == "mix" else {"asr"})
+    for r in run.history:
+        assert np.isfinite(r["loss"]) and r["loss_den"] > 0
+        assert r["samples_per_sec"] > 0
+    # one optimizer: `steps` calls, MultiSteps updates every 2 across tasks
+    assert run.optimizer.count == steps // 2
+    assert tckpt.make_manager(out, 2, "loss").all_steps() == [2, steps]
+    comp = run.components_dir
+    listed = json.load(open(os.path.join(comp, "components.json")))
+    assert {"lora", "asr_flow_head", "asr_query_embed"} <= set(
+        listed["components"])
+    trained = tckpt.component_state_dict(run.model)
+    assert "in_proj" in tckpt.load_component(comp, "asr_flow_head")
+    fresh = QwenCALM(load_config(str(_mix_yaml(tmp_path, store, out, mode)),
+                                 cls=CALMConfig).model)
+    tckpt.soft_restart(fresh, {c: comp for c in tckpt.COMPONENTS + ("lora",)})
+    loaded = fresh.state_dict()
+    for n, v in trained.items():
+        assert torch.equal(loaded[n], v.float()), n
+
+
+MIX_PARAMS = {  # JAX paths: both tasks' heads and what they share
+    ("tts_flow_head", "in_proj", "kernel"): (4, 3),
+    ("tts_len_predictor", "fc1", "bias"): (5,),
+    ("asr_flow_head", "in_proj", "kernel"): (4, 3),
+    ("asr_cross_attn", "q_proj", "bias"): (4,),
+    ("asr_query_embed", "embedding"): (6, 4),
+    ("llm", "layers_0", "self_attn", "q_proj", "lora_a"): (4, 2),
+    ("soa_embed",): (1, 1, 4),
+}
+ASR_ONLY = ("asr_flow_head", "asr_cross_attn", "asr_query_embed")
+TTS_ONLY = ("tts_flow_head", "tts_len_predictor", "tts_dur_predictor")
+
+
+def test_idle_task_moves_by_decay_as_in_jax():
+    """The mix's one optimizer over tasks that alternate: each step's
+    other-task tensors get no gradient (None in the port, zeros in JAX's
+    tree) and still move by AdamW's momentum and decay, and MultiSteps
+    accumulates a TTS and an ASR batch into one update, as optax does."""
+    cfg = dict(learning_rate=1e-2, weight_decay=0.1, warmup_ratio=0.0,
+               gradient_accumulation_steps=2, max_grad_norm=0.5)
+    rng = np.random.default_rng(6)
+    init = {k: rng.standard_normal(s).astype(np.float32)
+            for k, s in MIX_PARAMS.items()}
+    names = {k: "/".join(k) for k in MIX_PARAMS}
+    labels = {k: calm_param_label(k, task_mode="mix") for k in MIX_PARAMS}
+    assert labels == {k: j_label(k, task_mode="mix") for k in MIX_PARAMS}
+    tx = j_make_optimizer(JTrainingConfig(**cfg), init,
+                          lambda k: j_label(k, task_mode="mix"), 6)
+    state, jparams = tx.init(init), dict(init)
+    tparams = {names[k]: torch.from_numpy(v.copy()) for k, v in init.items()}
+    opt = AdamW(tparams, {names[k]: labels[k] for k in MIX_PARAMS},
+                TrainingConfig(**cfg), 6)
+    before = None
+    for i, task in enumerate(["tts", "asr", "asr", "tts", "tts", "tts"]):
+        idle = ASR_ONLY if task == "tts" else TTS_ONLY
+        g = {k: (np.zeros(s, np.float32) if k[0] in idle else
+                 rng.standard_normal(s).astype(np.float32))
+             for k, s in MIX_PARAMS.items()}
+        upd, state = tx.update(g, state, jparams)
+        jparams = optax.apply_updates(jparams, upd)
+        opt.step({names[k]: None if k[0] in idle else torch.from_numpy(v)
+                  for k, v in g.items()})
+        for k in MIX_PARAMS:
+            ref = np.asarray(jparams[k])
+            err = np.max(np.abs(tparams[names[k]].numpy() - ref))
+            assert err <= 1e-6 * np.max(np.abs(ref)), (i, k)
+        if i == 3:
+            before = {k: tparams[names[k]].clone() for k in MIX_PARAMS}
+    assert opt.count == 3
+    # steps 5-6 were TTS batches only: the ASR heads moved all the same
+    for k in MIX_PARAMS:
+        if k[0] in ASR_ONLY:
+            assert not torch.equal(tparams[names[k]], before[k]), k

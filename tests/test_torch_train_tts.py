@@ -42,8 +42,8 @@ from audio_calm_torch.ops.flow import compute_flow_loss as t_flow_loss
 from audio_calm_torch.ops.mas import monotonic_alignment_search as t_mas
 from audio_calm_torch.train import optim as toptim
 from audio_calm_torch.train.loop import run_training
-from audio_calm_torch.train.steps import (accumulate_tts_grads, make_calm_step,
-                                          tts_slice_loss)
+from audio_calm_torch.train.steps import (accumulate_grads, make_calm_step,
+                                          slice_loss)
 from audio_calm_tpu.config import (CALMModelConfig, LoRAConfig, Qwen2Config,
                                    TrainingConfig)
 from audio_calm_tpu.models.calm import QwenCALM
@@ -394,14 +394,14 @@ def test_microbatch_grads_are_the_mean_of_the_slices(calm_setup):
     toptim.freeze(tmodel, TTrainingConfig())
     tb = _torch_batch(batch)
     trainable = [p for p in tmodel.parameters() if p.requires_grad]
-    metrics = accumulate_tts_grads(tmodel, tb, 2, seed=9)
+    metrics = accumulate_grads(tmodel, tb, 2, seed=9)
     acc = [None if p.grad is None else p.grad.clone() for p in trainable]
     per_slice, losses = [], []
     for i in range(2):
         for p in trainable:
             p.grad = None
         sub = {k: v[2 * i:2 * i + 2] for k, v in tb.items()}
-        out = tts_slice_loss(tmodel, sub, derive_seed(9, i))
+        out = slice_loss(tmodel, sub, derive_seed(9, i))
         out["loss"].backward()
         losses.append(float(out["loss"]))
         per_slice.append([None if p.grad is None else p.grad.clone()
@@ -416,6 +416,10 @@ def test_microbatch_grads_are_the_mean_of_the_slices(calm_setup):
 
 
 def test_checkpointed_block_equals_plain_with_dropout():
+    """Full and selective ("dots") remat against no remat, LoRA dropout on:
+    the same output bit for bit and the same gradients, on plain rows and
+    on packed rows (segment ids: the plain masked attention, whose
+    products "dots" keeps)."""
     from audio_calm_torch.config import LoRAConfig as TLoRAConfig
     from audio_calm_torch.config import Qwen2Config as TQwen2Config
 
@@ -424,28 +428,68 @@ def test_checkpointed_block_equals_plain_with_dropout():
     plain = TQwen2Model(TQwen2Config.tiny(), lora, remat_policy="none")
     for p in plain.parameters():
         p.data.normal_(0.0, 0.1)
-    remat = TQwen2Model(TQwen2Config.tiny(), lora, remat_policy="full")
-    remat.load_state_dict(plain.state_dict())
-    for i, m in enumerate(m for m in list(plain.modules())
-                          + list(remat.modules()) if hasattr(m, "dropout_site")):
-        m.dropout_site = i % 14  # the same site numbers in both models
+    models = [plain]
+    for policy in ("full", "dots"):
+        models.append(TQwen2Model(TQwen2Config.tiny(), lora,
+                                  remat_policy=policy))
+        models[-1].load_state_dict(plain.state_dict())
+    for model in models:  # the same site numbers in every model
+        for i, m in enumerate(m for m in model.modules()
+                              if hasattr(m, "dropout_site")):
+            m.dropout_site = i
     x = torch.randn(2, 9, 64)
     mask = torch.ones(2, 9, dtype=torch.int32)
     mask[1, 4:8] = 0
-    outs, grads = [], []
-    for model in (plain, remat):
-        xi = x.clone().requires_grad_()
-        out = model(xi, mask, train=True, seed=3)
-        (out * torch.linspace(-1, 1, 64)).sum().backward()
-        outs.append(out.detach())
-        grads.append([xi.grad] + [p.grad for p in model.parameters()])
-    torch.testing.assert_close(outs[0], outs[1], rtol=0, atol=0)
-    for a, b in zip(*grads):
-        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)
+    seg = torch.tensor([[1, 1, 1, 2, 2, 2, 2, 2, 0], [1, 1, 2, 2, 2, 3, 3, 3,
+                                                      3]])
+    for kw in ({}, {"segment_ids": seg}):
+        outs, grads = [], []
+        for model in models:
+            model.zero_grad(set_to_none=True)
+            xi = x.clone().requires_grad_()
+            out = model(xi, mask, train=True, seed=3, **kw)
+            (out * torch.linspace(-1, 1, 64)).sum().backward()
+            outs.append(out.detach())
+            grads.append([xi.grad] + [p.grad for p in model.parameters()])
+        for other in (1, 2):
+            torch.testing.assert_close(outs[0], outs[other], rtol=0, atol=0)
+            for a, b in zip(grads[0], grads[other]):
+                torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)
     with torch.no_grad():  # dropout is on: another seed, another output
-        assert not torch.equal(plain(x, mask, train=True, seed=4), outs[0])
-    with pytest.raises(NotImplementedError):
-        TQwen2Model(TQwen2Config.tiny(), lora, remat_policy="dots")
+        assert not torch.equal(plain(x, mask, train=True, seed=4),
+                               plain(x, mask, train=True, seed=3))
+    with pytest.raises(ValueError, match="remat_policy"):
+        TQwen2Model(TQwen2Config.tiny(), lora, remat_policy="some")
+
+
+def test_dots_remat_keeps_the_products():
+    """Under "dots" the backward recomputes no matrix product: it runs as
+    many as with no remat, and "full" runs the forward's again."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from audio_calm_torch.config import LoRAConfig as TLoRAConfig
+    from audio_calm_torch.config import Qwen2Config as TQwen2Config
+
+    class Products(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func.overloadpacket in (torch.ops.aten.mm, torch.ops.aten.addmm,
+                                       torch.ops.aten.bmm):
+                self.n += 1
+            return func(*args, **(kwargs or {}))
+
+    counts = {}
+    for policy in ("none", "dots", "full"):
+        torch.manual_seed(0)
+        model = TQwen2Model(TQwen2Config.tiny(), TLoRAConfig(
+            rank=4, alpha=8.0, dropout=0.5), remat_policy=policy)
+        out = model(torch.randn(2, 9, 64, requires_grad=True), train=True,
+                    seed=1)
+        with Products() as mode:
+            out.sum().backward()
+        counts[policy] = mode.n
+    assert counts["dots"] == counts["none"] < counts["full"], counts
 
 
 def test_training_loop_bf16_compute(calm_setup, tmp_path):
@@ -493,21 +537,23 @@ def test_training_loop_bf16_compute(calm_setup, tmp_path):
 
 
 def test_remat_policies_agree(calm_setup):
-    """'full' recomputes, 'none' keeps activations: the same loss and
+    """'full' recomputes every block, 'dots' keeps the products' outputs
+    and recomputes the rest, 'none' keeps activations: the same loss and
     gradients (JAX's test of its policies)."""
     _, cfg, params, batch = calm_setup
     results = []
-    for policy in ("full", "none"):
+    for policy in ("full", "dots", "none"):
         tmodel = _port_model(params, cfg, remat_policy=policy)
         toptim.freeze(tmodel, TTrainingConfig())
-        out = tts_slice_loss(tmodel, _torch_batch(batch), seed=5)
+        out = slice_loss(tmodel, _torch_batch(batch), seed=5)
         out["loss"].backward()
         results.append((float(out["loss"]),
                         [copy.deepcopy(p.grad) for p in tmodel.parameters()
                          if p.requires_grad]))
-    assert results[0][0] == results[1][0]
-    for a, b in zip(results[0][1], results[1][1]):
-        if a is None:
-            assert b is None
-        else:
-            torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)
+    for other in results[1:]:
+        assert results[0][0] == other[0]
+        for a, b in zip(results[0][1], other[1]):
+            if a is None:
+                assert b is None
+            else:
+                torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)
