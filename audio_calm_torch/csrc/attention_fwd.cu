@@ -50,9 +50,10 @@
 //   walk fewer key tiles along the diagonal. At the short text encodes it
 //   measured slower (fewer blocks, the same chain) and is off.
 // - Key split (attention_plan: a long key walk on a small grid): 2
-//   consumer warpgroups take alternate key tiles of one query tile and
-//   merge (max, sum, output) in shared memory, warpgroup 1 into 0, in a
-//   fixed order. No atomics.
+//   consumer warpgroups take alternate key tiles of one query tile, each
+//   through ring stages of its own (stages below), and merge (max, sum,
+//   output) in shared memory, warpgroup 1 into 0, in a fixed order. No
+//   atomics.
 // The plan (packing, consumers) is a function of (T, S, Hq, Hkv, d,
 // causal), never of B, and a block's work depends on its (tile, head,
 // batch row) alone: row b of a batch equals the same row launched alone,
@@ -222,10 +223,16 @@ struct Slab {
   static constexpr uint32_t kGroup = 8 * kRowBytes;      // 8 rows: a core group
 };
 
-// ring stages: one a consumer warpgroup and one in flight; four where the
-// tiles are small (d <= 64), so the copies run further ahead
+// ring stages: two a consumer warpgroup, one in use and one in flight; four
+// where the tiles are small (d <= 64), so the copies run further ahead.
+// The count is a multiple of NC, so that key tile i's stage i % NS is only
+// ever read by its warpgroup i % NC: a consumer then waits on a stage's
+// barriers only after it consumed the stage's previous tile itself, never
+// two phases ahead, where a parity wait cannot tell the phase it waits for
+// from the one before and returns at once (were stage 0 shared, warpgroup
+// 1 could read it as key tile NS before warpgroup 0's tile 0 landed)
 template <int D, int NC>
-__host__ __device__ constexpr int stages() { return D <= 64 ? 4 : NC + 1; }
+__host__ __device__ constexpr int stages() { return D <= 64 ? 4 : 2 * NC; }
 
 // shared memory: [barriers: 1 KB | Q tile | stages x (K tile, V tile)],
 // the tiles 1024-byte aligned; 1 KB of slack aligns the base
@@ -274,6 +281,7 @@ attention_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
                  int tiles, int groups, int B, int causal, float scale) {
   using L = Slab<D>;
   constexpr int NS = stages<D, NC>(), NO = D / 2;
+  static_assert(NS % NC == 0, "a ring stage belongs to one consumer warpgroup");
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023) & ~1023u;

@@ -2,9 +2,9 @@
 collator.py): static-shape collation with SpecAugment on ASR batches, the
 first-fit-decreasing pack plan of TTS texts and of ASR [audio | SOA |
 prompt] segments into LLM rows, and the task-homogeneous batch iterator
-(the Bernoulli task draw of the mix, buckets, length grouping, packing).
-Batches are numpy arrays, equal to the JAX package's for the same store
-and seed.
+(the Bernoulli task draw of the mix, buckets, length grouping, packing),
+and `mel_batch_iterator`, the VAE's mel-crop batches. Batches are numpy
+arrays, equal to the JAX package's for the same store and seed.
 
 Not ported yet, and raising NotImplementedError where reached: multi-host
 iteration (`process_count > 1`; ROADMAP Queue 1 item 8).
@@ -16,7 +16,8 @@ from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
-from audio_calm_torch.data.datasets import CalmDataset, CalmExample
+from audio_calm_torch.data.datasets import (CalmDataset, CalmExample,
+                                            MelDataset)
 
 
 def spec_augment(audio: np.ndarray, rng: np.random.Generator,
@@ -467,6 +468,48 @@ def calm_batch_iterator(
                 f"{len(dataset.tts_items)} tts + {len(dataset.asr_items)} asr "
                 f"items but batch_size={batch_size}; reduce the batch size "
                 "or add data")
+        epoch += 1
+        if not training:
+            return
+
+
+def mel_batch_iterator(dataset: MelDataset, batch_size: int,
+                       training: bool = True, seed: int = 0,
+                       epochs: Optional[int] = None, process_index: int = 0,
+                       process_count: int = 1
+                       ) -> Iterator[Dict[str, np.ndarray]]:
+    """{"mel": [batch_size, crop_size, n_mels]} batches: a permutation of
+    the dataset per epoch from `default_rng(seed)`, training crops from
+    `default_rng((seed, process_index))`, the last partial batch dropped,
+    a batch with a failed load skipped. A training epoch that yields no
+    batch raises (it would repeat forever); eval stops after one epoch."""
+    if process_count > 1:
+        raise NotImplementedError(
+            "multi-host iteration (process_count > 1) is not ported yet "
+            "(ROADMAP Queue 1 item 8)")
+    rng = np.random.default_rng(seed)
+    crop_rng = np.random.default_rng((seed, process_index))
+    epoch = 0
+    while epochs is None or epoch < epochs:
+        order = rng.permutation(len(dataset))
+        yielded = False
+        for i in range(0, len(order) - batch_size + 1, batch_size):
+            mels = []
+            for j in order[i: i + batch_size]:
+                try:
+                    mels.append(dataset.get(int(j),
+                                            crop_rng if training else None))
+                except Exception:
+                    continue
+            if len(mels) < batch_size:
+                continue
+            yielded = True
+            yield {"mel": np.stack(mels)}
+        if training and not yielded:
+            raise ValueError(
+                f"no full batch can be formed: dataset has {len(dataset)} "
+                f"items but (global) batch_size={batch_size}; reduce the "
+                f"batch size or add data")
         epoch += 1
         if not training:
             return

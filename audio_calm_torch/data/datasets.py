@@ -1,6 +1,6 @@
-"""Datasets over the offline latent store (counterpart of
-audio_calm_tpu/data/datasets.py, its CALM half; `MelDataset` comes with VAE
-training, ROADMAP Queue 1 item 6).
+"""Datasets over the offline latent and mel stores (counterpart of
+audio_calm_tpu/data/datasets.py): `CalmDataset` for CALM training,
+`MelDataset` (mel crops) for VAE training.
 
 Storage contract (the reference's): per utterance one array file next to
 `*.trans.txt` transcript files of "<file_id> <text>" lines. Read: the
@@ -232,3 +232,45 @@ class CalmDataset:
             labels = np.asarray(target, np.int32)
         return CalmExample(input_ids=np.asarray(ids, np.int32),
                            labels=labels, audio=audio, mode=mode)
+
+
+class MelDataset:
+    """Mel-crop dataset for VAE training (reference train_vae.py:27-107):
+    every array file under `<data_dir>/<subset>/**`, per subset and
+    extension in sorted glob order, the first `max_samples` kept."""
+
+    def __init__(self, data_dir: str, subsets: str, crop_size: int = 256,
+                 training: bool = True, max_samples: Optional[int] = None,
+                 n_mels: int = 80):
+        self.crop_size = crop_size
+        self.training = training
+        self.n_mels = n_mels  # decides the stored layout (_is_dt_layout)
+        self.files: List[str] = []
+        for subset in [s.strip() for s in subsets.split(",") if s.strip()]:
+            for ext in ARRAY_EXTS:
+                self.files.extend(sorted(glob(
+                    os.path.join(data_dir, subset, "**", f"*{ext}"),
+                    recursive=True)))
+        if max_samples:
+            self.files = self.files[:max_samples]
+
+    def __len__(self):
+        return len(self.files)
+
+    def get(self, idx: int, rng: Optional[np.random.Generator] = None
+            ) -> np.ndarray:
+        """-> [crop_size, n_mels] float32: a random crop from `rng` when
+        training, else the centre crop; a short mel zero-padded."""
+        mel = load_array(self.files[idx], key_priority=("mel", "latent"),
+                         expected_dim=self.n_mels)
+        T = mel.shape[0]
+        cs = self.crop_size
+        if T >= cs:
+            if self.training and rng is not None:
+                t0 = int(rng.integers(0, T - cs + 1))
+            else:
+                t0 = (T - cs) // 2
+            return mel[t0: t0 + cs]
+        out = np.zeros((cs, mel.shape[1]), np.float32)
+        out[:T] = mel
+        return out

@@ -8,16 +8,23 @@ ConvTranspose(512->512, k=2s, s, p=s//2) + ResBlock; Conv(512->80, k3 p1).
 With a validity mask [B, T, 1] the GroupNorm statistics cover valid frames
 only and activations are re-zeroed before each conv, so a padded row
 encodes (decodes) its valid frames exactly as the exact-length tensor
-would. The training losses (SSIM, multi-resolution STFT) and training-mode
-sampling are still to be ported. `load_vae` reads a reference (torch)
-checkpoint file.
+would. `load_vae` reads a reference (torch) checkpoint file.
+
+Training (JAX vae.py:134-153, 176-232): `AcousticVAE.forward(mel, train)`
+normalizes the mel, encodes, samples z = mu + eps * exp(logvar / 2) with
+latent dropout in train mode (the mean in eval mode), decodes, and returns
+the loss terms on the normalized mel: L1 (or MSE), `ssim_weight` x SSIM
+(ops/ssim.py), `stft_loss_weight` x `multires_stft_loss` and `kl_weight` x
+KL, with the reconstruction, z, mu and logvar. eps comes from an explicit
+generator (or is passed in) and the dropout mask from a seed, as the CALM
+training steps draw theirs.
 """
 
 from __future__ import annotations
 
 import json
 import os
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -26,6 +33,9 @@ from audio_calm_torch import resolve_device
 from audio_calm_torch.config import VAEModelConfig, from_dict
 from audio_calm_torch.models.layers import (Conv1d, ConvTranspose1d,
                                             GroupNorm, gelu)
+from audio_calm_torch.ops.dropout import dropout
+from audio_calm_torch.ops.mel import stft_power
+from audio_calm_torch.ops.ssim import ssim_loss
 
 
 class ResBlock(nn.Module):
@@ -139,14 +149,97 @@ class AcousticVAE(nn.Module):
         return self.decoder(z, mask)
 
     def reparameterize(self, mu: torch.Tensor, logvar: torch.Tensor,
-                       train: bool = False) -> torch.Tensor:
-        """Eval mode: the mean. Training-mode sampling (noise and latent
-        dropout) comes with the VAE's training step."""
-        if train:
-            raise NotImplementedError(
-                "AcousticVAE.reparameterize(train=True) is not ported yet: "
-                "ROADMAP.md Queue 1, VAE training")
-        return mu
+                       train: bool = False,
+                       generator: Optional[torch.Generator] = None,
+                       seed: int = 0, eps: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
+        """Eval mode: the mean. Train mode: mu + eps * exp(logvar / 2), eps
+        standard normal from `generator` unless given, then latent dropout
+        at cfg.latent_dropout (kept values scaled by 1 / (1 - rate)) with
+        the mask fixed by `seed`."""
+        if not train:
+            return mu
+        std = torch.exp(0.5 * logvar)
+        if eps is None:
+            eps = torch.randn(mu.shape, generator=generator,
+                              device=mu.device, dtype=mu.dtype)
+        z = mu + eps.to(mu.dtype) * std
+        return dropout(z, self.cfg.latent_dropout, seed)
+
+    def forward(self, mel: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None, seed: int = 0,
+                eps: Optional[torch.Tensor] = None
+                ) -> Dict[str, torch.Tensor]:
+        """mel [B, T, n_mels] raw log-mel, T a multiple of total_stride ->
+        loss, rec_loss, ssim_loss, stft_loss, kl_loss (fp32 scalars),
+        recon_mel (denormalized), z, mu, logvar."""
+        c = self.cfg
+        if mel.shape[1] % c.total_stride != 0:
+            raise ValueError(
+                f"mel time dim {mel.shape[1]} must be a multiple of "
+                f"total_stride={c.total_stride}; use vae.pad_to_stride() "
+                "first")
+        mel_n = (mel - c.mel_mean) / c.mel_std
+        mu, logvar = self.encode(mel_n)
+        z = self.reparameterize(mu, logvar, train, generator, seed, eps)
+        recon = self.decode(z)
+        if c.use_l1_loss:
+            rec_loss = (recon - mel_n).abs().mean()
+        else:
+            rec_loss = ((recon - mel_n) ** 2).mean()
+        ssim = ssim_loss(recon.transpose(1, 2), mel_n.transpose(1, 2))
+        stft_l = multires_stft_loss(recon, mel_n)
+        mu_f, lv_f = mu.float(), logvar.float()
+        kl = (0.5 * (mu_f ** 2 + torch.exp(lv_f) - 1.0 - lv_f)).mean()
+        loss = (rec_loss + c.ssim_weight * ssim + c.stft_loss_weight * stft_l
+                + c.kl_weight * kl)
+        return {"loss": loss, "rec_loss": rec_loss, "ssim_loss": ssim,
+                "stft_loss": stft_l, "kl_loss": kl,
+                "recon_mel": recon * c.mel_std + c.mel_mean, "z": z,
+                "mu": mu, "logvar": logvar}
+
+
+def multires_stft_loss(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Multi-resolution STFT magnitude L1 over mel-bin "channels": x, y
+    [B, T, C], each of the C bins a 1-D signal; specs (256, 64), (128, 32),
+    (64, 16) filtered to n_fft <= T, center=False, Hann window, the mean
+    |mag_x - mag_y| of each, averaged over the specs (0 when none fits)."""
+    B, T, C = x.shape
+    specs = [(n, h) for (n, h) in ((256, 64), (128, 32), (64, 16)) if n <= T]
+    if not specs:
+        return torch.zeros((), dtype=x.dtype, device=x.device)
+    xf = x.transpose(1, 2).reshape(B * C, T).float()
+    yf = y.transpose(1, 2).reshape(B * C, T).float()
+    loss = 0.0
+    for n_fft, hop in specs:
+        mx = stft_power(xf, n_fft, hop, center=False, power=1.0)
+        my = stft_power(yf, n_fft, hop, center=False, power=1.0)
+        loss = loss + (mx - my).abs().mean()
+    return loss / len(specs)
+
+
+@torch.no_grad()
+def init_vae_(vae: AcousticVAE, seed: int = 0) -> AcousticVAE:
+    """Fresh training weights drawn from one seeded generator, with flax's
+    initializers (the JAX package's `model.init`): every conv and
+    transposed-conv kernel lecun-normal (a normal truncated at 2 sigma,
+    variance 1 / (k x C_in)), biases 0, GroupNorm scales 1 and biases 0."""
+    gens = {}
+    for m in vae.modules():
+        if isinstance(m, (Conv1d, ConvTranspose1d)):
+            w = m.weight
+            if w.device not in gens:
+                gens[w.device] = torch.Generator(w.device).manual_seed(seed)
+            c_in = w.shape[1] if isinstance(m, Conv1d) else w.shape[0]
+            # flax's truncated normal: unit variance after truncation
+            std = (1.0 / (c_in * w.shape[2])) ** 0.5 / .87962566103423978
+            nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std,
+                                  generator=gens[w.device])
+            m.bias.zero_()
+        elif isinstance(m, GroupNorm):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
+    return vae
 
 
 def load_vae(ckpt_path: str, cfg: Optional[VAEModelConfig] = None,
@@ -155,7 +248,8 @@ def load_vae(ckpt_path: str, cfg: Optional[VAEModelConfig] = None,
     / .safetensors, reference preprocess/core.py:63-91) -> AcousticVAE on
     `device` (None = the card), eval mode, no gradients. Without `cfg`, a
     `vae_config.json` sidecar in the directory or beside the file gives the
-    geometry (scripts/train_vae.py writes it), else VAEModelConfig(). A
+    geometry (scripts/train_vae.py and train/train_vae.py write it, the
+    latter beside its exported vae.bin), else VAEModelConfig(). A
     directory is the JAX package's orbax checkpoint, which the port cannot
     read: it raises, as a missing file does. (models/convert.load_vae
     carries a JAX tree across instead.)"""

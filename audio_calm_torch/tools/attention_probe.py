@@ -2,7 +2,7 @@
 shapes, on one card.
 
     python -m audio_calm_torch.tools.attention_probe [--old-csrc DIR]
-        [--plans] [--reps N] [--out FILE]
+        [--plans] [--reps N] [--repeats N] [--out FILE]
 
 For every row of ROWS (the shapes the shipped configs launch, bf16, with
 the masks they carry) it checks the shipped kernel against its plain
@@ -17,10 +17,16 @@ over 3.35 TB/s and the attended pairs' products over 989 TFLOP/s).
 headers beside it) into a library of its own and measures it in the same
 process, interleaved with the shipped kernel (old, new, new, old),
 through its C entry `attention_fwd(q, k, v, valid, out, is_bf16, B, T, S,
-Hq, Hkv, D, causal, stream)`. --plans also times the shipped kernel under
-every plan `attention_kernel.candidate_plans` offers for the row, and
-prints the fastest. Prints the card's name and power limit, a line per
-row and, last, one JSON object, also written to FILE when given.
+Hq, Hkv, D, causal, stream)`, or the shipped entry's signature (with the
+plan's packing and warpgroups) where DIR's source takes them. --plans
+also times the shipped kernel under every plan
+`attention_kernel.candidate_plans` offers for the row, and prints the
+fastest. --repeats N times nothing: for each row that takes the key
+split, at B = 16, it counts the launches of N (`repeat_mismatches`) whose
+output differs from the first, for the shipped kernel and, with
+--old-csrc, the earlier one (old, new, new, old). Prints the card's name
+and power limit, a line per row and, last, one JSON object, also written
+to FILE when given.
 
 chip_smoke.py's phase 6 measures the same ROWS through `time_row`.
 """
@@ -100,6 +106,30 @@ def row_inputs(row, device, seed=0, dtype=torch.bfloat16):
     return q, k, v, valid
 
 
+def repeat_mismatches(q, k, v, valid, causal, repeats: int,
+                      flush_bytes: int = 256 << 20, launch=None) -> int:
+    """Launch `attention_fwd` (or `launch()`, which returns its output)
+    `repeats` times on the same inputs, each after a write of
+    `flush_bytes` (an L2 flush, so that a block's tile copies land in a
+    varying order) -> how many outputs differ from the first launch's in
+    any bit or hold a value that is not finite. The kernel's output
+    depends on its inputs alone, so any count but 0 is a fault: a
+    warpgroup that reads a ring stage before its tile landed does so only
+    now and then."""
+    if launch is None:
+        launch = lambda: ak.attention_fwd(q, k, v, valid, causal)
+    first = launch().clone()
+    ref = first.view(torch.uint8)
+    flush = torch.empty(flush_bytes, dtype=torch.uint8, device=q.device)
+    bad = (~torch.isfinite(first)).any().long()
+    for _ in range(repeats):
+        flush.fill_(1)
+        out = launch()
+        bad += ((out.view(torch.uint8) != ref).any()
+                | (~torch.isfinite(out)).any())
+    return int(bad)
+
+
 def attn_cost(q, k, valid, causal):
     """(FLOP, bytes) attention needs on this data: 4*d per (query, head,
     attended key) pair; q, k, v, out and the key mask read/written once."""
@@ -141,7 +171,10 @@ def load_old(csrc: Path) -> ctypes.CDLL:
                        capture_output=True)
     lib = ctypes.CDLL(str(out))
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.attention_fwd.argtypes = [P, P, P, P, P, I, I, I, I, I, I, I, I, P]
+    # the shipped entry adds the plan's packing and warpgroups
+    lib.takes_plan = "consumers" in (csrc / "attention_fwd.cu").read_text()
+    lib.attention_fwd.argtypes = ([P] * 5 + [I] * (10 if lib.takes_plan
+                                                   else 8) + [P])
     lib.attention_fwd.restype = I
     return lib
 
@@ -188,8 +221,9 @@ def time_row(row, card, old=None, plans=False, reps=2, seed=0):
            "launches_per_request": launches, "max_abs_err": err,
            "err_bound": bound}
     calls = {"": c_entry(ak._attn_lib(), q, k, v, valid, causal, plan)[0]}
-    if old is not None and max(T, S) <= 512:
-        calls["old_"], old_out = c_entry(old, q, k, v, valid, causal)
+    if old is not None and (old.takes_plan or max(T, S) <= 512):
+        calls["old_"], old_out = c_entry(old, q, k, v, valid, causal,
+                                         plan if old.takes_plan else None)
         out["old_max_abs_err"] = (old_out.float() - ref).abs().max().item()
     times = defaultdict(list)
     for rep in range(reps):
@@ -222,6 +256,26 @@ def time_row(row, card, old=None, plans=False, reps=2, seed=0):
     return out
 
 
+def repeat_row(row, card, old, repeats, seed=3):
+    """A key-split row of ROWS at B = 16 -> the launches of `repeats` that
+    differ from the first (`repeat_mismatches`), the shipped kernel's and,
+    given, the earlier library's (old, new, new, old)."""
+    label, _, T, S, Hq, Hkv, d, causal, _, _ = row
+    q, k, v, valid = row_inputs((label, 16) + row[2:], card, seed)
+    plan = ak.attention_plan(T, S, Hq, Hkv, d, causal)
+    out = {"shape": label, "q": [16, T, Hq, d], "S": S, "Hkv": Hkv,
+           "causal": causal, "plan": plan._asdict(), "repeats": repeats}
+    runs = {"": None}
+    if old is not None:
+        call, old_out = c_entry(old, q, k, v, valid, causal,
+                                plan if old.takes_plan else None)
+        runs["old_"] = lambda: (call(), old_out)[1]
+    for pre in (["old_", "", "", "old_"] if old is not None else [""] * 2):
+        out.setdefault(pre + "mismatched", []).append(repeat_mismatches(
+            q, k, v, valid, causal, repeats, launch=runs[pre]))
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--old-csrc", default=None,
@@ -229,6 +283,9 @@ def main() -> int:
     ap.add_argument("--plans", action="store_true",
                     help="also time every candidate plan of each row")
     ap.add_argument("--reps", type=int, default=2)
+    ap.add_argument("--repeats", type=int, default=0,
+                    help="count differing outputs over N repeated launches "
+                         "of the key-split rows instead of timing")
     ap.add_argument("--out", default=None, help="also write the JSON here")
     opts = ap.parse_args()
     if not torch.cuda.is_available():
@@ -244,7 +301,13 @@ def main() -> int:
     rows = []
     with torch.no_grad():
         for row in ROWS:
-            rows.append(time_row(row, card, old, opts.plans, opts.reps))
+            if opts.repeats:
+                if ak.attention_plan(*row[2:8]).consumers < 2:
+                    continue
+                print(f"repeating {row[0]}", flush=True)
+                rows.append(repeat_row(row, card, old, opts.repeats))
+            else:
+                rows.append(time_row(row, card, old, opts.plans, opts.reps))
             print(json.dumps(rows[-1]), flush=True)
     result = {"card": smi, "rows": rows}
     if opts.out:

@@ -11,6 +11,8 @@
   frozen      llm base weights, embed table, opposite-
               task heads per task_mode, optional projector  --
 
+The VAE's labels are `vae_param_label`'s (biases and GroupNorm scales
+no_decay, the rest decay); distillation's are train/distill.py's.
 `freeze` marks frozen tensors `requires_grad=False` and stores them in
 `frozen_weights_dtype`; trainable ones are fp32 masters. `AdamW` is
 optax.chain(clip_by_global_norm, multi_transform(adamw per group)), wrapped
@@ -68,6 +70,19 @@ def calm_param_label(path: Tuple[str, ...], task_mode: str = "mix",
     if path[-1] in ("bias", "scale"):
         return "no_decay"
     return "decay"
+
+
+def vae_param_label(path: Tuple[str, ...]) -> str:
+    """A JAX AcousticVAE parameter path -> "no_decay" (biases, GroupNorm
+    scales) or "decay"."""
+    return "no_decay" if path[-1] in ("bias", "scale") else "decay"
+
+
+def param_labels(model: nn.Module, label_fn) -> Dict[str, str]:
+    """{name: label_fn(its JAX path)} over every parameter of a port
+    model."""
+    return {name: label_fn(jax_path(model, name))
+            for name, _ in model.named_parameters()}
 
 
 def freeze(model: nn.Module, cfg: TrainingConfig, task_mode: str = "tts",

@@ -28,11 +28,17 @@ terms (loss and loss_tts, loss_len, loss_dur or loss_asr), grad_norm (the
 norm of the step's gradients before clipping) and, packed and ASR,
 loss_den. `make_calm_eval_step(model, task)` is the plain forward of
 "tts" or "asr" in eval mode under no_grad.
+
+`make_vae_step(model, optimizer)` (JAX steps.py:228-262) is the VAE's:
+one update a call on {"mel"}, its eps drawn from a generator and its
+latent-dropout mask from a seed, both from (seed, step); metrics the five
+loss terms, mu_std (the std of mu over the batch), var_mean
+(mean exp(logvar)) and grad_norm.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -169,6 +175,61 @@ def make_calm_eval_step(model, task: str) -> Callable:
     return eval_step
 
 
+VAE_LOSSES = ("loss", "rec_loss", "ssim_loss", "stft_loss", "kl_loss")
+
+
+def vae_loss(model, mel: torch.Tensor, seed: int,
+             eps: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+    """The VAE's train-mode forward on `mel`: eps from a generator seeded
+    by derive_seed(seed, 0) (or `eps` itself), the latent-dropout mask
+    fixed by derive_seed(seed, 1) (JAX's noise and dropout keys, fold_in 0
+    and 1)."""
+    gen = torch.Generator(device=mel.device)
+    gen.manual_seed(derive_seed(seed, 0))
+    return model(mel, train=True, generator=gen, seed=derive_seed(seed, 1),
+                 eps=eps)
+
+
+def make_vae_step(model, optimizer, seed: int = 0) -> Callable:
+    """step(batch, eps=None) -> metrics; one optimizer update per call on
+    batch["mel"] [B, T, n_mels]. The step count (`step.count`) folds into
+    the seed; `eps` injects the reparameterization noise."""
+    params = optimizer.params
+
+    def step(batch: Dict[str, torch.Tensor],
+             eps: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+        for p in params.values():
+            p.grad = None
+        out = vae_loss(model, batch["mel"], derive_seed(seed, step.count),
+                       eps)
+        out["loss"].backward()
+        metrics = {k: out[k].detach() for k in VAE_LOSSES}
+        with torch.no_grad():  # latent health (reference train_vae.py)
+            metrics["mu_std"] = out["mu"].float().std(unbiased=False)
+            metrics["var_mean"] = torch.exp(out["logvar"].float()).mean()
+        metrics["grad_norm"] = optimizer.step(
+            {n: p.grad for n, p in params.items()})
+        step.count += 1
+        return metrics
+
+    step.count = 0
+    return step
+
+
+def backward_flops(model, run: Callable[[], torch.Tensor]) -> float:
+    """FLOPs of run() (-> a loss) and its backward, counted once under
+    utils/profiling.count_flops; the trainable tensors' .grad are as
+    before the call."""
+    params = {n: p for n, p in model.named_parameters() if p.requires_grad}
+    saved = {n: p.grad for n, p in params.items()}
+    for p in params.values():
+        p.grad = None
+    flops = count_flops(lambda: run().backward())
+    for n, p in params.items():
+        p.grad = saved[n]
+    return flops
+
+
 def count_step_flops(model, batch: Dict[str, torch.Tensor], task: str,
                      microbatch: int = 1, seed: int = 0) -> float:
     """FLOPs of one step of `task` on `batch`: the forward and backward of
@@ -177,17 +238,7 @@ def count_step_flops(model, batch: Dict[str, torch.Tensor], task: str,
     only). The optimizer's elementwise update is not counted. The
     trainable tensors' .grad are as before the call."""
     _check_task(task)
-    params = {n: p for n, p in model.named_parameters() if p.requires_grad}
-    saved = {n: p.grad for n, p in params.items()}
-    for p in params.values():
-        p.grad = None
     sub = _slices(batch, task, microbatch)[0]
     dens = global_dens(batch) if task == "tts_packed" else None
-
-    def run():
-        slice_loss(model, sub, seed, task, dens)["loss"].backward()
-
-    flops = count_flops(run)
-    for n, p in params.items():
-        p.grad = saved[n]
-    return flops * microbatch
+    return microbatch * backward_flops(
+        model, lambda: slice_loss(model, sub, seed, task, dens)["loss"])

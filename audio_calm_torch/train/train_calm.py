@@ -32,7 +32,7 @@ import argparse
 import dataclasses
 import os
 import sys
-from typing import Callable, Dict, List
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -46,7 +46,8 @@ from audio_calm_torch.data.prefetch import prefetch
 from audio_calm_torch.data.tokenizer import load_tokenizer
 from audio_calm_torch.models.calm import QwenCALM
 from audio_calm_torch.models.flagship import random_normal_
-from audio_calm_torch.train.checkpoint import (load_qwen2_backbone,
+from audio_calm_torch.train.checkpoint import (COMPONENTS,
+                                               load_qwen2_backbone,
                                                save_components, soft_restart)
 from audio_calm_torch.train.loop import run_training
 from audio_calm_torch.train.optim import AdamW, freeze
@@ -136,10 +137,13 @@ def _fake_max_batch(cfg: CALMConfig, task: str, batch_size: int
     return {k: batch[k] for k in TASK_KEYS[task]}
 
 
-def build_model(cfg: CALMConfig, device) -> QwenCALM:
+def build_model(cfg: CALMConfig, device,
+                components: Optional[str] = None) -> QwenCALM:
     """The model before freezing: random normal weights from
     training.seed on `device`, the Qwen2 base from model.qwen_path when it
-    is a directory, then the pretrained components."""
+    is a directory, then the trained components of the `components`
+    directory (each component and the LoRA adapter it holds) when given,
+    else the model.pretrained_*_path checkpoints."""
     m, t = cfg.model, cfg.training
     with torch.device(device):
         model = QwenCALM(m, compute_dtype=torch.bfloat16 if t.bf16
@@ -151,6 +155,9 @@ def build_model(cfg: CALMConfig, device) -> QwenCALM:
             print("loaded Qwen2 backbone weights")
         except Exception as e:
             print(f"warning: Qwen2 weight load failed: {e}; random init")
+    if components:
+        soft_restart(model, {c: components for c in COMPONENTS + ("lora",)})
+        return model
     soft_restart(model, {
         "input_proj": m.pretrained_projector_path,
         "tts_flow_head": m.pretrained_tts_head_path,

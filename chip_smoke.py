@@ -8,8 +8,9 @@ Phases, in order; any failure exits non-zero and prints no result:
   2. build the CUDA kernels (one nvcc per source, in parallel);
   3. each kernel against its plain PyTorch version on the card, at the main
      paths' shapes, fp32 and bf16 (the attention backward at the Qwen2
-     training shapes of TTS and of plain ASR (461 positions) and the DiT
-     self-attention shape, two launches giving
+     training shapes of TTS and of plain ASR (461 positions), the DiT
+     self- and cross-attention shapes and the ASR head's (d = 48), two
+     launches giving
      the same bits, the forward also at the ASR path's three shapes and at
      T = S = 1024 and 2048, past the TPU's 512 gate, and the flash_attention Function against autograd
      through the plain forward; the resblock kernel at C = 12, 24, 48, 96,
@@ -116,6 +117,21 @@ Phases, in order; any failure exits non-zero and prints no result:
      for 4 steps that take both tasks, an eval over both, its components
      served through --components equal to the trained tensors, each
      task's steps timed one by one;
+  5k. (run last, after 5j and its profiles) VAE training and few-step
+     distillation: one VAE step and one TTS distillation step on tiny
+     models, fp32, card vs CPU (loss terms, every gradient, the
+     distillation step's launches); a seeded mel store (harmonic tones
+     and noise through the port's log-mel frontend) and configs/vae.yaml
+     at full width (B = 256 crops of 256) through `python -m
+     audio_calm_torch.train.train_vae` for 3 steps (an eval, checkpoints,
+     the exported vae.bin loaded back by load_vae), 4 of its steps timed
+     one by one; configs/tts.yaml (B = 32) and configs/asr.yaml (B = 16)
+     through `python -m audio_calm_torch.train.distill_calm` (a seeded
+     random teacher, its head perturbed; K = 4, M = 8, cfg 2.5 / 3.0) for
+     2 steps each: the run's attention launches as its steps and quality
+     probe need, the components served through --components equal to the
+     trained tensors, 4 steps timed one by one with K4 / K3 / K5 launches
+     asserted; one step of each profiled (a lead step first);
   6. per kernel: its launches on its main path, its device time per launch
      at main-path shapes, the bound, the plain version's and the library
      call's device time; for the stage kernel, per V1 stage on a log line
@@ -140,7 +156,8 @@ Phases, in order; any failure exits non-zero and prints no result:
      the stage kernel's device time;
      then one more training step, the same way, with K5's share of it,
      and one more packed TTS step (its busy share); after phase 5j, one
-     more packed ASR and plain ASR step the same way.
+     more packed ASR and plain ASR step the same way. Phase 6 times the
+     attention backward also at the distillation students' shapes.
 Then the card, one `kernels` JSON line, and as the last line
 {"ok": true, "device": {...}}.
 """
@@ -470,12 +487,19 @@ def stage_reckoning(plan, C, C_in, r, k_up, geom, T_out):
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
+SPLIT_REPEATS = 2000  # phase 3: launches of each key-split shape
+
+
 def phase_kernels(gen, card):
     """Each kernel vs its plain version; returns the worst errors."""
     from audio_calm_torch.ops.attention_kernel import (attention_fwd,
-                                                       attention_fwd_plain)
+                                                       attention_fwd_plain,
+                                                       attention_plan)
     from audio_calm_torch.ops.vocoder_kernel import (vocoder_stage,
                                                      vocoder_stage_plain)
+    from audio_calm_torch.tools.attention_probe import (ROWS,
+                                                        repeat_mismatches,
+                                                        row_inputs)
 
     g = torch.Generator(card).manual_seed(0)
     worst = {"vocoder_stage": 0.0, "attention_fwd": 0.0}
@@ -534,6 +558,18 @@ def phase_kernels(gen, card):
             check(err <= bound, f"attention_fwd {label} {dt}")
             if dt == torch.bfloat16:
                 worst["attention_fwd"] = max(worst["attention_fwd"], err)
+    # the key split (two consumer warpgroups on one ring) at the ASR
+    # distillation's batch: repeated launches give the same bits
+    for label in ("ASR Qwen2 encode L=461", "ASR cross d=96"):
+        row = next(r for r in ROWS if r[0] == label)
+        _, _, T, S, Hq, Hkv, d, causal, _, _ = row
+        check(attention_plan(T, S, Hq, Hkv, d, causal).consumers == 2,
+              f"attention_fwd {label} takes the key split")
+        q, k, v, valid = row_inputs((label, 16) + row[2:], card, seed=3)
+        bad = repeat_mismatches(q, k, v, valid, causal, SPLIT_REPEATS)
+        log(f"  attention_fwd {label} B=16 key split: {bad} of "
+            f"{SPLIT_REPEATS} repeated launches differ from the first")
+        check(bad == 0, f"attention_fwd {label}: repeated launches agree")
     return worst
 
 
@@ -650,6 +686,32 @@ def dit_train_inputs(B, dt, card, seed=0):
     return q, k, v, dout, valid
 
 
+def attn_inputs(B, T, S, H, d, lo, dt, card, seed=0):
+    """Attention operands q/dout [B, T, H, d], k/v [B, S, H, d] and a key
+    mask with lo..S valid keys a row."""
+    g = torch.Generator(card).manual_seed(seed)
+    q, dout = (torch.randn(B, T, H, d, generator=g, device=card).to(dt)
+               for _ in range(2))
+    k, v = (torch.randn(B, S, H, d, generator=g, device=card).to(dt)
+            for _ in range(2))
+    n = torch.randint(lo, S + 1, (B,), generator=g, device=card)
+    valid = torch.arange(S, device=card)[None, :] < n[:, None]
+    return q, k, v, dout, valid
+
+
+def dit_cross_inputs(B, dt, card, seed=0):
+    """The DiT's cross-attention in a distillation student: 384 audio
+    queries over the 96-position text context (4-96 valid), 16 heads of
+    64 (tts.yaml)."""
+    return attn_inputs(B, 384, 96, 16, 64, 4, dt, card, seed)
+
+
+def asr_head_inputs(B, dt, card, seed=0):
+    """The ASR head's self-attention in a distillation student: 96 queries
+    (10-96 valid), 16 heads of 48 (asr.yaml's 768-wide head)."""
+    return attn_inputs(B, 96, 96, 16, 48, 10, dt, card, seed)
+
+
 def asr_train_inputs(B, dt, card, seed=0):
     """Qwen2 attention operands of a plain ASR training slice (asr.yaml:
     B = 16 in 8 slices): q/dout [B, 461, 12, 128], k/v [B, 461, 2, 128]
@@ -670,7 +732,8 @@ def asr_train_inputs(B, dt, card, seed=0):
 
 def phase_attention_bwd(card):
     """K5 vs its plain version at the Qwen2 training shapes (TTS and plain
-    ASR) and the DiT self-attention shape, fp32 and bf16; two bf16
+    ASR), the DiT self- and cross-attention shapes and the ASR head's
+    (d = 48, the distillation students'), fp32 and bf16; two bf16
     launches give the same bits; the flash_attention Function vs autograd
     through the plain forward."""
     from audio_calm_torch.ops.attention_kernel import (attention_bwd,
@@ -683,7 +746,9 @@ def phase_attention_bwd(card):
     cases = [("Qwen2 [16, 97, 12/2, 128]", qwen_train_inputs, 16, True),
              ("Qwen2 plain ASR [2, 461, 12/2, 128]", asr_train_inputs, 2,
               True),
-             ("DiT self [4, 384, 16, 64]", dit_train_inputs, 4, False)]
+             ("DiT self [4, 384, 16, 64]", dit_train_inputs, 4, False),
+             ("DiT cross [4, 384 / 96, 16, 64]", dit_cross_inputs, 4, False),
+             ("ASR head self [4, 96, 16, 48]", asr_head_inputs, 4, False)]
     for label, inputs, B, causal in cases:
         for dt in (torch.float32, torch.bfloat16):
             q, k, v, dout, valid = inputs(B, dt, card)
@@ -2414,9 +2479,11 @@ def kernel_time_attention_bwd(train_counts, train_steps, errs, card):
     plain ASR step's (B=2 of asr.yaml's 16 in 8 slices, 461 positions, the
     [audio | pads | SOA | prompt] key mask) and at the DiT self-attention
     shape of a dropout-off training slice (B=16, 384 frames, the
-    audio-frame key mask): device ms per launch beside the bound, the
-    plain version and autograd's backward of SDPA. The row's top-level
-    numbers are the Qwen2 shape's, the path's K5 launches."""
+    audio-frame key mask), and at the distillation students' shapes
+    (tts.yaml's DiT self and cross at B=32, asr.yaml's ASR head self at
+    B=16, d = 48): device ms per launch beside the bound, the plain
+    version and autograd's backward of SDPA. The row's top-level numbers
+    are the Qwen2 shape's, the path's K5 launches."""
     import torch.nn.functional as F
 
     from audio_calm_torch.ops.attention_kernel import (attention_bwd,
@@ -2427,7 +2494,12 @@ def kernel_time_attention_bwd(train_counts, train_steps, errs, card):
     for label, inputs, B, causal in (
             ("Qwen2 training slice", qwen_train_inputs, 16, True),
             ("Qwen2 plain-ASR training slice", asr_train_inputs, 2, True),
-            ("DiT self training slice", dit_train_inputs, 16, False)):
+            ("DiT self training slice", dit_train_inputs, 16, False),
+            ("DiT self distillation student", dit_train_inputs, 32, False),
+            ("DiT cross distillation student", dit_cross_inputs, 32,
+             False),
+            ("ASR head self distillation student", asr_head_inputs, 16,
+             False)):
         q, k, v, dout, valid = inputs(B, torch.bfloat16, card, seed=2)
         B, T, Hq, d = q.shape
         S, Hkv = k.shape[1], k.shape[2]
@@ -2475,8 +2547,8 @@ def kernel_time_attention_bwd(train_counts, train_steps, errs, card):
                                      "library_ms")},
         "per_launch": "one Qwen2 layer's backward for one microbatch slice: "
                       "q [16, 97, 12, 128], k/v [16, 97, 2, 128], bf16, "
-                      "causal, ragged key mask; the plain-ASR and DiT self "
-                      "shapes beside",
+                      "causal, ragged key mask; the plain-ASR, DiT self and "
+                      "distillation students' shapes beside",
         "shapes": rows,
     }
 
@@ -2523,7 +2595,8 @@ def packed_train_argv(store, out, max_steps, *extra):
 
 def time_steps(step, raws, batches, flops, counters, zero, card):
     """Each batch's step timed alone (the first batch's step once before,
-    to warm its shape): step seconds, utterances/s, MFU, peak memory (of
+    to warm its shape): step seconds, utterances (or mels)/s, MFU, peak
+    memory (of
     the process, whatever else it holds, and the steps' own: the peak's
     rise above what was allocated before them) and the attention launches
     a step."""
@@ -2535,7 +2608,9 @@ def time_steps(step, raws, batches, flops, counters, zero, card):
     zero()
     times = [synced(lambda b=b: step(b))[1] for b in batches]
     counts = counters()
-    n_utt = [raw.get("n_samples") or raw["latents"].shape[0] for raw in raws]
+    n_utt = [raw.get("n_samples") or raw["mel" if "mel" in raw
+                                          else "latents"].shape[0]
+             for raw in raws]
     return {"steps": len(times), "utterances": n_utt, "step_s": times,
             "step_s_median": sorted(times)[len(times) // 2],
             "utterances_per_s": sum(n_utt) / sum(times),
@@ -2800,12 +2875,15 @@ def phase_packed_step_card_vs_cpu(card):
                             if lab != "frozen"}, "packed step")
 
 
-def phase_step_profile(probe, what):
+def phase_step_profile(probe, what, lead=False):
     """One more step of `what` under the profiler (device activity only):
     the device's busy share of the step and the kernels that take the most
-    device time."""
+    device time. With `lead`, one step more runs inside the profiler's
+    window before it (after phase 5j a session loses the records of its
+    first launches: the lead's)."""
     step, batch, step_s = probe
-    p_wall, rows = device_profile(lambda: step(batch))
+    p_wall, rows = device_profile(
+        lambda: step(batch), lead=(lambda: step(batch)) if lead else None)
     busy = sum(r[1] for r in rows)
     check(busy > 0, f"the profiler saw device time in the {what} step")
     log(f"  profiled {what} step: wall {p_wall:.4f} s, device busy "
@@ -3147,6 +3225,394 @@ def phase_asr_training(card, smi):
         torch.cuda.empty_cache()
 
 
+# VAE training and few-step distillation (phase 5k): configs/vae.yaml
+# through train_vae on a mel store the phase writes (seeded tones and noise
+# through the port's log-mel frontend), then configs/tts.yaml and
+# configs/asr.yaml through distill_calm on a synthetic latent store, the
+# teacher a seeded random model perturbed as --perturb-teacher does
+VAE_STORE = (288, 32)  # train and dev mels, each around the 256-frame crop
+VAE_STEPS, VAE_TIMED = 3, 4
+DISTILL_STORE = ["--asr-n", "48", "--tts-n", "48", "--dev-n", "4", "--seed",
+                 "6"]
+DISTILL_STEPS, DISTILL_TIMED = 2, 4
+DISTILL_K, DISTILL_M, DISTILL_SIGMA = 4, 8, 0.02
+DISTILL_CFG = {"tts": 2.5, "asr": 3.0}  # tts.yaml's and asr.yaml's cfg_scale
+PROBE_DENSE = 128  # quality_probe's dense teacher solve
+
+
+def write_mel_store(root, card, seed=0):
+    """`root`/train/train-clean-100 and `root`/dev/dev-clean: VAE_STORE
+    `.npz` files of {"mel": [T, 80]}, T 224-320 frames, log-mels of seeded
+    harmonic tones (f0 90-320 Hz with vibrato, 1-4 harmonics, a random
+    envelope) plus noise through ops/mel.MelFrontend on the card ->
+    seconds."""
+    from audio_calm_torch.ops.mel import MelFrontend
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed)
+    n = sum(VAE_STORE)
+    frames = rng.integers(224, 321, n)
+    L = 320 * 256
+    t = np.arange(L) / 16000.0
+    f0 = rng.uniform(90, 320, (n, 1)) * (1 + 0.03 * np.sin(
+        2 * np.pi * rng.uniform(3, 7, (n, 1)) * t))
+    phase = 2 * np.pi * np.cumsum(f0, axis=1) / 16000.0
+    wav = sum(rng.uniform(0, 1, (n, 1)) / h * np.sin(h * phase)
+              for h in range(1, 5))
+    env = np.interp(t, np.linspace(0, t[-1], 9),
+                    rng.uniform(0.1, 1.0, 9)).astype(np.float32)
+    wav = (wav * env + 0.02 * rng.standard_normal((n, L))).astype(np.float32)
+    mels = MelFrontend(device=card)(wav).cpu().numpy()
+    for i, T in enumerate(frames):
+        split, subset = (("train", "train-clean-100") if i < VAE_STORE[0]
+                         else ("dev", "dev-clean"))
+        d = os.path.join(root, split, subset, str(100 + i % 8), "1")
+        os.makedirs(d, exist_ok=True)
+        np.savez(os.path.join(d, f"{100 + i % 8}-1-{i:04d}.npz"),
+                 mel=mels[i, :T])
+    return time.perf_counter() - t0
+
+
+def vae_argv(store, out, max_steps):
+    """train_vae's argv for configs/vae.yaml at full width on `store`: a
+    log every step, an eval and a save every 2."""
+    argv = ["--config", "configs/vae.yaml", "--max-steps", str(max_steps)]
+    for ov in (f"data.data_dir={store}/train",
+               f"data.eval_data_dir={store}/dev",
+               "data.train_subsets=train-clean-100",
+               "data.eval_subsets=dev-clean", f"training.output_dir={out}",
+               "training.logging_steps=1", "training.save_steps=2",
+               "training.eval_steps=2"):
+        argv += ["--override", ov]
+    return argv
+
+
+def distill_argv(task, store, out, max_steps):
+    """distill_calm's argv for tts.yaml (task tts) or asr.yaml (task asr)
+    at full width on the synthetic `store`: the byte tokenizer, no Qwen2
+    base weights and no warm start (a seeded random teacher, its head
+    perturbed), K = 4, M = 8 at the config's cfg scale, a log every step."""
+    config = {"tts": "configs/tts.yaml", "asr": "configs/asr.yaml"}[task]
+    argv = ["--config", config, "--task", task, "--byte-tokenizer",
+            "--max-steps", str(max_steps), "--perturb-teacher",
+            str(DISTILL_SIGMA), "--student-steps", str(DISTILL_K),
+            "--teacher-substeps", str(DISTILL_M), "--cfg-scale",
+            str(DISTILL_CFG[task])]
+    src = f"data.datasets.{task}"
+    for ov in [f"{src}.latent_dir={store}/train/{CORPUS[task]}",
+               f"{src}.subsets=train-clean-100", "model.qwen_path=null",
+               f"training.output_dir={out}", "training.logging_steps=1",
+               *NO_WARM_START]:
+        argv += ["--override", ov]
+    return argv
+
+
+def distill_launches(cfg, task, K, M):
+    """Attention launches of one distillation step: the conditioning's
+    Qwen2 encode (K4 a layer; ASR also its query cross-attention, K3), the
+    teacher's K x M head evaluations (K3 for each self- and cross-attention
+    of each layer; CFG fuses the two halves into one launch), the
+    student's K evaluations (K3 forward and again in the checkpointed
+    block's recompute, K5 in the backward)."""
+    L = cfg.qwen.num_hidden_layers
+    per_eval = (2 * cfg.tts_flow_num_layers if task == "tts"
+                else cfg.asr_flow_num_layers)
+    encode = L + (task == "asr")
+    return {"attention_fwd": encode + K * M * per_eval + 2 * K * per_eval,
+            "attention_bwd": K * per_eval,
+            "k4": L, "k3_teacher": K * M * per_eval,
+            "k3_student": 2 * K * per_eval}
+
+
+def probe_launches(cfg, task, K):
+    """Attention launches of distill.quality_probe: three solves (dense
+    teacher, coarse teacher, student), each an encode and one launch a
+    layer (and attention) a velocity evaluation."""
+    L = cfg.qwen.num_hidden_layers
+    per_eval = (2 * cfg.tts_flow_num_layers if task == "tts"
+                else cfg.asr_flow_num_layers)
+    encode = L + (task == "asr")
+    return 3 * encode + (PROBE_DENSE + 2 * K) * per_eval
+
+
+def phase_vae_distill_card_vs_cpu(card):
+    """One VAE step and one TTS distillation step, tiny models in fp32
+    with TF32 off, card vs CPU on the same weights and draws (eps, x0):
+    the loss terms and every trainable gradient, with
+    phase_train_step_card_vs_cpu's bounds; the distillation step's
+    attention launches on the card. -> the worst error over its bound."""
+    import copy
+
+    from audio_calm_torch.config import (CALMModelConfig, LoRAConfig,
+                                         Qwen2Config, TrainingConfig,
+                                         VAEModelConfig)
+    from audio_calm_torch.models.calm import QwenCALM
+    from audio_calm_torch.models.flagship import random_normal_
+    from audio_calm_torch.models.vae import AcousticVAE, init_vae_
+    from audio_calm_torch.ops.attention_kernel import (attention_bwd,
+                                                       attention_fwd)
+    from audio_calm_torch.train.distill import (make_distill_step,
+                                                perturb_head,
+                                                split_for_distill)
+    from audio_calm_torch.train.optim import AdamW
+    from audio_calm_torch.train.steps import VAE_LOSSES, vae_loss
+
+    worst = 0.0
+    # the VAE: vae.yaml's geometry at hidden 64, latent 16
+    cpu = AcousticVAE(VAEModelConfig(hidden_channels=64, latent_channels=16,
+                                     norm_num_groups=8, latent_dropout=0.0))
+    init_vae_(cpu, 4)
+    dev = copy.deepcopy(cpu).to(card)
+    g = torch.Generator().manual_seed(8)
+    mel = torch.randn(4, 256, 80, generator=g) * 3.8 - 6.5
+    eps = torch.randn(4, 64, 16, generator=g)
+    res = {}
+    for name, model, device in (("cpu", cpu, "cpu"), ("card", dev, card)):
+        out = vae_loss(model, mel.to(device), 0, eps.to(device))
+        out["loss"].backward()
+        res[name] = ({k: float(out[k].detach()) for k in VAE_LOSSES},
+                     {n: p.grad.detach().cpu()
+                      for n, p in model.named_parameters()})
+    worst = max(worst, check_card_vs_cpu(
+        res, {n for n, _ in cpu.named_parameters()}, "VAE step"))
+
+    # TTS distillation: 2 LLM layers, a 2-layer DiT of 256 (4 heads of 64)
+    cfg = CALMModelConfig(
+        latent_dim=16, max_audio_len=64, max_text_len=16,
+        tts_flow_hidden_dim=256, tts_flow_num_layers=2,
+        asr_flow_hidden_dim=256, asr_flow_num_layers=1, flow_num_heads=4,
+        qwen=Qwen2Config(vocab_size=258, hidden_size=256,
+                         intermediate_size=512, num_hidden_layers=2,
+                         num_attention_heads=4, num_key_value_heads=2,
+                         head_dim=64),
+        lora=LoRAConfig(rank=4, alpha=8, dropout=0.0))
+    cpu = QwenCALM(cfg)
+    random_normal_(cpu, seed=5, scale=0.05)
+    perturb_head(cpu, "tts", 0.05)
+    dev = copy.deepcopy(cpu).to(card)
+    g = torch.Generator().manual_seed(9)
+    ids = torch.randint(1, 258, (3, 16), generator=g)
+    mask = (torch.arange(16)[None] < torch.tensor([16, 11, 6])[:, None])
+    batch = {"text_ids": ids * mask, "attention_mask": mask.int()}
+    x0 = torch.randn(3, 64, 16, generator=g)
+    K, M = 2, 2
+    res = {}
+    for name, model, device in (("cpu", cpu, "cpu"), ("card", dev, card)):
+        teacher, labels = split_for_distill(model, "tts")
+        params = {n: p for n, p in model.named_parameters()
+                  if p.requires_grad}
+        step = make_distill_step(model, teacher, AdamW(
+            params, labels, TrainingConfig(), 10), "tts", student_steps=K,
+            cfg_scale=2.5, teacher_substeps=M)
+        attention_fwd.launches = attention_bwd.launches = 0
+        out = step.loss({k: v.to(device) for k, v in batch.items()}, 0,
+                        x0.to(device))
+        out["loss"].backward()
+        res[name] = ({"loss": float(out["loss"].detach())},
+                     {n: p.grad.detach().cpu() for n, p in params.items()})
+    counts = {"attention_fwd": attention_fwd.launches,
+              "attention_bwd": attention_bwd.launches}
+    want = distill_launches(cfg, "tts", K, M)
+    want = {k: want[k] for k in counts}
+    log(f"  distillation step launches on the card: {counts} (expected "
+        f"{want})")
+    check(counts == want, "kernel launches of the card's distillation step")
+    worst = max(worst, check_card_vs_cpu(res, set(params),
+                                         "distillation step"))
+    return worst
+
+
+def phase_vae_training(card, smi, tmp):
+    """configs/vae.yaml at full width through train_vae in this process on
+    a seeded mel store: VAE_STEPS steps with an eval and checkpoints,
+    finite metrics with samples/s and MFU, the exported vae.bin loaded by
+    load_vae equal to the trained tensors; VAE_TIMED steps of the run's
+    own batches timed alone and one profiled (its busy share)."""
+    from audio_calm_torch.models.vae import load_vae
+    from audio_calm_torch.ops.attention_kernel import (attention_bwd,
+                                                       attention_fwd)
+    from audio_calm_torch.train import checkpoint as ckpt
+    from audio_calm_torch.train import train_vae
+
+    def counters():
+        return {"attention_fwd": attention_fwd.launches,
+                "attention_bwd": attention_bwd.launches}
+
+    def zero():
+        attention_fwd.launches = attention_bwd.launches = 0
+
+    walls = {}
+    store = os.path.join(tmp, "mels")
+    walls["mel_store_s"] = write_mel_store(store, card)
+    out = os.path.join(tmp, "vae")
+    run, walls["run_s"] = synced(lambda: train_vae.train(
+        vae_argv(store, out, VAE_STEPS)))
+    train, evals = packed_records(out)
+    check([r["step"] for r in train] == list(range(1, VAE_STEPS + 1)),
+          "the VAE run's steps")
+    for r in train:
+        check(all(np.isfinite(r[k]) for k in (
+            "loss", "rec_loss", "ssim_loss", "stft_loss", "kl_loss",
+            "mu_std", "var_mean", "grad_norm")) and r["samples_per_sec"] > 0
+              and r["mfu_pct"] > 0, f"VAE step {r['step']} metrics {r}")
+        log(f"  step {r['step']}: " + " ".join(
+            f"{k}={r[k]:.5f}" for k in ("loss", "rec_loss", "ssim_loss",
+                                        "stft_loss", "kl_loss", "mu_std",
+                                        "var_mean", "grad_norm", "step_s",
+                                        "samples_per_sec", "mfu_pct")))
+    check(len(evals) == 1 and np.isfinite(evals[0]["eval_loss"]),
+          "the VAE run's eval loss")
+    check(ckpt.make_manager(out, 3).all_steps() == [2, VAE_STEPS],
+          "the VAE run's checkpoints")
+    loaded = load_vae(run.export_path, device=card).state_dict()
+    trained = run.model.state_dict()
+    check(set(loaded) == set(trained) and all(
+        torch.equal(loaded[n], trained[n]) for n in trained),
+        "the exported vae.bin loads through load_vae as trained")
+    log(f"  vae.bin: {len(trained)} tensors loaded back equal; "
+        f"{walls['run_s']:.1f} s for the run")
+
+    it = run.batches(0)
+    raws = [next(it) for _ in range(VAE_TIMED)]
+    it.close()  # its prefetch thread ends
+    batches = [run.batch_filter(raw) for raw in raws]
+    timed = time_steps(run.step, raws, batches, [run.step_flops] * VAE_TIMED,
+                       counters, zero, card)
+    check(timed["launches"] == {"attention_fwd": 0, "attention_bwd": 0},
+          "no attention kernel in a VAE step")
+    timed["mels_per_s"] = timed.pop("utterances_per_s")
+    timed["crop"] = list(raws[0]["mel"].shape)
+    timed["conv_tf32"] = torch.backends.cudnn.allow_tf32
+    timed["matmul_tf32"] = torch.backends.cuda.matmul.allow_tf32
+    timed["eval_loss"] = evals[0]["eval_loss"]
+    timed["loop_step_s"] = [r["step_s"] for r in train]
+    timed["card"] = smi
+    step = run.step
+    timed.update(phase_step_profile(
+        (lambda b: step(b), batches[0], timed["step_s_median"]), "VAE",
+        lead=True))
+    log("  VAE training " + json.dumps(timed))
+    return timed, walls
+
+
+def phase_distillation(card, smi, tmp, store, task):
+    """distill_calm --task `task` at full width in this process: tts.yaml
+    (Qwen2-1.5B 28 layers, DiT 1024 x 4 / 16, B = 32) or asr.yaml (ASR
+    head 768 x 4 / 16, B = 16), K = 4, M = 8 at the config's cfg scale,
+    a seeded random teacher perturbed; DISTILL_STEPS steps with finite
+    metrics, the probe's numbers, the run's attention launches as the
+    steps and the probe need, the components served through
+    --components equal to the trained tensors; DISTILL_TIMED steps of the
+    run's batches timed alone (the step's FLOPs counted once) and one
+    profiled."""
+    import gc
+
+    from audio_calm_torch.ops.attention_kernel import (attention_bwd,
+                                                       attention_fwd)
+    from audio_calm_torch.train import distill_calm
+    from audio_calm_torch.train.steps import backward_flops
+
+    def counters():
+        return {"attention_fwd": attention_fwd.launches,
+                "attention_bwd": attention_bwd.launches}
+
+    def zero():
+        attention_fwd.launches = attention_bwd.launches = 0
+
+    walls = {}
+    out = os.path.join(tmp, f"distill_{task}")
+    zero()
+    run, walls["run_s"] = synced(lambda: distill_calm.distill(
+        distill_argv(task, store, out, DISTILL_STEPS)))
+    run_counts = counters()
+    cfg = run.model.cfg
+    per_step = distill_launches(cfg, task, DISTILL_K, DISTILL_M)
+    want = {"attention_fwd": DISTILL_STEPS * per_step["attention_fwd"]
+            + probe_launches(cfg, task, DISTILL_K),
+            "attention_bwd": DISTILL_STEPS * per_step["attention_bwd"]}
+    log(f"  {task} distillation run launches: {run_counts} (expected "
+        f"{want}: {DISTILL_STEPS} steps of {per_step} and the probe's "
+        f"{probe_launches(cfg, task, DISTILL_K)})")
+    check(run_counts == want, f"kernel launches of the {task} distillation "
+          "run")
+    recs, _ = packed_records(os.path.join(out, f"distill_{task}"))
+    check([r["step"] for r in recs] == list(range(1, DISTILL_STEPS + 1))
+          and all(np.isfinite(r["loss"]) and r["loss"] > 0
+                  and np.isfinite(r["grad_norm"]) for r in recs),
+          f"the {task} distillation run's metrics {recs}")
+    check(all(np.isfinite(v) for v in run.probe.values()),
+          f"the {task} quality probe {run.probe}")
+    for r in recs:
+        log(f"  step {r['step']}: " + " ".join(
+            f"{k}={r[k]:.6f}" for k in ("loss", "grad_norm", "step_s",
+                                        "samples_per_sec")))
+    config = {"tts": "configs/tts.yaml", "asr": "configs/asr.yaml"}[task]
+    walls["serve_load_s"] = check_components_served(config, run)
+
+    it = run.batches(0)
+    raws = [next(it) for _ in range(DISTILL_TIMED)]
+    it.close()
+    batches = [run.batch_filter(raw) for raw in raws]
+    fl = backward_flops(run.model, lambda: run.step.loss(batches[0], 0)[
+        "loss"])
+    timed = time_steps(run.step, raws, batches, [fl] * DISTILL_TIMED,
+                       counters, zero, card)
+    check(timed["launches_per_step"] == {
+        k: per_step[k] for k in ("attention_fwd", "attention_bwd")},
+        f"kernel launches of a {task} distillation step "
+        f"({timed['launches_per_step']}, expected {per_step})")
+    timed.update(
+        launches_expected=per_step, run_launches=run_counts,
+        losses=[r["loss"] for r in recs], probe=run.probe,
+        cfg_scale=DISTILL_CFG[task], K=DISTILL_K, M=DISTILL_M,
+        text=list(raws[0]["text_ids"].shape), card=smi)
+    if task == "asr":
+        timed["latents"] = list(raws[0]["latents"].shape)
+    step = run.step
+    timed.update(phase_step_profile(
+        (lambda b: step(b), batches[0], timed["step_s_median"]),
+        f"{task} distillation", lead=True))
+    log(f"  {task} distillation " + json.dumps(timed))
+    del run, step, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return timed, walls
+
+
+def phase_vae_and_distillation(card, smi):
+    """Phase 5k: the card-vs-CPU checks, VAE training, then TTS and ASR
+    distillation, each at full width through its entry point."""
+    import gc
+
+    from audio_calm_torch.data import synth_corpus
+
+    result, walls = {"card": smi}, {}
+    t0 = time.perf_counter()
+    with exact_fp32():
+        result["card_vs_cpu_worst"] = phase_vae_distill_card_vs_cpu(card)
+    walls["card_vs_cpu_s"] = time.perf_counter() - t0
+    tmp = tempfile.mkdtemp(prefix="vae_distill_")
+    try:
+        t0 = time.perf_counter()
+        result["vae"], walls["vae"] = phase_vae_training(card, smi, tmp)
+        walls["vae_s"] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+        store = os.path.join(tmp, "latents")
+        check(synth_corpus.main(["--out", store] + DISTILL_STORE) == 0,
+              "synthetic store")
+        for task in ("tts", "asr"):
+            t0 = time.perf_counter()
+            result[task], walls[task] = phase_distillation(
+                card, smi, tmp, store, task)
+            walls[f"{task}_s"] = time.perf_counter() - t0
+        return result, walls
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card is available", file=sys.stderr)
@@ -3345,9 +3811,28 @@ def main() -> int:
         asr_probes.pop("asr"), "plain ASR"))
     log(f"phase ASR training profile: ok in "
         f"{time.perf_counter() - t0:.1f} s")
+
+    # 5k. VAE training and few-step distillation at full width through
+    # train_vae and distill_calm (after 5j: its steps are profiled with a
+    # lead step)
+    t0 = time.perf_counter()
+    vae_distill, vd_walls = phase_vae_and_distillation(card, smi)
+    log(f"phase VAE training and distillation: ok in "
+        f"{time.perf_counter() - t0:.1f} s " + json.dumps(vd_walls))
+    fwd = kernels[1]
+    bwd = next(k for k in kernels if k["name"] == "attention_bwd")
+    for task in ("tts", "asr"):
+        per_step = vae_distill[task]["launches_per_step"]
+        fwd.setdefault("distillation_launches", {})[task] = {
+            "per_step": per_step["attention_fwd"],
+            "run": vae_distill[task]["run_launches"]["attention_fwd"]}
+        bwd.setdefault("distillation_launches", {})[task] = {
+            "per_step": per_step["attention_bwd"],
+            "run": vae_distill[task]["run_launches"]["attention_bwd"]}
     log("trained " + json.dumps(trained))
     log("packed_training " + json.dumps(packed))
     log("asr_training " + json.dumps(asr_trained))
+    log("vae_distillation " + json.dumps(vae_distill))
     log("vocoder_path " + json.dumps(voc_path))
     log("reconstruction " + json.dumps(recon))
     log("asr " + json.dumps({**asr, "reduced_depth": asr_reduced}))

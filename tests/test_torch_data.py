@@ -1,7 +1,7 @@
 """The port's data pipeline vs the JAX package's, on the CPU: the synthetic
 store writer, the latent store reader, SpecAugment and the ASR pack plan,
-the batch iterator (TTS, ASR and the mix of both, plain and packed) and
-the prefetch thread.
+the batch iterator (TTS, ASR and the mix of both, plain and packed), the
+prefetch thread, and the VAE's mel crops and batches.
 
 Bounds: none. Every comparison is exact (array_equal with equal dtypes,
 equal lists): the pipeline is numpy and host code on the same files and
@@ -336,3 +336,102 @@ def test_prefetch_keeps_order_and_passes_errors():
     while threading.active_count() > before and time.monotonic() < deadline:
         time.sleep(0.01)
     assert threading.active_count() == before
+
+
+# --------------------------------------------------------------------------
+# the VAE's mel store
+# --------------------------------------------------------------------------
+@pytest.fixture(scope="module")
+def mel_store(tmp_path_factory):
+    """Two subsets of mel files: npz [T, 80] around a 32-frame crop, one
+    short (zero-padded), one corrupt (a failed load), one npy stored
+    (80, T) and one reference .pt {"mel": (80, T)}."""
+    root = tmp_path_factory.mktemp("mels")
+    rng = np.random.default_rng(2)
+    for s, subset in enumerate(("train-a", "train-b")):
+        d = root / subset / "spk" / "ch"
+        d.mkdir(parents=True)
+        for i in range(9):
+            T = int(rng.integers(20, 60))
+            mel = (rng.standard_normal((T, 80)) * 2 - 6).astype(np.float32)
+            name = f"u{s}{i:02d}"
+            if i == 3:
+                (d / f"{name}.npz").write_bytes(b"not an npz")
+            elif i == 4:
+                np.save(d / f"{name}.npy", mel.T.copy())
+            elif i == 5:
+                torch.save({"mel": torch.from_numpy(mel.T.copy())},
+                           d / f"{name}.pt")
+            else:
+                np.savez(d / f"{name}.npz", mel=mel)
+    return root
+
+
+def _mel_sets(root, training, **kw):
+    args = (str(root), "train-a, train-b", 32)
+    return (tds.MelDataset(*args, training=training, **kw),
+            jds.MelDataset(*args, training=training, **kw))
+
+
+def test_mel_dataset_matches_jax(mel_store):
+    """The files (sorted glob order per subset and extension, max_samples)
+    and every crop: random from the caller's generator when training, the
+    centre one in eval, a short mel zero-padded, a failed load raising."""
+    for training in (True, False):
+        tset, jset = _mel_sets(mel_store, training)
+        assert tset.files == jset.files and len(tset) == 18
+        ra, rb = np.random.default_rng(4), np.random.default_rng(4)
+        for i in range(len(tset)):
+            if tset.files[i].endswith("03.npz"):  # the corrupt files
+                with pytest.raises(Exception):
+                    tset.get(i, ra)
+                with pytest.raises(Exception):
+                    jset.get(i, rb)
+                continue
+            a, b = tset.get(i, ra), jset.get(i, rb)
+            assert a.shape == (32, 80) and a.dtype == b.dtype == np.float32
+            np.testing.assert_array_equal(a, b)
+    assert _mel_sets(mel_store, True, max_samples=5)[0].files == \
+        _mel_sets(mel_store, True, max_samples=5)[1].files[:5]
+
+
+@pytest.mark.parametrize("training", [True, False])
+def test_mel_batch_iterator_matches_jax(mel_store, training):
+    """Two training epochs (or one eval pass) of batches of 4: the same
+    batches in the same order as JAX's for the same seed, the batches with
+    the failed load skipped."""
+    tset, jset = _mel_sets(mel_store, training)
+    kw = dict(batch_size=4, training=training, seed=11,
+              epochs=2 if training else 1)
+    got = list(tcol.mel_batch_iterator(tset, **kw))
+    ref = list(jcol.mel_batch_iterator(jset, **kw))
+    assert len(got) == len(ref) >= 3
+    for a, b in zip(got, ref):
+        assert set(a) == set(b) == {"mel"}
+        assert a["mel"].shape == (4, 32, 80) and a["mel"].dtype == np.float32
+        np.testing.assert_array_equal(a["mel"], b["mel"])
+
+
+def test_mel_iterator_refuses_an_empty_epoch_and_multi_host():
+    """tests/test_data_pipeline.py's empty-epoch check in the port: a
+    training epoch with no full batch raises, eval ends quietly; multi-host
+    iteration is not ported and raises."""
+
+    class _TinyMels:
+        crop_size = 16
+
+        def __len__(self):
+            return 3
+
+        def get(self, idx, rng=None):
+            return np.zeros((16, 80), np.float32)
+
+    it = tcol.mel_batch_iterator(_TinyMels(), batch_size=8, training=True,
+                                 seed=0, epochs=None)
+    with pytest.raises(ValueError, match="no full batch"):
+        next(it)
+    assert list(tcol.mel_batch_iterator(_TinyMels(), batch_size=8,
+                                        training=False, seed=0,
+                                        epochs=1)) == []
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+        next(tcol.mel_batch_iterator(_TinyMels(), 2, process_count=2))

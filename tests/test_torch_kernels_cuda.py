@@ -37,7 +37,8 @@ from audio_calm_torch.ops.vocoder_kernel import (_halo, fused_resblock,
                                                  hifigan_apply_fused,
                                                  stage_plan, vocoder_stage,
                                                  vocoder_stage_plain)
-from audio_calm_torch.tools.attention_probe import ROWS, row_inputs
+from audio_calm_torch.tools.attention_probe import (ROWS, repeat_mismatches,
+                                                    row_inputs)
 
 pytestmark = pytest.mark.cuda
 
@@ -475,6 +476,21 @@ def test_attention_fwd_is_deterministic(card, row):
     q, k, v, valid = row_inputs(row, card, seed=6)
     first = attention_fwd(q, k, v, valid, row[7])
     assert torch.equal(attention_fwd(q, k, v, valid, row[7]), first)
+
+
+@pytest.mark.parametrize("label", ["ASR Qwen2 encode L=461",
+                                   "ASR cross d=96"])
+def test_attention_key_split_repeats_agree(card, label):
+    """The key split (two consumer warpgroups sharing one ring of K/V
+    stages) at a B = 16 batch: 2000 launches, each after an L2 flush,
+    give the first launch's bits. A ring stage shared by both
+    warpgroups lets one wait on it two phases ahead and read a tile that
+    has not landed, a few times in a thousand launches."""
+    row = next(r for r in ROWS if r[0] == label)
+    T, S, Hq, Hkv, d, causal = row[2:8]
+    assert attention_plan(T, S, Hq, Hkv, d, causal).consumers == 2
+    q, k, v, valid = row_inputs((label, 16) + row[2:], card, seed=3)
+    assert repeat_mismatches(q, k, v, valid, causal, 2000) == 0
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

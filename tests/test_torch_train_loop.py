@@ -1,15 +1,18 @@
 """The port's training loop, train-state checkpoints and training entry
 point on the CPU (mirroring tests/test_resume.py and
 tests/test_observability.py of the JAX package), for task_mode tts, asr
-and mix.
+and mix, and the VAE's entry point (train_vae) with its export and the
+eval CLI (eval_vae) on it.
 
-Bounds: exact ones but two. Restored tensors and optimizer state are
+Bounds: exact ones but three. Restored tensors and optimizer state are
 compared bit for bit; checkpoint retention is compared with orbax's
 manager under the options the JAX package sets; MFU is checked against
 its own formula to 1e-6 relative (float arithmetic on logged values); the
 optimizer over a mix's tasks against optax to 1e-6 of the largest value
 (fp32 Adam arithmetic, the schedule in float64 here, the bound of
-tests/test_torch_train_tts.py).
+tests/test_torch_train_tts.py); the exported VAE's decode in both
+packages to 1e-5 of its largest value (fp32 convolutions summed in
+another order).
 """
 
 import json
@@ -531,3 +534,123 @@ def test_idle_task_moves_by_decay_as_in_jax():
     for k in MIX_PARAMS:
         if k[0] in ASR_ONLY:
             assert not torch.equal(tparams[names[k]], before[k]), k
+
+
+# --------------------------------------------------------------------------
+# the VAE's entry point
+# --------------------------------------------------------------------------
+VAE_YAML = """\
+model:
+  hidden_channels: 32
+  latent_channels: 8
+  norm_num_groups: 8
+  strides: [2, 2]
+data:
+  data_dir: {store}/train
+  eval_data_dir: {store}/dev
+  train_subsets: "train-clean-100"
+  eval_subsets: "dev-clean"
+  crop_size: 64
+training:
+  output_dir: {out}
+  run_name: vae_tiny
+  per_device_train_batch_size: 4
+  per_device_eval_batch_size: 4
+  learning_rate: 1e-3
+  lr_scheduler_type: cosine
+  warmup_ratio: 0.05
+  num_train_epochs: 1
+  logging_steps: 1
+  save_steps: 2
+  eval_steps: 2
+  save_total_limit: 2
+  bf16: true
+  seed: 42
+"""
+
+
+def _mel_store(root):
+    rng = np.random.default_rng(9)
+    for split, subset, n in (("train", "train-clean-100", 14),
+                             ("dev", "dev-clean", 5)):
+        d = root / split / subset / "19" / "198"
+        d.mkdir(parents=True)
+        for i in range(n):
+            T = int(rng.integers(48, 90))  # around the crop of 64
+            np.savez(d / f"19-198-{i:04d}.npz", mel=(
+                rng.standard_normal((T, 80)) * 2.0 - 6.5).astype(np.float32))
+
+
+def test_train_vae_entry_point_on_cpu(tmp_path, capsys):
+    """`python -m audio_calm_torch.train.train_vae --device cpu
+    --max-steps 3` in-process on a narrow VAE over a tiny mel store: an
+    eval and a checkpoint at step 2, the final step saved, a second run
+    resuming from it to step 5; the exported vae.bin (with its
+    vae_config.json) loads through the port's load_vae and through the
+    JAX package's, and both decode a latent to the same mel (1e-5 of its
+    largest value: fp32 convolutions summed in another order)."""
+    import jax
+
+    from audio_calm_torch.models.vae import load_vae
+    from audio_calm_torch.train import train_vae
+    from audio_calm_tpu.models.vae import load_vae as j_load_vae
+
+    store, out1, out2 = tmp_path / "mels", tmp_path / "run1", tmp_path / "run2"
+    _mel_store(store)
+    cfg_path = tmp_path / "vae.yaml"
+    cfg_path.write_text(VAE_YAML.replace("{store}", str(store)).replace(
+        "{out}", str(out1)))
+    argv = ["--config", str(cfg_path), "--device", "cpu"]
+    run = train_vae.train(argv + ["--max-steps", "3"])
+    log = capsys.readouterr().out
+    assert "train files: 14" in log and "vae step: " in log
+    assert run.step_flops > 0 and run.total_steps == 3
+    recs = [json.loads(l) for l in open(out1 / "metrics.jsonl")]
+    train_recs = [r for r in recs if "loss" in r]
+    assert [r["step"] for r in train_recs] == [1, 2, 3]
+    for r in train_recs:
+        assert all(np.isfinite(r[k]) for k in (
+            "loss", "rec_loss", "ssim_loss", "stft_loss", "kl_loss",
+            "mu_std", "var_mean", "grad_norm", "samples_per_sec"))
+    assert [r["step"] for r in recs if "eval_loss" in r] == [2]
+    assert tckpt.make_manager(str(out1), 2).all_steps() == [2, 3]
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+        train_vae.train(argv + ["--distributed"])
+
+    run2 = train_vae.train(argv + [
+        "--max-steps", "5", "--override", f"training.output_dir={out2}",
+        "--override", f"training.resume_from_checkpoint={out1}"])
+    assert "resumed from step 3" in capsys.readouterr().out
+    assert [r["step"] for r in run2.history] == [4, 5]
+    assert run2.optimizer.count == 5
+
+    path = run2.export_path
+    assert path == str(out2 / "vae.bin")
+    assert json.load(open(out2 / "vae_config.json"))["hidden_channels"] == 32
+    mine = load_vae(path, device="cpu")
+    trained = run2.model.state_dict()
+    for n, v in mine.state_dict().items():
+        assert torch.equal(v, trained[n]), n
+    jmodel, jparams = j_load_vae(path)
+    assert jmodel.cfg.hidden_channels == 32
+    z = np.random.default_rng(1).standard_normal((1, 16, 8)).astype(
+        np.float32)
+    ref = np.asarray(jax.jit(lambda p, x: jmodel.apply(
+        p, x, method=type(jmodel).decode))(jparams, z))
+    with torch.no_grad():
+        got = mine.decode(torch.from_numpy(z)).numpy()
+    assert got.shape == ref.shape == (1, 64, 80)
+    assert np.max(np.abs(got - ref)) <= 1e-5 * np.max(np.abs(ref))
+
+    # the eval CLI on the exported file: the dev crops' statistics (its
+    # loop is held against scripts/eval_vae.py's in tests/test_torch_vae.py)
+    from audio_calm_torch.eval import eval_vae
+
+    wavs = tmp_path / "wavs"
+    stats = eval_vae.evaluate(argv + ["--ckpt", path, "--write-wavs",
+                                      "--out-dir", str(wavs)])
+    log = capsys.readouterr().out
+    assert "samples: 5" in log and f"recon MSE: {stats['mse']:.5f}" in log
+    assert len(stats["recons"]) == 5 and np.isfinite(stats["kl_mean"])
+    assert sorted(os.listdir(wavs)) == sorted(
+        f"{i}_{t}.wav" for i in range(5) for t in ("orig", "recon"))

@@ -133,8 +133,16 @@ def test_masked_encode_is_length_invariant(vae):
                                        rtol=1e-4, atol=1e-5)
     mu, lv = exact
     assert tm.reparameterize(mu, lv) is mu
-    with pytest.raises(NotImplementedError):
-        tm.reparameterize(mu, lv, train=True)
+    # train mode samples mu + eps * exp(logvar / 2), eps from the generator,
+    # then latent dropout (tests/test_torch_vae_train.py holds it against
+    # JAX)
+    z = tm.reparameterize(mu, lv, train=True,
+                          generator=torch.Generator().manual_seed(0))
+    eps = torch.randn(mu.shape, generator=torch.Generator().manual_seed(0))
+    kept = z != 0
+    rate = tm.cfg.latent_dropout
+    torch.testing.assert_close(
+        z[kept], ((mu + eps * torch.exp(0.5 * lv)) / (1 - rate))[kept])
 
 
 def test_pad_to_stride_and_normalize_match_jax(vae):
