@@ -9,10 +9,17 @@ the mel beyond 4n frames is zeroed (what HiFi-GAN's conv padding reads at
 an exact-length boundary), and the waveform is cut to n frames. Griffin-Lim
 renders the same masked mel grid; its log-mel 0 past the valid frames is a
 nonzero magnitude, so its tail stays coupled to the grid, as in JAX.
+
+The render runs its convolutions in full fp32 (`fp32_convs`: cuDNN's TF32
+off for the call). cuDNN picks a convolution's algorithm by the batch; in
+TF32 two algorithms' sums can differ by more than the served contract
+allows between a row rendered in a batch and alone (2 LSB of 16-bit
+audio), in fp32 by far less (chip_smoke.py phase 5g holds the contract).
 """
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 from typing import Callable, List, Sequence, Union
 
@@ -26,6 +33,18 @@ from audio_calm_torch.models.vocoder import GriffinLimVocoder, HiFiGANVocoder
 
 # samples of 16 kHz audio per latent frame: VAE 4x time upsample * hop 256
 SAMPLES_PER_FRAME = 4 * 256
+
+
+@contextlib.contextmanager
+def fp32_convs():
+    """cuDNN's TF32 convolutions off for the block (the flag is the
+    process's: the served engine renders on one worker thread)."""
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
 
 
 def make_renderer(vae: AcousticVAE, vae_cfg: VAEModelConfig,
@@ -48,7 +67,8 @@ def make_renderer(vae: AcousticVAE, vae_cfg: VAEModelConfig,
         T = latents.shape[1]
         frames = torch.arange(T, device=device)[None, :]
         mask = (frames < ns[:, None])[..., None].float()
-        mel = denormalize_mel(vae.decode(latents, mask), vae_cfg)
+        with fp32_convs():
+            mel = denormalize_mel(vae.decode(latents, mask), vae_cfg)
         mframes = torch.arange(up * T, device=device)[None, :]
         return mel * (mframes < up * ns[:, None])[..., None].to(mel.dtype)
 
@@ -56,7 +76,8 @@ def make_renderer(vae: AcousticVAE, vae_cfg: VAEModelConfig,
     def _run(lat: np.ndarray, ns: Sequence[int]) -> np.ndarray:
         x = torch.as_tensor(np.asarray(lat, np.float32), device=device)
         n = torch.as_tensor(np.asarray(ns, np.int64), device=device)
-        return vocoder(decode_mel(x, n)).float().cpu().numpy()
+        with fp32_convs():
+            return vocoder(decode_mel(x, n)).float().cpu().numpy()
 
     def render(latents, n_frames: int) -> np.ndarray:
         wav = _run(np.asarray(latents, np.float32)[None], [int(n_frames)])

@@ -111,17 +111,23 @@ class QwenCALM(nn.Module):
         return self.embed(ids)
 
     def search_nearest_tokens(self, x: torch.Tensor) -> torch.Tensor:
-        """Cosine-nearest vocab ids for continuous embeddings [..., D]: both
-        sides L2-normalised in fp32, one [.., D] @ [D, V] product, argmax
-        (JAX computes it outside any kernel; here torch.matmul, in full
-        fp32 under PyTorch's default, TF32 off for matmuls)."""
+        """Cosine-nearest vocab ids for continuous embeddings [..., Q, D]:
+        both sides L2-normalised in fp32, a [Q, D] @ [D, V] product for
+        each leading item, argmax (JAX computes it outside any kernel; here
+        torch.matmul, in full fp32 under PyTorch's default, TF32 off for
+        matmuls). One product an item: cuBLAS picks its kernel by the row
+        count, so an item's ids do not depend on its batch."""
         xn = x.float()
         xn = xn / torch.linalg.vector_norm(
             xn, dim=-1, keepdim=True).clamp_min(1e-12)
         tn = self.embed.embedding.float()
-        tn = tn / torch.linalg.vector_norm(
-            tn, dim=-1, keepdim=True).clamp_min(1e-12)
-        return torch.argmax(torch.matmul(xn, tn.t()), dim=-1)
+        tn = (tn / torch.linalg.vector_norm(
+            tn, dim=-1, keepdim=True).clamp_min(1e-12)).t()
+        if xn.dim() < 3:
+            return torch.argmax(torch.matmul(xn, tn), dim=-1)
+        items = xn.reshape(-1, *xn.shape[-2:])
+        return torch.stack([torch.argmax(torch.matmul(xi, tn), dim=-1)
+                            for xi in items]).reshape(xn.shape[:-1])
 
     def _llm_encode(self, inputs_embeds, attention_mask, train=False, seed=0):
         pos_ids = (attention_mask.long().cumsum(-1) - 1).clamp_min(0)
@@ -484,3 +490,58 @@ class QwenCALM(nn.Module):
             ctx.reshape(R * S, L, H), latent_mask.reshape(R * S, L),
             labels.reshape(R * S, labels.shape[-1]), train, generator, seed,
             t, x0, drop)
+
+
+@torch.no_grad()
+def init_calm_(model: QwenCALM, seed: int = 0) -> QwenCALM:
+    """Fresh training weights from one seeded generator with the JAX
+    package's initializers (init_calm_params, flax's defaults): Dense and
+    conv kernels lecun-normal (a normal truncated at 2 sigma, variance 1 /
+    fan_in), biases 0; LoRA's A uniform in +-1 / sqrt(fan_in), B 0; norm
+    scales 1; the Qwen2 embedding N(0, 0.02), the ASR query table N(0, 1 /
+    width) (flax's Embed); the DiT context gates and the flow heads'
+    out_proj 0; SOA the mean of the embedding rows [min(1000, V // 2),
+    min(2000, V)). The draws are torch's, not JAX's."""
+    from audio_calm_torch.models.calm_heads import CausalConv1d
+    from audio_calm_torch.models.layers import Linear
+    from audio_calm_torch.models.lora import LoRADense
+    from audio_calm_torch.models.qwen2 import RMSNorm
+
+    gen = torch.Generator(model.soa_embed.device).manual_seed(seed)
+
+    def lecun_(w: torch.Tensor, fan_in: int) -> None:
+        std = (1.0 / fan_in) ** 0.5 / .87962566103423978
+        nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std,
+                              generator=gen)
+
+    for m in model.modules():
+        if isinstance(m, Linear):
+            lecun_(m.weight, m.weight.shape[1])
+            if m.bias is not None:
+                m.bias.zero_()
+            if isinstance(m, LoRADense) and m.rank > 0:
+                bound = m.weight.shape[1] ** -0.5
+                m.lora_a.uniform_(-bound, bound, generator=gen)
+                m.lora_b.zero_()
+        elif isinstance(m, CausalConv1d):
+            lecun_(m.weight, m.weight.shape[1] * m.weight.shape[2])
+            m.bias.zero_()
+        elif isinstance(m, (RMSNorm, nn.LayerNorm)):
+            if m.weight is not None:
+                m.weight.fill_(1.0)
+            if getattr(m, "bias", None) is not None:
+                m.bias.zero_()
+    model.embed.embedding.normal_(0.0, 0.02, generator=gen)
+    q = model.asr_query_embed.embedding
+    q.normal_(0.0, q.shape[1] ** -0.5, generator=gen)
+    for head in (model.tts_flow_head, model.asr_flow_head):
+        head.out_proj.weight.zero_()
+        head.out_proj.bias.zero_()
+        for blk in head.blocks:
+            if hasattr(blk, "ctx_gate"):
+                blk.ctx_gate.zero_()
+    table = model.embed.embedding
+    v = table.shape[0]
+    lo, hi = min(1000, max(v // 2, 0)), min(2000, v)
+    model.soa_embed.copy_(table[lo:hi].mean(dim=0).reshape(1, 1, -1))
+    return model

@@ -22,20 +22,32 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from audio_calm_torch.models.layers import Conv1d, GroupNorm, Linear, gelu
+from audio_calm_torch.models.layers import (Conv1d, GroupNorm, Linear, gelu,
+                                           product)
 from audio_calm_torch.ops.attention import MultiheadAttention
 
 
 class CausalConv1d(nn.Conv1d):
     """Left-padded conv over [B, T, C_in] -> [B, T, C_out] (k - 1 zeros
-    before the first frame), weights cast to the input's dtype at use."""
+    before the first frame), weights cast to the input's dtype at use.
+    With `batch_invariant` on, the conv is one batch-invariant product
+    (ops/gemm_kernel.linear) over the k shifted frames of each position."""
+
+    batch_invariant = False
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: int = 3):
         super().__init__(in_channels, out_channels, kernel_size)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = F.pad(x.transpose(1, 2), (self.kernel_size[0] - 1, 0))
+        k = self.kernel_size[0]
+        if self.batch_invariant:
+            w = self.weight.to(x.dtype)  # [C_out, C_in, k]
+            cols = F.pad(x, (0, 0, k - 1, 0)).unfold(1, k, 1)  # [B,T,C_in,k]
+            return product(self, cols.transpose(2, 3).reshape(
+                *x.shape[:2], k * x.shape[2]), w.transpose(1, 2).reshape(
+                w.shape[0], -1), self.bias.to(x.dtype))
+        x = F.pad(x.transpose(1, 2), (k - 1, 0))
         y = F.conv1d(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
         return y.transpose(1, 2)
 

@@ -4,6 +4,11 @@ Counterpart of audio_calm_tpu/models/layers.py. Every sequence tensor at a
 module boundary is [B, T, C], as in the JAX package; the torch convolutions
 run channels-first inside. Weights keep torch layouts: Conv1d
 [C_out, C_in, k], ConvTranspose1d [C_in, C_out, k].
+
+`batch_invariant_(module)` sends a served model's projections (every
+module with a `batch_invariant` switch: Linear, LoRADense, the causal
+convs) through ops/gemm_kernel.linear, whose rows do not depend on the
+batch; by default they take F.linear (cuBLAS on the card).
 """
 
 from __future__ import annotations
@@ -14,13 +19,18 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from audio_calm_torch.ops import gemm_kernel
+
 
 class Linear(nn.Linear):
     """nn.Linear whose weight and bias are cast at use, as flax's `dtype=`
     does: to the input's dtype, or with `promote=True` (a flax Dense with no
     `dtype`) to the promotion of the input's and the weight's dtypes. fp32
     master weights under bf16 compute then get their gradients in fp32;
-    when every dtype agrees the casts are no-ops."""
+    when every dtype agrees the casts are no-ops. With `batch_invariant`
+    on, the product is ops/gemm_kernel.linear."""
+
+    batch_invariant = False
 
     def __init__(self, in_features: int, out_features: int,
                  bias: bool = True, promote: bool = False):
@@ -31,7 +41,27 @@ class Linear(nn.Linear):
         dt = (torch.promote_types(x.dtype, self.weight.dtype) if self.promote
               else x.dtype)
         bias = None if self.bias is None else self.bias.to(dt)
-        return F.linear(x.to(dt), self.weight.to(dt), bias)
+        return product(self, x.to(dt), self.weight.to(dt), bias)
+
+
+def product(module: nn.Module, x: torch.Tensor, w: torch.Tensor,
+            bias: Optional[torch.Tensor] = None,
+            kn: bool = False) -> torch.Tensor:
+    """x w^T + bias (kn: x w, w [K, N], no bias) for `module`: through
+    ops/gemm_kernel.linear when the module is batch invariant, else
+    F.linear / matmul."""
+    if module.batch_invariant:
+        return gemm_kernel.linear(x, w, bias, kn=kn)
+    return x @ w if kn else F.linear(x, w, bias)
+
+
+def batch_invariant_(module: nn.Module, on: bool = True) -> nn.Module:
+    """Turn the batch-invariant products on (or off) for every submodule
+    that has the switch."""
+    for m in module.modules():
+        if hasattr(type(m), "batch_invariant"):
+            m.batch_invariant = on
+    return module
 
 
 class Embed(nn.Module):

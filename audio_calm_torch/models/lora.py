@@ -13,14 +13,16 @@ weight into an int8 [out, in] tensor with an fp32 `kernel_scale` buffer
 `q.astype(dt) * scale.astype(dt)` (one elementwise op here: int8 times a
 dt tensor promotes to dt, the same values, as |q| <= 127 is exact in
 bf16), then multiplies. The adapter and the bias stay as they are.
+
+With `batch_invariant` on (layers.batch_invariant_), the base product and
+both adapter products are ops/gemm_kernel.linear.
 """
 
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
-from audio_calm_torch.models.layers import Linear
+from audio_calm_torch.models.layers import Linear, product
 from audio_calm_torch.ops.dropout import derive_seed, dropout
 
 
@@ -41,8 +43,8 @@ class LoRADense(Linear):
         if self.weight.dtype == torch.int8:
             dt = x.dtype
             w = self.weight * self.kernel_scale.to(dt)[:, None]
-            y = F.linear(x, w, None if self.bias is None
-                         else self.bias.to(dt))
+            y = product(self, x, w, None if self.bias is None
+                        else self.bias.to(dt))
         else:
             y = super().forward(x)
         if self.rank > 0:
@@ -50,7 +52,8 @@ class LoRADense(Linear):
             if train:
                 xa = dropout(x, self.lora_dropout,
                              derive_seed(seed, self.dropout_site))
-            y = y + self.scaling * ((xa @ self.lora_a.to(x.dtype))
-                                    @ self.lora_b.to(x.dtype))
+            h = product(self, xa, self.lora_a.to(x.dtype), kn=True)
+            y = y + self.scaling * product(self, h, self.lora_b.to(x.dtype),
+                                           kn=True)
         return y
 

@@ -20,6 +20,16 @@ backward is `attention_bwd`. `attention_fwd` itself returns a tensor with
 no gradient on the card, so it refuses inputs that require one. K5 keeps
 the TPU's 512 gate on T and S; the forward has none.
 
+Head dims the kernels have no instantiation for (d <= 128 outside
+_KERNEL_HEAD_DIMS: d = 24 in the end-to-end proof's Qwen2 and DiT; JAX
+sends d % 32 != 0 to XLA attention) go through them zero-padded
+(`padded_head_dim`): q, k and v get zero columns up to the next kernel
+dim, q is scaled by sqrt(d_pad / d) so the kernel's 1 / sqrt(d_pad) scale
+is the true 1 / sqrt(d), and the output and gradients are cut back to d.
+The zero columns add nothing to q k^T, the padded v columns give output
+columns that are cut, and the padded columns' gradients are cut the same
+way (`_pad_head_dim`, held on the CPU with the plain versions).
+
 FLOP counts (`counting_flops`, used by utils/profiling.count_flops): a
 ctypes launch is invisible to torch's FlopCounterMode, so while a count is
 taken each call adds its dense product count to a tally, and the plain
@@ -146,8 +156,41 @@ def _check_qkv(name, q, k, v) -> None:
         raise TypeError(f"{name} takes float32 or bfloat16, got "
                         f"{q.dtype}/{k.dtype}/{v.dtype}")
     if d not in _KERNEL_HEAD_DIMS:
-        raise ValueError(f"{name} kernel takes d in {_KERNEL_HEAD_DIMS}; "
-                         f"got d={d}")
+        raise ValueError(f"{name} kernel takes d in {_KERNEL_HEAD_DIMS} "
+                         f"(a smaller d zero-padded to one); got d={d}")
+
+
+def padded_head_dim(d: int) -> int:
+    """The kernel head dim a call at head dim d runs at: d itself, or the
+    next kernel dim for a d <= 128 the kernels have no instantiation for."""
+    if d in _KERNEL_HEAD_DIMS or d > _KERNEL_HEAD_DIMS[-1]:
+        return d
+    return next(k for k in _KERNEL_HEAD_DIMS if k >= d)
+
+
+def _pad_head_dim(fn, q, k, v, *rest, grads: bool = False):
+    """fn(q, k, v, *rest) at padded_head_dim(d): q, k, v (and for the
+    backward, grads=True, its out and dout, the first two of `rest`) with
+    zero columns up to d_pad, q scaled by sqrt(d_pad / d) so the kernel's
+    1 / sqrt(d_pad) is 1 / sqrt(d); results cut back to d (dq scaled by the
+    same factor: the kernel differentiates with respect to the scaled q)."""
+    d = q.shape[-1]
+    dp = padded_head_dim(d)
+    if dp == d:
+        return fn(q, k, v, *rest)
+    c = math.sqrt(dp / d)
+
+    def pad(t):
+        return torch.nn.functional.pad(t, (0, dp - d))
+
+    if grads:
+        rest = (pad(rest[0]), pad(rest[1])) + tuple(rest[2:])
+    res = fn(pad(q * c), pad(k), pad(v), *rest)
+    if not grads:
+        return res[..., :d].contiguous()
+    dq, dk, dv = res
+    return ((dq[..., :d] * c).contiguous(), dk[..., :d].contiguous(),
+            dv[..., :d].contiguous())
 
 
 def _check_bwd(q, k, v, out, dout) -> None:
@@ -274,8 +317,9 @@ def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   key_valid: Optional[torch.Tensor] = None,
                   causal: bool = False) -> torch.Tensor:
     """Fused SDPA: q [B, T, Hq, d], k/v [B, S, Hkv, d], key_valid [B, S]
-    (nonzero = valid key), any T and S. CPU tensors take the plain
-    version; CUDA tensors launch csrc/attention_fwd.cu, bf16 under
+    (nonzero = valid key), any T and S, d <= 128 (zero-padded to a kernel
+    dim where the kernel has none). CPU tensors take the plain version;
+    CUDA tensors launch csrc/attention_fwd.cu, bf16 under
     `attention_plan`."""
     return _attention_fwd(q, k, v, key_valid, causal, None)
 
@@ -291,6 +335,11 @@ def _attention_fwd(q, k, v, key_valid, causal,
     if q.device.type != "cuda":
         raise ValueError(f"attention_fwd: unsupported device {q.device}")
     cuda_build.refuse_autograd("attention_fwd", (q, k, v), _FLASH)
+    return _pad_head_dim(_launch_fwd, q, k, v, key_valid, causal, plan)
+
+
+def _launch_fwd(q, k, v, key_valid, causal, plan) -> torch.Tensor:
+    """One launch of csrc/attention_fwd.cu at a kernel head dim."""
     _check_qkv("attention_fwd", q, k, v)  # any T and S
     B, T, Hq, d = q.shape
     S, Hkv = k.shape[1], k.shape[2]
@@ -374,6 +423,12 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"attention_bwd: unsupported device {q.device}")
     cuda_build.refuse_autograd("attention_bwd", (q, k, v, out, dout),
                                _FLASH)
+    return _pad_head_dim(_launch_bwd, q, k, v, out, dout, key_valid, causal,
+                         grads=True)
+
+
+def _launch_bwd(q, k, v, out, dout, key_valid, causal):
+    """One launch of csrc/attention_bwd.cu at a kernel head dim."""
     _check_bwd(q, k, v, out, dout)
     B, T, Hq, d = q.shape
     S, Hkv = k.shape[1], k.shape[2]

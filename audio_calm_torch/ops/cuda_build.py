@@ -28,7 +28,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "kernels"
-SOURCES = ("vocoder_stage", "attention_fwd", "attention_bwd", "resblock")
+SOURCES = ("vocoder_stage", "attention_fwd", "attention_bwd", "resblock",
+           "gemm")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -60,6 +60,7 @@ import torch
 from audio_calm_torch import resolve_device
 from audio_calm_torch.config import (CALMConfig, MelConfig, VAEModelConfig,
                                      load_config)
+from audio_calm_torch.data.preprocess import resample_linear
 from audio_calm_torch.data.tokenizer import load_tokenizer
 from audio_calm_torch.eval.infer import (CALMInference, chunk_seed,
                                          chunk_seeds, crossfade_concat,
@@ -69,6 +70,7 @@ from audio_calm_torch.eval.render import make_renderer
 from audio_calm_torch.models.calm import QwenCALM
 from audio_calm_torch.models.flagship import (build_random,
                                               resolve_compute_dtype)
+from audio_calm_torch.models.layers import batch_invariant_
 from audio_calm_torch.models.quant import maybe_quantize_from_env
 from audio_calm_torch.models.vae import AcousticVAE, load_vae
 from audio_calm_torch.models.vocoder import load_vocoder
@@ -162,8 +164,13 @@ def load_models(cfg: CALMConfig, device, components=None):
 def make_engine(cfg: CALMConfig, model: QwenCALM, vae: AcousticVAE,
                 tokenizer, device) -> Engine:
     """The engine around a served model and VAE (on `device`): inference
-    wrapper, vocoder, renderer and the bucketed ASR frontend."""
+    wrapper, vocoder, renderer and the bucketed ASR frontend. A bf16
+    model's projections go through the batch-invariant product
+    (models/layers.batch_invariant_), so a request's rows do not depend on
+    what it is batched with."""
     m = cfg.model
+    if model.dtype == torch.bfloat16:
+        batch_invariant_(model)
     inf = CALMInference(model, tokenizer,
                         audio_buckets=cfg.evaluation.audio_buckets,
                         text_buckets=cfg.evaluation.text_buckets,
@@ -206,19 +213,6 @@ def wav_bytes(x: np.ndarray, sr: int = 16000) -> bytes:
         w.setframerate(sr)
         w.writeframes((x * 32767).astype("int16").tobytes())
     return buf.getvalue()
-
-
-def resample_linear(x: np.ndarray, sr: int, target_sr: int) -> np.ndarray:
-    """Linear resampler (counterpart of the JAX package's
-    data/preprocess.resample_linear)."""
-    if sr == target_sr:
-        return x
-    n_out = int(round(len(x) * target_sr / sr))
-    t = np.arange(n_out, dtype=np.float64) * (sr / target_sr)
-    i0 = np.minimum(t.astype(np.int64), len(x) - 1)
-    i1 = np.minimum(i0 + 1, len(x) - 1)
-    frac = (t - i0).astype(np.float32)
-    return x[i0] * (1 - frac) + x[i1] * frac
 
 
 def parse_wav(data: bytes) -> np.ndarray:

@@ -16,7 +16,10 @@ Phases, in order; any failure exits non-zero and prints no result:
      through the plain forward; the resblock kernel at C = 12, 24, 48, 96,
      128, 256 and k = 3, 7, 11 with a ragged last tile, the sequence
      edges held on their own; the stage kernel at HiFi-GAN V2's C = 16
-     and C = 8);
+     and C = 8; the batch-invariant product (csrc/gemm.cu) at the served
+     engine's shapes, rows against the row launched alone; the attention
+     forward and backward at head dims they take zero-padded, the
+     end-to-end proof's d = 24 and d = 40);
   4. the serving slice at full widths with 2 LLM layers on the 96-frame
      grid, fp32, on the card and on the CPU, same weights and ODE noise;
      then one TTS training step (forward_tts + backward) at full widths
@@ -70,12 +73,14 @@ Phases, in order; any failure exits non-zero and prints no result:
      this process on the card (byte tokenizer, random bf16 weights from a
      seed, Griffin-Lim, a 200 ms batch window), over HTTP: /health, two
      concurrent /tts (one group of 2) twice (equal bytes), the first alone
-     (its gap to the batched row printed: a known bf16 divergence), a
+     (the pair's row equals it: latents bit for bit, audio within 2/32768
+     before the last 4096 samples, no module's row 0 differing), a
      long-form /tts (3 chunks or more), a streamed /tts, /asr of 15 s and
-     of 40 s (long-form), the 40 s again as a chunked streaming upload
-     (held against the buffered transcript margin-aware), /stats; each
-     request's attention launches, groups, wall, audio and realtime factor,
-     the streams' time to first audio and first transcript, and one
+     of 40 s (long-form; its chunks batched give every solo call's ids),
+     the 40 s again as a chunked streaming upload (held against the
+     buffered transcript margin-aware), /stats; each request's attention
+     and batch-invariant product launches, groups, wall, audio and
+     realtime factor, the streams' time to first audio and first transcript, and one
      profiled session's device busy share and the attention forward's
      device time per instantiation;
   5h. the served product on checkpoint weights: a seeded source model
@@ -132,9 +137,25 @@ Phases, in order; any failure exits non-zero and prints no result:
      probe need, the components served through --components equal to the
      trained tensors, 4 steps timed one by one with K4 / K3 / K5 launches
      asserted; one step of each profiled (a lead step first);
+  5l. (run last) data preparation and the end-to-end proof: a seeded
+     corpus of 96 LibriSpeech-layout WAVs of 1.5-35 s (every bucket of
+     the processor) through `python -m audio_calm_torch.data.
+     process_dataset`'s main, mel-only and through a seeded configs/
+     vae.yaml VAE exported by train_vae (files/s, seconds of audio a
+     second), 4 files' latents in fp32 against the same VAE on the CPU,
+     compute_stats and --stats, the store as reference .pt payloads
+     through convert_store, read back by CalmDataset; then
+     eval/e2e_demo.run_demo at the JAX script's counts (VAE 400, CALM 600,
+     distillation 300 steps, K = 4; head dim 24 through the padded
+     attention kernels): at least 2 of 3 words in both legs, each
+     stage's wall and attention launches; then the batch-invariant
+     products' cost against cuBLAS, in turns: the served pair's group
+     (wall, device ms), its B = 1 encode and the flagship's ODE (device
+     ms);
   6. per kernel: its launches on its main path, its device time per launch
      at main-path shapes, the bound, the plain version's and the library
-     call's device time; for the stage kernel, per V1 stage on a log line
+     call's device time (the batch-invariant product: at GEMM_ROWS, its
+     launches those of phase 5g's session, cuBLAS its library call); for the stage kernel, per V1 stage on a log line
      (not in the `kernels` line), the tile, the executed/useful product
      ratio and the L2 weight bytes its tile plan reckons, beside the
      earlier three-buffer design's time quoted from PERF.md; the attention
@@ -571,6 +592,158 @@ def phase_kernels(gen, card):
             f"{SPLIT_REPEATS} repeated launches differ from the first")
         check(bad == 0, f"attention_fwd {label}: repeated launches agree")
     return worst
+
+
+# the batch-invariant product (csrc/gemm.cu) at the served engine's shapes
+# (configs/calm.yaml, phase 5g): the /tts pair's Qwen2 encode (2 rows of 97
+# positions) with LoRA r 64, its DiT under CFG (4 rows on the 192 grid),
+# the ASR encode's down_proj (2 rows of 461) -> (label, M, N, K, w [K, N])
+GEMM_ROWS = [
+    ("Qwen2 q/o, /tts pair", 194, 1536, 1536, False),
+    ("Qwen2 k/v, /tts pair", 194, 256, 1536, False),
+    ("Qwen2 gate/up, /tts pair", 194, 8960, 1536, False),
+    ("Qwen2 down, /tts pair", 194, 1536, 8960, False),
+    ("LoRA A, /tts pair", 194, 64, 1536, True),
+    ("LoRA B, /tts pair", 194, 1536, 64, True),
+    ("DiT q/k/v/o, /tts pair", 768, 768, 768, False),
+    ("DiT mlp_fc1, /tts pair", 768, 3072, 768, False),
+    ("DiT mlp_fc2, /tts pair", 768, 768, 3072, False),
+    ("Qwen2 down, /asr B=2", 922, 1536, 8960, False),
+]
+# the attention kernels at head dims they take zero-padded: the end-to-end
+# proof's Qwen2 encode (B = 16 rows of 8 text + SOA positions), its DiT
+# self- and cross-attention (2B = 32 rows on the 48-frame grid), d = 40
+PADDED_ATTN = [  # (B, T, S, Hq, Hkv, d, causal, label)
+    (16, 9, 9, 4, 2, 24, True, "e2e Qwen2 d=24"),
+    (32, 48, 48, 4, 4, 24, False, "e2e DiT self d=24"),
+    (32, 48, 9, 4, 4, 24, False, "e2e DiT cross d=24"),
+    (2, 70, 130, 8, 4, 40, True, "d=40 GQA"),
+]
+
+
+def gemm_inputs(M, N, K, kn, card, seed):
+    g = torch.Generator(card).manual_seed(seed)
+    x = torch.randn(M, K, generator=g, device=card).bfloat16()
+    w = (torch.randn((K, N) if kn else (N, K), generator=g, device=card)
+         / K ** 0.5).bfloat16()
+    b = None if kn else (0.1 * torch.randn(N, generator=g, device=card)
+                         ).bfloat16()
+    return x, w, b
+
+
+def phase_served_kernels(card):
+    """The batch-invariant product against its plain version at the served
+    shapes (bf16: 2^-7 of the largest output), each checked row's bits
+    against the row launched alone; the attention kernels at head dims
+    they take zero-padded against their plain versions, forward and
+    backward (fp32 2e-5 / 2e-4, bf16 2^-7 of the largest magnitude), one
+    launch each way -> the worst bf16 errors."""
+    from audio_calm_torch.ops import attention_kernel as ak
+    from audio_calm_torch.ops.gemm_kernel import linear, linear_plain
+
+    worst = {"gemm": 0.0, "attention_fwd_padded": 0.0,
+             "attention_bwd_padded": 0.0}
+    for i, (label, M, N, K, kn) in enumerate(GEMM_ROWS):
+        x, w, b = gemm_inputs(M, N, K, kn, card, i)
+        out = linear(x, w, b, kn=kn)
+        ref = linear_plain(x, w, b, kn=kn).float()
+        err = (out.float() - ref).abs().max().item()
+        bound = 2 ** -7 * ref.abs().max().item()
+        rows = [torch.equal(linear(x[r:r + 1], w, b, kn=kn), out[r:r + 1])
+                for r in (0, M // 2, M - 1)]
+        log(f"  gemm {label} [{M}, {K}] x {'[K, N]' if kn else '[N, K]'} "
+            f"N={N}: max_abs_err {err:.3e} bound {bound:.3e}; rows equal "
+            f"to M=1 launches {rows}")
+        check(err <= bound and all(rows), f"gemm {label}")
+        worst["gemm"] = max(worst["gemm"], err)
+    g = torch.Generator(card).manual_seed(5)
+    for B, T, S, Hq, Hkv, d, causal, label in PADDED_ATTN:
+        valid = torch.ones(B, S, dtype=torch.bool, device=card)
+        valid[1, S // 2:] = False
+        for dt in (torch.float32, torch.bfloat16):
+            q = torch.randn(B, T, Hq, d, generator=g, device=card).to(dt)
+            k, v = (torch.randn(B, S, Hkv, d, generator=g, device=card)
+                    .to(dt) for _ in range(2))
+            dout = torch.randn(B, T, Hq, d, generator=g, device=card).to(dt)
+            f0, b0 = ak.attention_fwd.launches, ak.attention_bwd.launches
+            out = ak.attention_fwd(q, k, v, valid, causal)
+            grads = ak.attention_bwd(q, k, v, out, dout, valid, causal)
+            torch.cuda.synchronize()
+            check((ak.attention_fwd.launches, ak.attention_bwd.launches)
+                  == (f0 + 1, b0 + 1), f"attention {label}: one launch "
+                  "each way")
+            # the backward's plain version on the kernel's output, as the
+            # card tests hold it
+            ref = ak.attention_fwd_plain(q, k, v, valid, causal)
+            refs = ak.attention_bwd_plain(q, k, v, out, dout, valid, causal)
+            errs, bounds = [], []
+            for a, b_, tol in [(out, ref, 2e-5)] + [
+                    (a, b_, 2e-4) for a, b_ in zip(grads, refs)]:
+                a, b_ = a.float(), b_.float()
+                errs.append((a - b_).abs().max().item())
+                bounds.append(tol if dt == torch.float32
+                              else 2 ** -7 * b_.abs().max().item())
+            log(f"  attention {label} {str(dt)[6:]} padded to d="
+                f"{ak.padded_head_dim(d)}: max_abs_err out / dq / dk / dv "
+                f"{[f'{e:.3e}' for e in errs]}, bounds "
+                f"{[f'{b_:.3e}' for b_ in bounds]}")
+            check(all(e <= b_ for e, b_ in zip(errs, bounds)),
+                  f"attention {label} {dt} (padded to d="
+                  f"{ak.padded_head_dim(d)})")
+            if dt == torch.bfloat16:
+                worst["attention_fwd_padded"] = max(
+                    worst["attention_fwd_padded"], errs[0])
+                worst["attention_bwd_padded"] = max(
+                    worst["attention_bwd_padded"], *errs[1:])
+    return worst
+
+
+def kernel_time_gemm(launches, err, card):
+    """The batch-invariant product's line: device ms a launch at each of
+    GEMM_ROWS beside the plain version, cuBLAS (F.linear, the library call
+    the served engine no longer makes) and the bound, their means."""
+    from torch.nn.functional import linear as f_linear
+
+    from audio_calm_torch.ops.gemm_kernel import (linear, linear_plain,
+                                                  split_count)
+
+    def timed(fn, iters):
+        # a session whose every record the tracer lost reads 0: again
+        for _ in range(3):
+            ms = device_ms(fn, iters)
+            if ms > 0:
+                return ms
+        check(False, "the profiler recorded the product's device time")
+
+    rows = []
+    for i, (label, M, N, K, kn) in enumerate(GEMM_ROWS):
+        x, w, b = gemm_inputs(M, N, K, kn, card, i)
+        ms = timed(lambda: linear(x, w, b, kn=kn), 10)
+        plain = timed(lambda: linear_plain(x, w, b, kn=kn), 3)
+        lib = timed(lambda: x @ w if kn else f_linear(x, w, b), 10)
+        nbytes = 2 * (M * K + N * K + M * N + (0 if kn else N))
+        bnd, by = bound_ms(2.0 * M * N * K, nbytes)
+        rows.append({"shape": label, "M": M, "N": N, "K": K,
+                     "splits": split_count(N, K), "ms": ms,
+                     "plain_ms": plain, "library_ms": lib, "bound_ms": bnd,
+                     "bound_by": by})
+        log(f"  gemm {json.dumps(rows[-1])}")
+    by = max(("operations", "bytes"),
+             key=lambda k: sum(r["bound_by"] == k for r in rows))
+    return {
+        "name": "gemm", "route": "cuda",
+        "source": "audio_calm_torch/csrc/gemm.cu",
+        "replaces": "audio_calm_tpu/models/lora.py:50",
+        "replaces_note": "no pallas_call: XLA's dot of the served "
+                         "projections, made batch invariant on the card",
+        "launches": launches, "max_abs_err": err,
+        "ms": float(np.mean([r["ms"] for r in rows])),
+        "plain_ms": float(np.mean([r["plain_ms"] for r in rows])),
+        "bound_ms": float(np.mean([r["bound_ms"] for r in rows])),
+        "bound_by": by,
+        "library_ms": float(np.mean([r["library_ms"] for r in rows])),
+        "per_launch": "mean over GEMM_ROWS, the served engine's shapes",
+        "shapes": rows}
 
 
 def resblock_inputs(C, k, T, card, g):
@@ -1344,8 +1517,10 @@ def ids_agreement(x_ref, x_dev, table, ids_ref, ids_dev):
 
 
 def first_row_gaps(model, batched, solo, n=3):
-    """The first `n` modules (in call order) whose output's row 0 under
-    batched() differs from solo()'s only row -> [(name, max gap)]."""
+    """The first `n` (None: all) modules, in call order, whose output's row
+    0 under batched() differs from its row 0 under solo() (the solo
+    request's row, or under CFG its conditional row) -> [(name, max
+    gap)]."""
     outs = {}
 
     def hook(name):
@@ -1364,10 +1539,10 @@ def first_row_gaps(model, batched, solo, n=3):
     finally:
         for h in handles:
             h.remove()
-    gaps = [(k, (first[k][:1].float() - v.float()).abs().max().item())
+    gaps = [(k, (first[k][:1].float() - v[:1].float()).abs().max().item())
             for k, v in outs.items()
-            if v.shape[0] == 1 and k in first and first[k].shape[1:] ==
-            v.shape[1:] and not torch.equal(first[k][:1], v)]
+            if k in first and first[k].shape[1:] == v.shape[1:]
+            and not torch.equal(first[k][:1], v[:1])]
     return gaps[:n]
 
 
@@ -1682,14 +1857,19 @@ def phase_served_product(card):
     attention launches (none runs beside another), batch groups, wall,
     audio and realtime factor (and the streams' time to their first audio
     or transcript); the repeated pair's bytes; the stream against the
-    buffered transcript, margin-aware; the batched row against
-    the solo request (printed, a known divergence); one profiled session's
-    device busy share."""
+    buffered transcript, margin-aware; the batch-invariant served rows:
+    the pair's first row against the solo request (latents bit for bit,
+    audio within 2/32768 before the last 4096 samples) and the 40 s
+    request's chunks batched against solo calls (every id equal), with no
+    module's row 0 differing in either; the batch-invariant product's
+    launches on every /tts and /asr; one profiled session's device busy
+    share."""
     import gc
     import threading
 
     from audio_calm_torch.config import load_config
     from audio_calm_torch.ops.attention_kernel import attention_fwd
+    from audio_calm_torch.ops.gemm_kernel import linear as gemm_linear
     from audio_calm_torch.serving import server
 
     gc.collect()
@@ -1739,6 +1919,7 @@ def phase_served_product(card):
     def call(method, path, body=None, ctype=None, chunked=False,
              first_after=None):
         attention_fwd.launches = 0
+        gemm_linear.launches = 0
         g0 = len(groups)
         t0 = time.perf_counter()
         res = http_call(port, method, path, body, ctype, chunks=(
@@ -1747,7 +1928,8 @@ def phase_served_product(card):
         wall = time.perf_counter() - t0
         return {"status": res[0], "headers": res[1], "data": res[2],
                 "first_s": res[3], "wall_s": wall,
-                "launches": attention_fwd.launches, "groups": groups[g0:]}
+                "launches": attention_fwd.launches,
+                "gemm_launches": gemm_linear.launches, "groups": groups[g0:]}
 
     def tts(text, seed, first_after=None, **extra):
         return call("POST", "/tts", json.dumps(
@@ -1756,6 +1938,7 @@ def phase_served_product(card):
 
     def pair():
         attention_fwd.launches = 0
+        gemm_linear.launches = 0
         g0 = len(groups)
         out = [None, None]
         barrier = threading.Barrier(2)
@@ -1777,6 +1960,7 @@ def phase_served_product(card):
         check(not any(t.is_alive() for t in threads), "the /tts pair ended")
         return {"status": [o[0] for o in out], "data": [o[2] for o in out],
                 "wall_s": wall, "launches": attention_fwd.launches,
+                "gemm_launches": gemm_linear.launches,
                 "groups": groups[g0:]}
 
     def session():
@@ -1870,6 +2054,9 @@ def phase_served_product(card):
               f"{x['launches']} (expected {want})")
     check(all(r[n]["launches"] > 0 for n in r if n.startswith(("tts", "asr"))),
           "K3/K4 launched on every /tts and /asr")
+    check(all(r[n]["gemm_launches"] > 0 for n in r
+              if n.startswith(("tts", "asr"))),
+          "the batch-invariant product launched on every /tts and /asr")
 
     # the stream against the buffered transcript, margin-aware: the same
     # chunks and seeds, the stream's decoded alone (or as they coalesced),
@@ -1905,37 +2092,84 @@ def phase_served_product(card):
     check(margin[3] == 0, "the streamed transcript agrees with the buffered "
           "one wherever the margin decides the id")
 
-    # the batched row against the solo request: a known divergence in bf16
-    # (cuBLAS picks its GEMM kernel by row count; ROADMAP Queue 3)
+    # the batched row against the solo request, the served contract
+    # (tests/test_serve.py::test_tts_concurrent_requests_batch_safely):
+    # within 2 LSB of 16-bit audio except the last 4096 samples, the
+    # latents bit for bit; no module's row 0 differs
     (key, items, outs, _), = [g for g in r["tts_pair"]["groups"]
                              if g[0][0] == "tts"]
     row = [t for t, _ in items].index(SERVE_PAIR[0][0])
+    texts, seeds = [t for t, _ in items], [s for _, s in items]
+    kw = dict(steps=key[1], cfg_scale=key[2], method=e.ode_method,
+              time_schedule=e.time_schedule)
     with torch.inference_mode():
-        kw = dict(steps=key[1], cfg_scale=key[2], method=e.ode_method,
-                  time_schedule=e.time_schedule)
-        lat_b, n_b, grid_b = engine.inf.tts_batch(
-            [t for t, _ in items], [s for _, s in items], **kw)
+        lat_b, n_b, grid_b = engine.inf.tts_batch(texts, seeds, **kw)
         lat_s, n_s, grid_s = engine.inf.tts_batch([SERVE_PAIR[0][0]],
                                                   [SERVE_PAIR[0][1]], **kw)
         again = np.clip(engine.render.batch(lat_b, n_b)[row], -1, 1)
     check(np.array_equal(again, outs[row]),
           "the recomputed pair gives the served row")
+    tts_gaps = first_row_gaps(
+        calm, lambda: engine.inf.tts_batch(
+            [texts[row]] + texts[:row] + texts[row + 1:],
+            [seeds[row]] + seeds[:row] + seeds[row + 1:], **kw),
+        lambda: engine.inf.tts_batch([SERVE_PAIR[0][0]],
+                                     [SERVE_PAIR[0][1]], **kw), n=None)
     n = min(n_b[row], n_s[0])
     pb = wav_pcm(r["tts_pair"]["data"][[t for t, _ in SERVE_PAIR].index(
         SERVE_PAIR[0][0])])
     ps = wav_pcm(r["tts_solo"]["data"])
     m_ = min(len(pb), len(ps))
     d = np.abs(pb[:m_].astype(np.int32) - ps[:m_])
-    divergence = {"frames_batched": n_b[row], "frames_solo": n_s[0],
-                  "grids": [grid_b, grid_s],
-                  "latent_gap": float(np.abs(lat_b[row, :n]
-                                             - lat_s[0, :n]).max()),
-                  "audio_gap_lsb": int(d.max()),
-                  "audio_samples_differing": float((d > 0).mean()),
-                  "bytes_equal": r["tts_pair"]["data"][0]
-                  == r["tts_solo"]["data"]}
-    log(f"  known divergence, /tts row of the pair vs the solo request "
-        f"(bf16, ROADMAP Queue 3): {divergence}")
+    batched_vs_solo = {
+        "frames_batched": n_b[row], "frames_solo": n_s[0],
+        "grids": [grid_b, grid_s],
+        "latent_gap": float(np.abs(lat_b[row, :n] - lat_s[0, :n]).max()),
+        "audio_gap_lsb": int(d.max()),
+        "audio_gap_lsb_before_last_4096": int(d[:-4096].max()),
+        "audio_samples_differing": float((d > 0).mean()),
+        "bytes_equal": r["tts_pair"]["data"][0] == r["tts_solo"]["data"],
+        "first_differing_modules": tts_gaps}
+    log(f"  /tts row of the pair vs the solo request (bf16): "
+        f"{batched_vs_solo}")
+    check(grid_b == grid_s and n_b[row] == n_s[0] and len(pb) == len(ps),
+          "the pair's row and the solo request share a grid and a length")
+    check(batched_vs_solo["latent_gap"] == 0.0 and not tts_gaps,
+          "the pair's row has the solo request's latents, bit for bit, and "
+          "no module's row differs")
+    check(batched_vs_solo["audio_gap_lsb_before_last_4096"] <= 2,
+          "the pair's row is the solo request's audio within 2/32768 "
+          "before the last 4096 samples")
+    # asr_batch's rows against solo calls with the same seeds (tests/
+    # test_serving_batch.py::test_asr_batch_matches_solo_rows): the 40 s
+    # request's chunks as one batch
+    a_items = [it for g in r["asr_40s"]["groups"] if g[0][0] == "asr"
+               for it in g[1]]
+    batch_states = asr_group_states(engine, a_items)
+    solo_states = {}
+    for it in a_items:
+        solo_states.update(asr_group_states(engine, [it]))
+    ids_equal = [int((batch_states[s][1] == solo_states[s][1]).sum())
+                 for _, s in a_items]
+    with torch.inference_mode():
+        *args_b, _ = engine.inf._asr_inputs([lat for lat, _ in a_items],
+                                            [s for _, s in a_items])
+        *args_s, _ = engine.inf._asr_inputs([a_items[0][0]],
+                                            [a_items[0][1]], pad_batch=False)
+    q = calm.cfg.max_text_len
+    asr_gaps = first_row_gaps(
+        calm, lambda: calm.asr_encode_audio(*args_b, q),
+        lambda: calm.asr_encode_audio(*args_s, q), n=None)
+    asr_vs_solo = {
+        "rows": len(a_items), "ids_equal": ids_equal, "ids_total": q,
+        "state_gap": max((batch_states[s][0].float() - solo_states[s][0]
+                          .float()).abs().max().item() for _, s in a_items),
+        "first_differing_modules": asr_gaps}
+    log(f"  asr_batch rows vs solo calls (bf16): {asr_vs_solo}")
+    check(len(a_items) >= 2 and all(k == q for k in ids_equal)
+          and not asr_gaps,
+          "asr_batch's ids equal the solo calls' ids, every one, and no "
+          "module's row differs")
 
     # per endpoint: wall, device-call seconds, audio, realtime factor,
     # batch sizes, launches
@@ -1952,7 +2186,8 @@ def phase_served_product(card):
                     g[3] for g in x["groups"]), "audio_s": audio,
                 "realtime_factor": audio / x["wall_s"],
                 "batches": [f"{g[0][0]}:{len(g[1])}" for g in x["groups"]],
-                "launches": x["launches"]}
+                "launches": x["launches"],
+                "gemm_launches": x["gemm_launches"]}
         first = ""
         if x.get("first_s") is not None:
             row_["first_s"] = x["first_s"]
@@ -1962,8 +2197,10 @@ def phase_served_product(card):
         log(f"  {name:15s} wall {x['wall_s']:.4f} s, device calls "
             f"{row_['device_call_s']:.4f} s, audio {audio:.3f} s, realtime "
             f"factor {row_['realtime_factor']:.2f}x, batches "
-            f"{row_['batches']}, launches {x['launches']}{first}")
+            f"{row_['batches']}, launches {x['launches']} (gemm "
+            f"{x['gemm_launches']}){first}")
     launches = sum(x["launches"] for x in r.values())
+    gemm_launches = sum(x["gemm_launches"] for x in r.values())
     log(f"  served session: {wall:.4f} s wall, device busy {busy:.4f} s "
         f"({100 * busy / wall:.1f}% of the unprofiled wall; profiled wall "
         f"{busy_wall:.4f} s), attention launches {launches}")
@@ -1985,12 +2222,14 @@ def phase_served_product(card):
     del engine, srv, calm
     gc.collect()
     torch.cuda.empty_cache()
-    return launches, {"build_s": build_s, "session_wall_s": wall,
+    return launches, gemm_launches, {"build_s": build_s,
+                                     "session_wall_s": wall,
                       "device_busy_s": busy,
                       "busy_share_of_wall": busy / wall,
                       "endpoints": rows_out,
                       "stream_vs_buffered": stream_vs_buffered,
-                      "batched_vs_solo_tts": divergence,
+                      "batched_vs_solo_tts": batched_vs_solo,
+                      "asr_batch_vs_solo": asr_vs_solo,
                       "stats_tts_sizes": stats["batches"]["tts"]["sizes"],
                       "attention_forward_device": attn}
 
@@ -3613,6 +3852,276 @@ def phase_vae_and_distillation(card, smi):
         torch.cuda.empty_cache()
 
 
+# data preparation and the end-to-end proof (phase 5l): a seeded corpus of
+# LibriSpeech-layout WAVs whose lengths fill every bucket of the processor
+# (2 / 5 / 10 / 20 / 40 s), at configs/vae.yaml's width; PREP_CHECKED files
+# (one of each of the shorter buckets) held against the CPU
+PREP_FILES = 96
+PREP_EDGES = (1.5, 2.0, 5.0, 10.0, 20.0, 35.0)  # seconds
+PREP_CHECKED = 4
+VAE_TOL = 2e-4  # tests/test_torch_vae.py's bound against JAX, fp32
+
+
+def write_wav_corpus(root, n, seed=0):
+    """n 16 kHz mono 16-bit WAVs (served_wav's signals) spread over the
+    buckets, in LibriSpeech's layout: <root>/<spk>/<chap>/<spk>-<chap>-<i>
+    .wav beside <spk>-<chap>.trans.txt -> seconds of audio."""
+    from audio_calm_torch.serving.server import wav_bytes
+
+    rng = np.random.default_rng(seed)
+    total = 0.0
+    for i in range(n):
+        b = i % (len(PREP_EDGES) - 1)
+        sec = float(rng.uniform(PREP_EDGES[b], PREP_EDGES[b + 1]))
+        spk, chap = 100 + i % 4, 10 + i % 3
+        d = os.path.join(root, str(spk), str(chap))
+        os.makedirs(d, exist_ok=True)
+        fid = f"{spk}-{chap}-{i:04d}"
+        x = np.clip(served_wav(sec, seed=1000 + i), -1, 1)
+        with open(os.path.join(d, fid + ".wav"), "wb") as f:
+            f.write(wav_bytes(x))
+        with open(os.path.join(d, f"{spk}-{chap}.trans.txt"), "a") as f:
+            f.write(f"{fid} utterance number {i}\n")
+        total += len(x) / 16000
+    return total
+
+
+def npz_files(root):
+    return sorted(os.path.join(dp, f) for dp, _, fs in os.walk(root)
+                  for f in fs if f.endswith(".npz"))
+
+
+def phase_data_prep(card, smi, tmp):
+    """process_dataset over a seeded corpus of PREP_FILES WAVs, mel-only
+    and through a seeded configs/vae.yaml VAE exported by train_vae's
+    `export` (PyTorch's default numerics: cuDNN's TF32 convolutions), timed;
+    PREP_CHECKED files' latents on the card in fp32 against the same VAE on
+    the CPU; compute_stats and --stats; the latent store as reference .pt
+    payloads through convert_store, read back through CalmDataset."""
+    from audio_calm_torch.config import VAEConfig, load_config
+    from audio_calm_torch.data import convert_store, process_dataset
+    from audio_calm_torch.data.datasets import CalmDataset, load_array
+    from audio_calm_torch.data.preprocess import (CorpusProcessor,
+                                                  compute_stats,
+                                                  scan_audio_files)
+    from audio_calm_torch.data.tokenizer import ByteTokenizer
+    from audio_calm_torch.models.vae import (AcousticVAE, init_vae_,
+                                             load_vae, normalize_mel)
+    from audio_calm_torch.train.train_vae import export
+
+    raw = os.path.join(tmp, "raw", "train-clean-100")
+    audio_s = write_wav_corpus(raw, PREP_FILES)
+    cfg = load_config("configs/vae.yaml", cls=VAEConfig)
+    m = cfg.model
+    check((m.hidden_channels, m.latent_channels, list(m.strides))
+          == (512, 128, [2, 2]), "configs/vae.yaml's width")
+    with torch.device(card):
+        vae = AcousticVAE(m)
+    init_vae_(vae, seed=7)
+    ckpt = export(vae, cfg, os.path.join(tmp, "vae"))
+    del vae
+    result = {"files": PREP_FILES, "audio_s": audio_s, "card": smi}
+    roots = {"mel_only": os.path.join(tmp, "mels", "train-clean-100"),
+             "latents": os.path.join(tmp, "latents", "train-clean-100")}
+    for name, extra in (("mel_only", ["--mel_only"]),
+                        ("latents", ["--vae_ckpt", ckpt])):
+        t0 = time.perf_counter()
+        rc = process_dataset.main(["--input_dir", raw, "--output_dir",
+                                   roots[name], "--dataset", "librispeech",
+                                   "--device", card.type] + extra)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        files = npz_files(roots[name])
+        check(rc == 0 and len(files) == PREP_FILES,
+              f"process_dataset {name}: {PREP_FILES} files")
+        result[name] = {"wall_s": wall, "files_per_s": PREP_FILES / wall,
+                        "audio_s_per_s": audio_s / wall}
+        log(f"  process_dataset {name}: {PREP_FILES} files, {audio_s:.1f} s "
+            f"of audio in {wall:.3f} s: {PREP_FILES / wall:.2f} files/s, "
+            f"{audio_s / wall:.1f} s of audio a second ({smi})")
+    wavs = scan_audio_files(raw)
+
+    def stored(root, wav):
+        return os.path.join(root, os.path.relpath(wav, raw)[:-4] + ".npz")
+
+    for wav in wavs:
+        n = os.path.getsize(wav) // 2 - 22  # 16-bit samples past the header
+        lat_f = stored(roots["latents"], wav)
+        mel, lat = load_array(stored(roots["mel_only"], wav)), load_array(
+            lat_f)
+        check(mel.shape == (n // 256 + 1, 80)
+              and lat.shape == (-(-(n // 256 + 1) // 4), 128)
+              and np.isfinite(lat).all(), f"{os.path.basename(lat_f)}: "
+              "mel [n // 256 + 1, 80], latent [ceil(frames / 4), 128]")
+
+    # PREP_CHECKED files, one a bucket (files 0, 1, ... fill buckets 0, 1,
+    # ...), on the card in fp32 and on the CPU
+    picked = [w for w in wavs
+              if int(os.path.basename(w)[-8:-4]) < PREP_CHECKED]
+    lats = {}
+    for key, dev in (("card", card), ("cpu", torch.device("cpu"))):
+        v = load_vae(ckpt, device=dev)
+        proc = CorpusProcessor(
+            vae_apply=lambda x, v=v: v.encode(normalize_mel(x, v.cfg))[0],
+            total_stride=v.cfg.total_stride, device=dev)
+        out = os.path.join(tmp, f"check_{key}")
+        with exact_fp32():
+            proc.process_corpus(picked, out, raw)
+        lats[key] = [load_array(stored(out, w)) for w in picked]
+    gaps = [float(np.abs(a - b).max()) for a, b in zip(lats["card"],
+                                                       lats["cpu"])]
+    tf32 = [float(np.abs(load_array(stored(roots["latents"], w)) - b).max())
+            for w, b in zip(picked, lats["cpu"])]
+    result["card_vs_cpu_fp32"] = gaps
+    result["store_tf32_vs_cpu"] = tf32
+    log(f"  {PREP_CHECKED} files' latents, card (fp32) vs CPU: max gaps "
+        f"{gaps} (bound {VAE_TOL}); the store's (TF32 convolutions) "
+        f"{tf32}")
+    check(len(gaps) == PREP_CHECKED and max(gaps) <= VAE_TOL,
+          "latents on the card within the VAE's fp32 bound of the CPU's")
+
+    # statistics, the CLI's --stats, convert_store, the port's loader
+    lat_files = npz_files(roots["latents"])
+    mean, std = compute_stats(lat_files, key_priority=("latent",))
+    mean_d, _ = compute_stats(lat_files, key_priority=("latent",),
+                              per_dim=True)
+    check(np.isfinite(mean) and std > 0 and mean_d.shape == (128,),
+          "compute_stats over the latent store")
+    check(process_dataset.main(["--stats", roots["latents"], "--stats_key",
+                                "latent"]) == 0, "process_dataset --stats")
+    result["latent_mean"], result["latent_std"] = float(mean), float(std)
+    pt_root = os.path.join(tmp, "pt")
+    for f in lat_files + [p for p in (
+            os.path.join(dp, x) for dp, _, xs in os.walk(roots["latents"])
+            for x in xs) if p.endswith(".trans.txt")]:
+        dst = os.path.join(pt_root, os.path.relpath(f, os.path.dirname(
+            roots["latents"])))
+        os.makedirs(os.path.dirname(dst), exist_ok=True)
+        if f.endswith(".npz"):
+            torch.save({"latent": torch.from_numpy(
+                np.ascontiguousarray(load_array(f).T))}, dst[:-4] + ".pt")
+        else:
+            shutil.copy(f, dst)
+    t0 = time.perf_counter()
+    rc = convert_store.main(["--root", pt_root, "--dim", "128"])
+    result["convert_store_s"] = time.perf_counter() - t0
+    check(rc == 0 and len(npz_files(pt_root)) == PREP_FILES,
+          "convert_store wrote a sidecar for every .pt")
+    tok = ByteTokenizer()
+    for root in (os.path.dirname(roots["latents"]), pt_root):
+        ds = CalmDataset(tok, tts_latent_dir=root,
+                         tts_subsets="train-clean-100", task_mode="tts",
+                         max_audio_len=10 ** 6, latent_dim=128)
+        check(len(ds.tts_items) == PREP_FILES and ds.supports_meta("tts"),
+              f"CalmDataset reads {root}: every item, header metadata")
+        for i in (0, PREP_FILES // 2, PREP_FILES - 1):
+            ex = ds.get("tts", i)
+            ref = load_array(os.path.join(roots["latents"], os.path.relpath(
+                ds.tts_items[i]["file_path"], os.path.join(
+                    root, "train-clean-100"))))
+            check(ex is not None and np.array_equal(ex.audio, ref),
+                  "a stored latent read back through CalmDataset")
+    log(f"  compute_stats: latent mean {float(mean):.5f} std "
+        f"{float(std):.5f}; convert_store {PREP_FILES} sidecars in "
+        f"{result['convert_store_s']:.2f} s, read back by CalmDataset")
+    return result
+
+
+def phase_e2e_proof(card):
+    """The end-to-end proof at the JAX script's counts: the VAE and the
+    tiny CALM (head dim 24: the attention kernels zero-padded to 32)
+    trained from scratch on the tone words, each word synthesized (32
+    steps, cfg 2) and then by the distilled 4-step student, its pitch
+    checked; at least 2 of 3 in both legs (tests/test_e2e_synthesis.py).
+    The attention launches of each stage, counted from 0 before the run."""
+    from audio_calm_torch.eval.e2e_demo import run_demo
+    from audio_calm_torch.ops.attention_kernel import (attention_bwd,
+                                                       attention_fwd)
+
+    stats = {}
+    attention_fwd.launches = attention_bwd.launches = 0
+    (matches, total, distilled), wall = synced(lambda: run_demo(
+        400, 600, distill_steps=300, distill_k=4, device=card, stats=stats))
+    out = {"matches": matches, "total": total, "distilled_matches": distilled,
+           "wall_s": wall, "run_launches": {
+               "attention_fwd": attention_fwd.launches,
+               "attention_bwd": attention_bwd.launches}, **stats}
+    log(f"  pitch match {matches}/{total}, distilled-4 {distilled}/{total}; "
+        f"bands {stats['bands']}; walls " + json.dumps(
+            {k: v for k, v in stats.items() if k.endswith("_s")})
+        + f"; launches (forward, backward) {stats['launches']}")
+    st = stats["launches"]
+    check(st["calm"][0] > 0 and st["calm"][1] > 0 and st["check"][0] > 0
+          and st["distill"][0] > 0 and st["distill"][1] > 0
+          and st["check_distilled"][0] > 0,
+          "the proof's training, synthesis and distillation launched the "
+          "attention kernels (K4 / K3 forward, K5 backward) at head dim 24")
+    check(total == 3 and matches >= 2 and distilled >= 2,
+          "the trained stack and its 4-step student synthesize the words' "
+          "pitch (at least 2 of 3 each)")
+    return out
+
+
+def phase_invariance_cost(card):
+    """The batch-invariant products' cost against cuBLAS, in turns (on,
+    off, on, off) in this process, run last (each profile with a lead
+    call: late sessions lose their first records): the served calm.yaml
+    engine's /tts pair group (tts_batch + render.batch; host wall and
+    device ms) and its B = 1 encode (device ms), and the flagship's ODE
+    (2 texts on the 384 grid, midpoint-12, cfg 2.5; device ms), whose
+    main path runs cuBLAS."""
+    import gc
+
+    from audio_calm_torch.eval.infer import tts_decode, tts_encode
+    from audio_calm_torch.models.layers import batch_invariant_
+    from audio_calm_torch.serving import server
+
+    engine = server.build_engine(server.parse_args(SERVE_ARGV))
+    inf, calm, e = engine.inf, engine.inf.model, engine.cfg.evaluation
+    texts, seeds = [t for t, _ in SERVE_PAIR], [s for _, s in SERVE_PAIR]
+    kw = dict(steps=e.steps, cfg_scale=e.cfg_scale, method=e.ode_method,
+              time_schedule=e.time_schedule)
+    ids = torch.as_tensor(inf._prompt_arrays(texts[0])[0], device=card)
+
+    def pair():
+        with torch.inference_mode():
+            lat, n, _ = inf.tts_batch(texts, seeds, **kw)
+            return engine.render.batch(lat, n)
+
+    def encode():
+        with torch.inference_mode():
+            return calm.encode_text_for_tts(ids, torch.ones_like(ids))
+
+    flagship = build_models(card)[0]
+    fids, fmask = (t.to(card) for t in text_batch([24, 16]))
+    with torch.inference_mode():
+        cv, ctx, pad, nf = tts_encode(flagship, fids, fmask)
+    nf = torch.full_like(nf, 384)
+
+    def ode():
+        with torch.inference_mode():
+            return tts_decode(flagship, cv, ctx, pad, nf,
+                              torch.Generator(card).manual_seed(0),
+                              t_aud=384, steps=12, method="midpoint",
+                              cfg_scale=2.5)
+
+    out = {"invariant": [], "cublas": []}
+    for on in (True, False, True, False):
+        batch_invariant_(calm, on)
+        batch_invariant_(flagship, on)
+        pair()
+        _, wall = synced(pair)
+        out["invariant" if on else "cublas"].append({
+            "pair_wall_s": wall, "pair_device_ms": device_ms(pair, 1),
+            "encode_b1_device_ms": device_ms(encode, 10),
+            "flagship_ode_device_ms": device_ms(ode, 1)})
+    log(f"  batch-invariant products vs cuBLAS, in turns: {json.dumps(out)}")
+    del engine, calm, inf, flagship
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card is available", file=sys.stderr)
@@ -3662,6 +4171,7 @@ def main() -> int:
         with torch.no_grad():  # direct kernel calls take no gradient
             errs = phase_kernels(gen, card)
             errs.update(phase_vocoder_kernels(v2_card, card))
+            errs.update(phase_served_kernels(card))
         errs["attention_bwd"] = phase_attention_bwd(card)
     log(f"phase kernels vs plain: ok in {time.perf_counter() - t0:.1f} s")
 
@@ -3723,7 +4233,8 @@ def main() -> int:
     # load_config and HTTP server, requests over HTTP (its engine freed
     # after)
     t0 = time.perf_counter()
-    served_launches, served_product = phase_served_product(card)
+    served_launches, gemm_launches, served_product = phase_served_product(
+        card)
     log(f"phase served product: ok in {time.perf_counter() - t0:.1f} s")
 
     # 5h. the served product on checkpoint weights: reference-layout files
@@ -3747,6 +4258,11 @@ def main() -> int:
                 vocs, gen, voc_counts["odd_width_hifigan"]["fused_resblock"],
                 errs["fused_resblock"], card))
     kernels[1]["training_launches"] = train_counts["attention_fwd"]
+    kernels[1]["max_abs_err_padded_head_dims"] = errs["attention_fwd_padded"]
+    next(k for k in kernels if k["name"] == "attention_bwd")[
+        "max_abs_err_padded_head_dims"] = errs["attention_bwd_padded"]
+    with torch.no_grad():
+        kernels.append(kernel_time_gemm(gemm_launches, errs["gemm"], card))
 
     # 5i. the shipped TTS training recipe: packed steps at full width
     # through train_calm, resume, eval, components served (after the
@@ -3829,6 +4345,22 @@ def main() -> int:
         bwd.setdefault("distillation_launches", {})[task] = {
             "per_step": per_step["attention_bwd"],
             "run": vae_distill[task]["run_launches"]["attention_bwd"]}
+    # 5l. data preparation at vae.yaml's width through process_dataset,
+    # compute_stats and convert_store; then the end-to-end proof
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        prep = phase_data_prep(card, smi, tmp)
+    log(f"phase data preparation: ok in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    proof = phase_e2e_proof(card)
+    log(f"phase end-to-end proof: ok in {time.perf_counter() - t0:.1f} s")
+    fwd["e2e_proof_launches"] = proof["run_launches"]["attention_fwd"]
+    bwd["e2e_proof_launches"] = proof["run_launches"]["attention_bwd"]
+    # the batch-invariant products' cost against cuBLAS (last: profiles)
+    t0 = time.perf_counter()
+    served_product["invariance_cost"] = phase_invariance_cost(card)
+    log(f"phase batch-invariance cost: ok in "
+        f"{time.perf_counter() - t0:.1f} s")
     log("trained " + json.dumps(trained))
     log("packed_training " + json.dumps(packed))
     log("asr_training " + json.dumps(asr_trained))
@@ -3838,6 +4370,8 @@ def main() -> int:
     log("asr " + json.dumps({**asr, "reduced_depth": asr_reduced}))
     log("served_product " + json.dumps(served_product))
     log("checkpoint_product " + json.dumps(ckpt_product))
+    log("data_prep " + json.dumps(prep))
+    log("e2e_proof " + json.dumps(proof))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

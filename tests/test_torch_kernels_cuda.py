@@ -889,3 +889,82 @@ def test_int8_lora_dense_matches_the_cpu(card):
     ref = outs[0]
     assert ref.abs().max() > 0.1
     assert (outs[1] - ref).abs().max() <= 2 ** -7 * ref.abs().max()
+
+
+# ---------------------------------------------------------------------------
+# the batch-invariant product (csrc/gemm.cu) at the served engine's shapes:
+# calm.yaml's Qwen2 projections, LoRA's A and B (r 64), the DiT at 768 and
+# at the flagship's 1024, the ASR projector's causal convs
+# ---------------------------------------------------------------------------
+GEMM_SHAPES = [(1536, 1536, False), (256, 1536, False), (8960, 1536, False),
+               (1536, 8960, False), (64, 1536, True), (64, 8960, True),
+               (1536, 64, True), (256, 64, True), (8960, 64, True),
+               (768, 768, False), (3072, 768, False), (768, 3072, False),
+               (1024, 1024, False), (4096, 1024, False), (1024, 4096, False),
+               (1536, 256, False), (256, 256, False), (1, 384, False),
+               (1536, 384, False), (1536, 4608, False)]
+
+
+@pytest.mark.parametrize("N,K,kn", GEMM_SHAPES)
+def test_gemm_rows_do_not_depend_on_the_batch(card, N, K, kn):
+    """Every M from 1 to 512 (and 1024, where the K chunks run in one
+    block instead of blocks of their own) gives each row the bits it has
+    at M = 1024, at any position; within bf16 rounding of F.linear."""
+    from audio_calm_torch.ops.gemm_kernel import linear
+
+    g = torch.Generator(card).manual_seed(N + K)
+    x = torch.randn(1024, K, generator=g, device=card).bfloat16()
+    w = (torch.randn((K, N) if kn else (N, K), generator=g, device=card)
+         / K ** 0.5).bfloat16()
+    b = None if kn else torch.randn(N, generator=g, device=card).bfloat16()
+    full = linear(x, w, b, kn=kn)
+    for M in list(range(1, 513, 7)) + [64, 96, 128, 192, 256, 512]:
+        assert torch.equal(linear(x[:M], w, b, kn=kn), full[:M]), M
+        assert torch.equal(linear(x[1024 - M:], w, b, kn=kn),
+                           full[1024 - M:]), M
+    ref = (x @ w if kn else torch.nn.functional.linear(x, w, b)).float()
+    err = (full.float() - ref).abs().max().item()
+    assert err <= 2 ** -7 * ref.abs().max().item(), err
+
+
+def test_gemm_launches_and_refusals(card):
+    from audio_calm_torch.ops.gemm_kernel import linear
+
+    x = torch.randn(3, 5, 64, device=card).bfloat16()
+    w = torch.randn(24, 64, device=card).bfloat16()
+    n = linear.launches
+    y = linear(x, w)
+    torch.cuda.synchronize()
+    assert y.shape == (3, 5, 24) and linear.launches == n + 1
+    with pytest.raises(TypeError, match="bfloat16"):
+        linear(x.float(), w.float())
+    with pytest.raises(ValueError, match="K % 8"):
+        linear(x[..., :60], w[:, :60])
+    with pytest.raises(RuntimeError, match="no_grad"):
+        linear(x, w.requires_grad_())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [24, 40])
+@pytest.mark.parametrize("causal", [False, True])
+def test_attention_padded_head_dims_match_plain(card, d, causal, dtype):
+    """Head dims the kernels lack go through them zero-padded (24 -> 32,
+    40 -> 48), one launch each way: forward 2e-5 and gradients 2e-4 in
+    fp32, bf16 2^-7 of the largest magnitude."""
+    dtype = getattr(torch, dtype)
+    q, k, v, dout, valid = _bwd_inputs(card, 2, 50, 70, 4, 2, d, dtype, 5)
+    f0, b0 = attention_fwd.launches, attention_bwd.launches
+    out = attention_fwd(q, k, v, valid, causal)
+    got = attention_bwd(q, k, v, out, dout, valid, causal)
+    torch.cuda.synchronize()
+    assert (attention_fwd.launches, attention_bwd.launches) == (f0 + 1,
+                                                                b0 + 1)
+    ref = attention_fwd_plain(q, k, v, valid, causal)
+    refs = attention_bwd_plain(q, k, v, out, dout, valid, causal)
+    for a, b, tol in [(out, ref, 2e-5)] + [(a, b, 2e-4)
+                                           for a, b in zip(got, refs)]:
+        assert a.shape == b.shape and a.dtype == b.dtype == dtype
+        a, b = a.float(), b.float()
+        bound = (tol if dtype == torch.float32
+                 else 2 ** -7 * b.abs().max().item())
+        assert (a - b).abs().max().item() <= bound

@@ -206,19 +206,21 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                  "models.convert_export", "models.quant",
                  "train.checkpoint", "train.train_calm", "data.datasets",
                  "data.collator", "data.prefetch", "data.synth_corpus",
-                 "utils.profiling"):
+                 "utils.profiling", "ops.gemm_kernel", "data.preprocess",
+                 "data.process_dataset", "data.convert_store",
+                 "eval.metrics", "eval.e2e_demo"):
         assert f"audio_calm_torch.{name}" in modules, name
     from audio_calm_torch.ops import cuda_build
     for src in cuda_build.SOURCES:
         assert (pkg / "csrc" / f"{src}.cu").exists(), src
-    assert {"attention_bwd", "resblock"} <= set(cuda_build.SOURCES)
+    assert {"attention_bwd", "resblock", "gemm"} <= set(cuda_build.SOURCES)
     code = ("import sys\n"
             + "".join(f"import {m.removesuffix('.__init__')}\n"
                       for m in modules)
             # the card's machine has no PyYAML: the port reads YAML itself
             + "bad = [m for m in sys.modules if m.split('.')[0] in "
               "('jax', 'jaxlib', 'flax', 'orbax', 'audio_calm_tpu', "
-              "'yaml')]\n"
+              "'audio_calm_native', 'yaml')]\n"
               "print(len(bad), bad)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -226,7 +228,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert res.returncode == 0, res.stderr
     assert res.stdout.startswith("0 "), res.stdout
     pattern = re.compile(
-        r"^\s*(import|from)\s+(jax|jaxlib|flax|orbax|audio_calm_tpu|yaml)\b",
+        r"^\s*(import|from)\s+(jax|jaxlib|flax|orbax|audio_calm_tpu|"
+        r"audio_calm_native|yaml)\b",
         re.M)
     for path in list(pkg.rglob("*.py")) + [pkg.parent / "chip_smoke.py"]:
         assert not pattern.search(path.read_text()), path
