@@ -916,7 +916,7 @@ extern "C" int attention_bwd(const void* q, const void* k, const void* v, const 
                              const void* dout, const void* key_valid, void* dq, void* dk,
                              void* dv, void* stats, int is_bf16, int B, int Tq, int S,
                              int Hq, int Hkv, int D, int causal, void* stream) {
-  if (B < 1 || Tq < 1 || S < 1 || Tq > 512 || S > 512 || Hkv < 1 || Hq % Hkv != 0)
+  if (B < 1 || Tq < 1 || S < 1 || Hkv < 1 || Hq % Hkv != 0)
     return (int)cudaErrorInvalidValue;
   const uint8_t* valid = static_cast<const uint8_t*>(key_valid);
   float4* st4 = static_cast<float4*>(stats);

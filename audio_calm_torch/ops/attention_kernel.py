@@ -17,8 +17,10 @@ Backward: counterpart of `_flash_bwd_kernel` (K5), the backward of JAX
 `flash_attention`. `flash_attention` here is the differentiable route: a
 `torch.autograd.Function` whose forward is `attention_fwd` and whose
 backward is `attention_bwd`. `attention_fwd` itself returns a tensor with
-no gradient on the card, so it refuses inputs that require one. K5 keeps
-the TPU's 512 gate on T and S; the forward has none.
+no gradient on the card, so it refuses inputs that require one. Neither
+kernel has a length limit: K5 streams key and query tiles through its
+rings and keeps one row statistic a query row, sized from T (the TPU's
+512 gate was a limit of its VMEM, and JAX sends longer rows to XLA).
 
 Head dims the kernels have no instantiation for (d <= 128 outside
 _KERNEL_HEAD_DIMS: d = 24 in the end-to-end proof's Qwen2 and DiT; JAX
@@ -51,7 +53,6 @@ from audio_calm_torch.ops import cuda_build
 
 NEG = -1e30
 _KERNEL_HEAD_DIMS = (32, 48, 64, 96, 128)
-_BWD_MAX_LEN = 512  # K5's gate, the JAX gate attention_available
 _TILE_ROWS = 64  # query rows of a bf16 tile (one warpgroup product)
 _KEY_TILE = 64  # keys of a streamed tile
 # The plan's thresholds, chosen on an H100 (PERF.md section 6;
@@ -142,8 +143,7 @@ def _valid_bytes(key_valid, B, S, device) -> torch.Tensor:
 
 
 def _check_qkv(name, q, k, v) -> None:
-    """What both kernels take: shapes, dtypes, devices, head dims (the
-    backward's length gate is _check_bwd's)."""
+    """What both kernels take: shapes, dtypes, devices, head dims."""
     B, T, Hq, d = q.shape
     S, Hkv = k.shape[1], k.shape[2]
     if (k.shape != (B, S, Hkv, d) or v.shape != k.shape or Hq % Hkv
@@ -194,19 +194,12 @@ def _pad_head_dim(fn, q, k, v, *rest, grads: bool = False):
 
 
 def _check_bwd(q, k, v, out, dout) -> None:
-    """attention_bwd's arguments: out and dout like q, and K5's gate."""
+    """attention_bwd's arguments: out and dout like q."""
     _check_qkv("attention_bwd", q, k, v)
     if (out.shape != q.shape or dout.shape != q.shape
             or out.dtype != q.dtype or out.device != q.device
             or dout.device != q.device):
         raise ValueError("attention_bwd: out and dout must be like q")
-    T, S = q.shape[1], k.shape[1]
-    if T > _BWD_MAX_LEN or S > _BWD_MAX_LEN:
-        raise ValueError(
-            f"attention_bwd (K5, csrc/attention_bwd.cu) takes T, S <= "
-            f"{_BWD_MAX_LEN}; got T={T}, S={S}. The forward (attention_fwd) "
-            f"has no such limit; a gradient through flash_attention past it "
-            f"needs K5's gate lifted")
 
 
 class AttentionPlan(NamedTuple):

@@ -9,17 +9,19 @@ Phases, in order; any failure exits non-zero and prints no result:
   3. each kernel against its plain PyTorch version on the card, at the main
      paths' shapes, fp32 and bf16 (the attention backward at the Qwen2
      training shapes of TTS and of plain ASR (461 positions), the DiT
-     self- and cross-attention shapes and the ASR head's (d = 48), two
-     launches giving
-     the same bits, the forward also at the ASR path's three shapes and at
-     T = S = 1024 and 2048, past the TPU's 512 gate, and the flash_attention Function against autograd
-     through the plain forward; the resblock kernel at C = 12, 24, 48, 96,
-     128, 256 and k = 3, 7, 11 with a ragged last tile, the sequence
-     edges held on their own; the stage kernel at HiFi-GAN V2's C = 16
-     and C = 8; the batch-invariant product (csrc/gemm.cu) at the served
-     engine's shapes, rows against the row launched alone; the attention
-     forward and backward at head dims they take zero-padded, the
-     end-to-end proof's d = 24 and d = 40);
+     self- and cross-attention shapes and the ASR head's (d = 48), and a
+     causal row of T = S = 1024 past the TPU's 512 gate, two launches
+     giving the same bits, the forward also at the ASR path's three shapes
+     and at T = S = 1024 and 2048, and the flash_attention Function
+     against autograd through the plain forward; the resblock kernel at
+     C = 12, 24, 48, 96, 128, 256 and k = 3, 7, 11 with a ragged last tile,
+     the sequence edges held on their own; the stage kernel at HiFi-GAN
+     V2's C = 16 and C = 8; the batch-invariant product (csrc/gemm.cu) at
+     every row of GEMM_ROWS, the served engine's shapes, rows against the
+     row launched alone, and under every plan the row takes, repeated
+     launches with the first one's bits and the ragged-edge rows with their
+     solo bits; the attention forward and backward at head dims they take
+     zero-padded, the end-to-end proof's d = 24 and d = 40);
   4. the serving slice at full widths with 2 LLM layers on the 96-frame
      grid, fp32, on the card and on the CPU, same weights and ODE noise;
      then one TTS training step (forward_tts + backward) at full widths
@@ -155,7 +157,10 @@ Phases, in order; any failure exits non-zero and prints no result:
   6. per kernel: its launches on its main path, its device time per launch
      at main-path shapes, the bound, the plain version's and the library
      call's device time (the batch-invariant product: at GEMM_ROWS, its
-     launches those of phase 5g's session, cuBLAS its library call); for the stage kernel, per V1 stage on a log line
+     launches those of phase 5g's session, cuBLAS its library call, and on
+     each row's log line the plan's reduction and grid and the earlier
+     design's time quoted from PERF.md, GEMM_EARLIER_MS); for the stage
+     kernel, per V1 stage on a log line
      (not in the `kernels` line), the tile, the executed/useful product
      ratio and the L2 weight bytes its tile plan reckons, beside the
      earlier three-buffer design's time quoted from PERF.md; the attention
@@ -200,9 +205,22 @@ import torch
 
 from audio_calm_torch.tools.attention_probe import (ROWS, attn_cost,
                                                     row_inputs, time_row)
+from audio_calm_torch.tools.gemm_probe import ROWS as GEMM_ROWS
+from audio_calm_torch.tools.gemm_probe import inputs as gemm_inputs
+from audio_calm_torch.tools.gemm_probe import repeat_row as gemm_repeat_row
 from audio_calm_torch.tools.profiler_probe import (H100_BYTES_PER_S, bound_ms,
                                                    device_ms, device_profile)
 
+# the batch-invariant product's earlier design (an mma.sync kernel on a
+# cp.async ring, one 64 x 128 tile) at GEMM_ROWS, label -> device ms a
+# launch: PERF.md section 6, that design's final check
+GEMM_EARLIER_MS = {
+    "Qwen2 q/o, /tts pair": 0.0190, "Qwen2 k/v, /tts pair": 0.0290,
+    "Qwen2 gate/up, /tts pair": 0.0496, "Qwen2 down, /tts pair": 0.0500,
+    "LoRA A, /tts pair": 0.0254, "LoRA B, /tts pair": 0.0059,
+    "DiT q/k/v/o, /tts pair": 0.0182, "DiT mlp_fc1, /tts pair": 0.0339,
+    "DiT mlp_fc2, /tts pair": 0.0494, "Qwen2 down, /asr B=2": 0.1707,
+}
 SEC_PER_FRAME = 4 * 256 / 16000  # one latent frame = 1024 samples at 16 kHz
 # the stage kernel's earlier design (three shared buffers, weights streamed
 # per warp from L2) at V1's three stages, B=2 on the 384-frame grid: PERF.md
@@ -594,22 +612,10 @@ def phase_kernels(gen, card):
     return worst
 
 
-# the batch-invariant product (csrc/gemm.cu) at the served engine's shapes
-# (configs/calm.yaml, phase 5g): the /tts pair's Qwen2 encode (2 rows of 97
-# positions) with LoRA r 64, its DiT under CFG (4 rows on the 192 grid),
-# the ASR encode's down_proj (2 rows of 461) -> (label, M, N, K, w [K, N])
-GEMM_ROWS = [
-    ("Qwen2 q/o, /tts pair", 194, 1536, 1536, False),
-    ("Qwen2 k/v, /tts pair", 194, 256, 1536, False),
-    ("Qwen2 gate/up, /tts pair", 194, 8960, 1536, False),
-    ("Qwen2 down, /tts pair", 194, 1536, 8960, False),
-    ("LoRA A, /tts pair", 194, 64, 1536, True),
-    ("LoRA B, /tts pair", 194, 1536, 64, True),
-    ("DiT q/k/v/o, /tts pair", 768, 768, 768, False),
-    ("DiT mlp_fc1, /tts pair", 768, 3072, 768, False),
-    ("DiT mlp_fc2, /tts pair", 768, 768, 3072, False),
-    ("Qwen2 down, /asr B=2", 922, 1536, 8960, False),
-]
+# the batch-invariant product (csrc/gemm.cu) runs at GEMM_ROWS, the served
+# engine's shapes (tools/gemm_probe.ROWS: the /tts pair's Qwen2 encode with
+# LoRA r 64, its DiT under CFG, the ASR encode's down_proj)
+GEMM_REPEATS = 200  # phase 3: launches of each row under each plan
 # the attention kernels at head dims they take zero-padded: the end-to-end
 # proof's Qwen2 encode (B = 16 rows of 8 text + SOA positions), its DiT
 # self- and cross-attention (2B = 32 rows on the 48-frame grid), d = 40
@@ -621,20 +627,13 @@ PADDED_ATTN = [  # (B, T, S, Hq, Hkv, d, causal, label)
 ]
 
 
-def gemm_inputs(M, N, K, kn, card, seed):
-    g = torch.Generator(card).manual_seed(seed)
-    x = torch.randn(M, K, generator=g, device=card).bfloat16()
-    w = (torch.randn((K, N) if kn else (N, K), generator=g, device=card)
-         / K ** 0.5).bfloat16()
-    b = None if kn else (0.1 * torch.randn(N, generator=g, device=card)
-                         ).bfloat16()
-    return x, w, b
-
-
 def phase_served_kernels(card):
     """The batch-invariant product against its plain version at the served
     shapes (bf16: 2^-7 of the largest output), each checked row's bits
-    against the row launched alone; the attention kernels at head dims
+    against the row launched alone, and under every plan the shape takes
+    GEMM_REPEATS launches back to back with the first one's bits and the
+    rows next to the ragged edges of M with their solo bits
+    (tools/gemm_probe.repeat_row); the attention kernels at head dims
     they take zero-padded against their plain versions, forward and
     backward (fp32 2e-5 / 2e-4, bf16 2^-7 of the largest magnitude), one
     launch each way -> the worst bf16 errors."""
@@ -656,6 +655,12 @@ def phase_served_kernels(card):
             f"to M=1 launches {rows}")
         check(err <= bound and all(rows), f"gemm {label}")
         worst["gemm"] = max(worst["gemm"], err)
+        rep = gemm_repeat_row((label, M, N, K, kn), card, GEMM_REPEATS)
+        log(f"  gemm {label}: of {GEMM_REPEATS} repeated launches, "
+            f"{rep['mismatched']} differ from the first; ragged-edge rows "
+            f"equal to solo launches: {rep['edges_agree']}")
+        check(rep["edges_agree"] and not any(rep["mismatched"].values()),
+              f"gemm {label}: repeated launches and edge rows agree")
     g = torch.Generator(card).manual_seed(5)
     for B, T, S, Hq, Hkv, d, causal, label in PADDED_ATTN:
         valid = torch.ones(B, S, dtype=torch.bool, device=card)
@@ -701,11 +706,13 @@ def phase_served_kernels(card):
 def kernel_time_gemm(launches, err, card):
     """The batch-invariant product's line: device ms a launch at each of
     GEMM_ROWS beside the plain version, cuBLAS (F.linear, the library call
-    the served engine no longer makes) and the bound, their means."""
+    the served engine no longer makes) and the bound, their means; each
+    row's log line also has the plan's reduction and grid and the earlier
+    design's time (GEMM_EARLIER_MS, quoted, not measured here)."""
     from torch.nn.functional import linear as f_linear
 
-    from audio_calm_torch.ops.gemm_kernel import (linear, linear_plain,
-                                                  split_count)
+    from audio_calm_torch.ops.gemm_kernel import (_sms, gemm_plan, linear,
+                                                  linear_plain, split_count)
 
     def timed(fn, iters):
         # a session whose every record the tracer lost reads 0: again
@@ -727,7 +734,11 @@ def kernel_time_gemm(launches, err, card):
                      "splits": split_count(N, K), "ms": ms,
                      "plain_ms": plain, "library_ms": lib, "bound_ms": bnd,
                      "bound_by": by})
-        log(f"  gemm {json.dumps(rows[-1])}")
+        plan = gemm_plan(M, N, K, _sms(card))
+        log(f"  gemm {json.dumps(rows[-1])}; reduction "
+            f"{'gemm_reduce' if plan.spread else 'in the block'}, grid "
+            f"{plan.blocks} blocks of {plan.nc} warpgroups; earlier design "
+            f"{GEMM_EARLIER_MS.get(label)} ms (PERF.md)")
     by = max(("operations", "bytes"),
              key=lambda k: sum(r["bound_by"] == k for r in rows))
     return {
@@ -885,6 +896,20 @@ def asr_head_inputs(B, dt, card, seed=0):
     return attn_inputs(B, 96, 96, 16, 48, 10, dt, card, seed)
 
 
+def long_causal_inputs(B, dt, card, seed=0):
+    """Causal GQA 12/2 attention operands at T = S = 1024, d = 128, past the
+    TPU's 512 gate (K5 has none): q/dout [B, 1024, 12, 128], k/v [B, 1024,
+    2, 128], 64-1024 valid keys a row."""
+    g = torch.Generator(card).manual_seed(seed)
+    q, dout = (torch.randn(B, 1024, 12, 128, generator=g, device=card).to(dt)
+               for _ in range(2))
+    k, v = (torch.randn(B, 1024, 2, 128, generator=g, device=card).to(dt)
+            for _ in range(2))
+    n = torch.randint(64, 1025, (B,), generator=g, device=card)
+    valid = torch.arange(1024, device=card)[None, :] < n[:, None]
+    return q, k, v, dout, valid
+
+
 def asr_train_inputs(B, dt, card, seed=0):
     """Qwen2 attention operands of a plain ASR training slice (asr.yaml:
     B = 16 in 8 slices): q/dout [B, 461, 12, 128], k/v [B, 461, 2, 128]
@@ -906,7 +931,8 @@ def asr_train_inputs(B, dt, card, seed=0):
 def phase_attention_bwd(card):
     """K5 vs its plain version at the Qwen2 training shapes (TTS and plain
     ASR), the DiT self- and cross-attention shapes and the ASR head's
-    (d = 48, the distillation students'), fp32 and bf16; two bf16
+    (d = 48, the distillation students'), and a causal row of 1024 past the
+    TPU's 512 gate, fp32 and bf16; two bf16
     launches give the same bits; the flash_attention Function vs autograd
     through the plain forward."""
     from audio_calm_torch.ops.attention_kernel import (attention_bwd,
@@ -921,7 +947,9 @@ def phase_attention_bwd(card):
               True),
              ("DiT self [4, 384, 16, 64]", dit_train_inputs, 4, False),
              ("DiT cross [4, 384 / 96, 16, 64]", dit_cross_inputs, 4, False),
-             ("ASR head self [4, 96, 16, 48]", asr_head_inputs, 4, False)]
+             ("ASR head self [4, 96, 16, 48]", asr_head_inputs, 4, False),
+             ("causal past 512 [2, 1024, 12/2, 128]", long_causal_inputs, 2,
+              True)]
     for label, inputs, B, causal in cases:
         for dt in (torch.float32, torch.bfloat16):
             q, k, v, dout, valid = inputs(B, dt, card)
@@ -2720,7 +2748,8 @@ def kernel_time_attention_bwd(train_counts, train_steps, errs, card):
     shape of a dropout-off training slice (B=16, 384 frames, the
     audio-frame key mask), and at the distillation students' shapes
     (tts.yaml's DiT self and cross at B=32, asr.yaml's ASR head self at
-    B=16, d = 48): device ms per launch beside the bound, the plain
+    B=16, d = 48), and at a causal row of 1024 past the TPU's 512 gate:
+    device ms per launch beside the bound, the plain
     version and autograd's backward of SDPA. The row's top-level numbers
     are the Qwen2 shape's, the path's K5 launches."""
     import torch.nn.functional as F
@@ -2738,7 +2767,8 @@ def kernel_time_attention_bwd(train_counts, train_steps, errs, card):
             ("DiT cross distillation student", dit_cross_inputs, 32,
              False),
             ("ASR head self distillation student", asr_head_inputs, 16,
-             False)):
+             False),
+            ("causal past 512", long_causal_inputs, 2, True)):
         q, k, v, dout, valid = inputs(B, torch.bfloat16, card, seed=2)
         B, T, Hq, d = q.shape
         S, Hkv = k.shape[1], k.shape[2]
@@ -2787,7 +2817,8 @@ def kernel_time_attention_bwd(train_counts, train_steps, errs, card):
         "per_launch": "one Qwen2 layer's backward for one microbatch slice: "
                       "q [16, 97, 12, 128], k/v [16, 97, 2, 128], bf16, "
                       "causal, ragged key mask; the plain-ASR, DiT self and "
-                      "distillation students' shapes beside",
+                      "distillation students' and a causal row of 1024 "
+                      "beside",
         "shapes": rows,
     }
 

@@ -1,7 +1,9 @@
 """The attention backward of the port (audio_calm_torch.ops.attention_kernel:
 `attention_bwd_plain`, and `flash_attention` through autograd) vs the
 gradients of JAX `flash_attention`, whose backward is the Pallas
-`_flash_bwd_kernel`, in interpret mode, fp32 on the CPU.
+`_flash_bwd_kernel`, in interpret mode, fp32 on the CPU; past the Pallas
+gate (T = S = 640) vs `jax.grad` of the XLA attention the JAX package
+sends such rows to (models/qwen2.sdpa).
 
 Bound rtol/atol 2e-4, the JAX package's own for these gradients
 (tests/test_pallas_attention.py): fp32 everywhere, the sums in another
@@ -18,6 +20,7 @@ from audio_calm_torch.ops.attention_kernel import (attention_bwd,
                                                    attention_fwd_plain,
                                                    flash_attention as
                                                    t_flash_attention)
+from audio_calm_tpu.models.qwen2 import sdpa
 from audio_calm_tpu.ops.pallas_attention import flash_attention
 
 TOL = 2e-4
@@ -92,6 +95,30 @@ def test_grads_fully_masked_row_and_qwen_layout(causal):
     valid[0] = False
     valid[1, 8:12] = False
     _check(q, k, v, w, valid, causal)
+
+
+def test_grads_past_512_match_jax_xla_attention():
+    """T = S = 640, past the TPU kernel's 512 gate, where JAX runs XLA
+    attention (models/qwen2.sdpa): causal GQA 4/2 with a key-padded batch
+    row, the port's flash_attention gradients (the plain route on the CPU)
+    vs jax.grad of sdpa under the same mask, at 2e-4."""
+    B, T, Hq, Hkv, d = 2, 640, 4, 2, 32
+    q, k, v, w = _qkv(6, B, T, T, Hq, Hkv, d)
+    valid = np.ones((B, T), bool)
+    valid[1, 500:600] = False
+    mask = valid[:, None, None, :] & np.tril(np.ones((T, T), bool))
+
+    def loss(q, k, v):
+        return jnp.sum(sdpa(q, k, v, jnp.asarray(mask)) * w)
+
+    ref = [np.asarray(g) for g in jax.grad(loss, argnums=(0, 1, 2))(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))]
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    out = t_flash_attention(tq, tk, tv, torch.from_numpy(valid), True)
+    (out * torch.from_numpy(w)).sum().backward()
+    for a, b, name in zip((tq.grad, tk.grad, tv.grad), ref, "qkv"):
+        np.testing.assert_allclose(a.numpy(), b, rtol=TOL, atol=TOL,
+                                   err_msg=f"flash_attention d{name} at 640")
 
 
 def _bf16(x):

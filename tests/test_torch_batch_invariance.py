@@ -3,7 +3,8 @@
 - ops/gemm_kernel.linear_plain (the plain twin of csrc/gemm.cu): a row's
   bits do not depend on M, on its position or on the other rows (bf16 and
   fp32, both weight layouts), and it is the fp32 product within a rounding
-  of the output dtype; the K split is a function of (N, K) alone.
+  of the output dtype; the kernel's tile width and K chunks are a function
+  of (N, K) alone, at every M, and the served rows take their plans.
 - models/layers.batch_invariant_: the switch routes Linear, LoRADense and
   the causal conv through it, equal to their plain forms within an fp32
   rounding; a tiny bf16 served engine gives a row of a batched /tts its
@@ -26,6 +27,7 @@ from audio_calm_torch.models.layers import Linear, batch_invariant_
 from audio_calm_torch.models.lora import LoRADense
 from audio_calm_torch.ops import attention_kernel as ak
 from audio_calm_torch.ops import gemm_kernel
+from audio_calm_torch.tools.gemm_probe import ROWS, SHAPES as GEMM_SHAPES
 from audio_calm_tpu.models.qwen2 import sdpa
 
 
@@ -67,12 +69,78 @@ def test_plain_twin_rows_do_not_depend_on_the_batch(N, K, kn, dtype):
 
 
 def test_split_count_depends_on_n_and_k_only():
+    """The arithmetic of the plan (the tile's width, the K chunks and their
+    boundaries) is a function of (N, K) alone: the same at every M from 1
+    to 1024, in every plan the kernel may take; only the warpgroups a tile,
+    the spread and the grid follow M."""
     assert gemm_kernel.split_count(1536, 8960) == 6  # down_proj
     assert gemm_kernel.split_count(8960, 1536) == 1  # gate / up
     assert gemm_kernel.split_count(1536, 64) == 1  # LoRA's B
-    for N, K in ((1536, 1536), (256, 1536), (64, 1536), (768, 3072)):
+    for N, K, _ in GEMM_SHAPES:
+        bn, steps = gemm_kernel.tile_n(N), gemm_kernel.chunk_steps(N, K)
+        bounds = gemm_kernel.chunk_bounds(N, K)
         s = gemm_kernel.split_count(N, K)
-        assert 1 <= s <= 16 and s <= -(-K // gemm_kernel.BK)
+        assert bn == (64 if N <= 768 else 128)
+        assert steps % 4 == 0 and len(bounds) == s
+        assert bounds[0][0] == 0 and bounds[-1][1] == K
+        assert all(a[1] == b[0] for a, b in zip(bounds, bounds[1:]))
+        assert all(k1 - k0 == 16 * steps for k0, k1 in bounds[:-1])
+        assert 1 <= s <= -(-K // gemm_kernel.BK)
+        for M in range(1, 1025):
+            plans = gemm_kernel.candidate_plans(M, N, K)
+            assert gemm_kernel.gemm_plan(M, N, K) in plans
+            assert {(p.bn, p.chunk_steps, p.splits) for p in plans} == \
+                {(bn, steps, s)}
+
+
+def test_spread_partials_count_x_and_w():
+    """Chunks spread only where the tiles leave SMs idle and their fp32
+    partial sums (written and read) move at most _SPREAD_BYTES times the
+    bytes of x and w: the ASR projector's conv (N 1536, K 256) at M = 512
+    has 8 x 12 tiles but runs its 2 chunks in one block."""
+    cap = gemm_kernel._SPREAD_BYTES
+    for N, K, _ in GEMM_SHAPES:
+        for M in range(1, 1025, 3):
+            p = gemm_kernel.gemm_plan(M, N, K)
+            if p.spread:
+                assert p.blocks // p.splits < gemm_kernel.SMS
+                assert 8 * M * N * p.splits <= cap * 2 * (M + N) * K
+    one = gemm_kernel.candidate_plans(512, 1536, 256)[0]
+    assert one.splits == 2 and one.blocks < gemm_kernel.SMS
+    assert not gemm_kernel.gemm_plan(512, 1536, 256).spread
+
+
+# tools/gemm_probe.ROWS: label -> the plan's (warpgroups a tile, spread,
+# grid blocks) on 132 SMs: at every row the fastest of candidate_plans in
+# the card's measurements (tools/gemm_probe.py --plans)
+SERVED_PLANS = {
+    "Qwen2 q/o, /tts pair": (1, True, 96),
+    "Qwen2 k/v, /tts pair": (1, True, 80),
+    "Qwen2 gate/up, /tts pair": (1, False, 280),
+    "Qwen2 down, /tts pair": (1, True, 288),
+    "LoRA A, /tts pair": (1, True, 96),
+    "LoRA B, /tts pair": (1, False, 48),
+    "DiT q/k/v/o, /tts pair": (2, False, 72),
+    "DiT mlp_fc1, /tts pair": (3, False, 96),
+    "DiT mlp_fc2, /tts pair": (2, False, 72),
+    "Qwen2 down, /asr B=2": (2, False, 96),
+}
+
+
+@pytest.mark.parametrize("row", ROWS, ids=[r[0] for r in ROWS])
+def test_plan_at_the_served_rows(row):
+    """The served rows' plans. The /tts pair's Qwen2 products at M = 194
+    spread their K chunks where the 64-row tiles leave SMs idle: LoRA's A
+    in 24 chunks over 96 blocks (4 blocks of 24 K tiles each without),
+    down_proj in 6 over 288. The DiT's at M = 768 take 72 blocks of two
+    warpgroups (144 warpgroups of 64 rows, on every SM's tensor cores) and
+    its fc1 96 blocks of three: one round on 132 SMs where 288 blocks of
+    one or 144 of two take two."""
+    label, M, N, K, _ = row
+    p = gemm_kernel.gemm_plan(M, N, K)
+    assert (p.nc, p.spread, p.blocks) == SERVED_PLANS[label]
+    tiles = -(-M // (64 * p.nc)) * -(-N // p.bn)
+    assert p.blocks == tiles * (p.splits if p.spread else 1)
 
 
 def test_batch_invariant_switch_routes_every_projection():

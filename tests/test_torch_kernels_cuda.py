@@ -37,6 +37,7 @@ from audio_calm_torch.ops.vocoder_kernel import (_halo, fused_resblock,
                                                  hifigan_apply_fused,
                                                  stage_plan, vocoder_stage,
                                                  vocoder_stage_plain)
+from audio_calm_torch.tools import gemm_probe
 from audio_calm_torch.tools.attention_probe import (ROWS, repeat_mismatches,
                                                     row_inputs)
 
@@ -509,9 +510,11 @@ def test_attention_fwd_at_2048(card, dtype):
     assert (out - ref).abs().max().item() <= bound
 
 
-def test_flash_attention_past_512_refuses_in_k5(card):
-    """flash_attention's forward takes T = 640; its backward (K5) keeps
-    the 512 gate and says so."""
+def test_flash_attention_grads_past_512(card):
+    """flash_attention at T = 640, past the TPU's 512 gate: the forward and
+    K5's backward both compute (K5 refused past 512 until its gate was
+    lifted), the gradients within the bf16 bound of autograd through the
+    plain forward."""
     g = torch.Generator(card).manual_seed(8)
     q, k, v = (torch.randn(1, 640, 4, 64, generator=g, device=card)
                .bfloat16().requires_grad_() for _ in range(3))
@@ -519,8 +522,37 @@ def test_flash_attention_past_512_refuses_in_k5(card):
     ref = attention_fwd_plain(q.detach(), k.detach(), v.detach(), None, True)
     assert (out.detach().float() - ref.float()).abs().max().item() <= \
         _bf16_bound(ref.float())
-    with pytest.raises(ValueError, match=r"attention_bwd \(K5"):
-        out.float().sum().backward()
+    out.float().sum().backward()
+    leaves = [t.detach().float().requires_grad_() for t in (q, k, v)]
+    attention_fwd_plain(*leaves, None, True).sum().backward()
+    for a, b in zip((q, k, v), leaves):
+        assert (a.grad.float() - b.grad).abs().max().item() <= \
+            _bf16_bound(b.grad)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [128, 64])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("T", [1024, 2048])
+def test_attention_bwd_past_512(card, T, causal, d, dtype):
+    """K5 at T = S = 1024 and 2048, GQA 12/2, with key padding, against
+    its plain version on the forward's output: the JAX package's
+    tolerance, 2e-4 in fp32 (rtol and atol), bf16 within 2^-7 of the
+    largest gradient."""
+    dtype = getattr(torch, dtype)
+    q, k, v, dout, valid = _bwd_inputs(card, 1, T, T, 12, 2, d, dtype, 11)
+    valid[0, T // 3:T // 3 + 100] = False
+    out = attention_fwd(q, k, v, valid, causal)
+    got = attention_bwd(q, k, v, out, dout, valid, causal)
+    ref = attention_bwd_plain(q, k, v, out, dout, valid, causal)
+    for a, b in zip(got, ref):
+        assert a.shape == b.shape and a.dtype == dtype
+        a, b = a.float(), b.float()
+        if dtype == torch.float32:
+            torch.testing.assert_close(a, b, rtol=2e-4, atol=2e-4)
+        else:
+            assert (a - b).abs().max().item() <= 2 ** -7 * \
+                b.abs().max().item()
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -895,21 +927,17 @@ def test_int8_lora_dense_matches_the_cpu(card):
 # the batch-invariant product (csrc/gemm.cu) at the served engine's shapes:
 # calm.yaml's Qwen2 projections, LoRA's A and B (r 64), the DiT at 768 and
 # at the flagship's 1024, the ASR projector's causal convs
+# (tools/gemm_probe.SHAPES)
 # ---------------------------------------------------------------------------
-GEMM_SHAPES = [(1536, 1536, False), (256, 1536, False), (8960, 1536, False),
-               (1536, 8960, False), (64, 1536, True), (64, 8960, True),
-               (1536, 64, True), (256, 64, True), (8960, 64, True),
-               (768, 768, False), (3072, 768, False), (768, 3072, False),
-               (1024, 1024, False), (4096, 1024, False), (1024, 4096, False),
-               (1536, 256, False), (256, 256, False), (1, 384, False),
-               (1536, 384, False), (1536, 4608, False)]
+GEMM_SHAPES = gemm_probe.SHAPES
 
 
 @pytest.mark.parametrize("N,K,kn", GEMM_SHAPES)
 def test_gemm_rows_do_not_depend_on_the_batch(card, N, K, kn):
-    """Every M from 1 to 512 (and 1024, where the K chunks run in one
-    block instead of blocks of their own) gives each row the bits it has
-    at M = 1024, at any position; within bf16 rounding of F.linear."""
+    """Every M from 1 to 512, the served rows' 194, 768 and 922 (and 1024,
+    where the K chunks run in one block instead of blocks of their own)
+    gives each row the bits it has at M = 1024, at any position; within
+    bf16 rounding of F.linear."""
     from audio_calm_torch.ops.gemm_kernel import linear
 
     g = torch.Generator(card).manual_seed(N + K)
@@ -918,13 +946,33 @@ def test_gemm_rows_do_not_depend_on_the_batch(card, N, K, kn):
          / K ** 0.5).bfloat16()
     b = None if kn else torch.randn(N, generator=g, device=card).bfloat16()
     full = linear(x, w, b, kn=kn)
-    for M in list(range(1, 513, 7)) + [64, 96, 128, 192, 256, 512]:
+    for M in list(range(1, 513, 7)) + [64, 96, 128, 192, 194, 256, 512,
+                                       768, 922]:
         assert torch.equal(linear(x[:M], w, b, kn=kn), full[:M]), M
         assert torch.equal(linear(x[1024 - M:], w, b, kn=kn),
                            full[1024 - M:]), M
     ref = (x @ w if kn else torch.nn.functional.linear(x, w, b)).float()
     err = (full.float() - ref).abs().max().item()
     assert err <= 2 ** -7 * ref.abs().max().item(), err
+
+
+# rows of tools/gemm_probe.ROWS, and two whose M and N end mid-tile
+GEMM_REPEAT_ROWS = gemm_probe.ROWS + [("ragged N=200", 130, 200, 1000, False),
+                                      ("ragged kn N=72", 70, 72, 136, True)]
+
+
+@pytest.mark.parametrize("row", GEMM_REPEAT_ROWS,
+                         ids=[r[0] for r in GEMM_REPEAT_ROWS])
+def test_gemm_repeated_launches_agree(card, row):
+    """Under every plan the row may take (1 to 3 warpgroups a tile, the
+    K chunks spread or in one block), 500 launches back to back give the
+    first launch's bits, and the rows next to the ragged edges of M (and
+    of N, where the last column tile is partial) equal the same rows
+    launched alone: the TMA ring's stages are neither read before they
+    land nor refilled before every consumer is done with them."""
+    got = gemm_probe.repeat_row(row, card, 500)
+    assert got["edges_agree"], got
+    assert not any(got["mismatched"].values()), got
 
 
 def test_gemm_launches_and_refusals(card):
