@@ -6,12 +6,15 @@ prompt] segments into LLM rows, and the task-homogeneous batch iterator
 and `mel_batch_iterator`, the VAE's mel-crop batches. Batches are numpy
 arrays, equal to the JAX package's for the same store and seed.
 
-Not ported yet, and raising NotImplementedError where reached: multi-host
-iteration (`process_count > 1`; ROADMAP Queue 1 item 8).
+Multi-process (`process_count > 1`, one process per device of a
+data-parallel run): `batch_size` is the global batch and every process
+draws the same order and task stream but loads only its batch_size /
+process_count rows, as the JAX package's iterator does.
 """
 
 from __future__ import annotations
 
+import warnings
 from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
@@ -295,13 +298,53 @@ def calm_batch_iterator(
     segments utterances, exact frames, SpecAugmented per slot); what does
     not fit is carried into the next pool, and the epoch's tail pools are
     emitted underfull. A packed batch carries `n_samples`, its utterance
-    count."""
+    count.
+
+    Multi-process (process_count > 1): `batch_size` is the global batch;
+    each process yields its rows [process_index x per, ... + per), per =
+    batch_size / process_count, of the batch the shared order stream
+    forms. A sample that does not load becomes a zero stub (not
+    backfilled), so the processes stay in lock-step, and plain batches
+    ignore audio_buckets and length grouping (the choice would depend on
+    rows another process holds). Packing stays on when the store reads
+    its metadata from headers (CalmDataset.supports_meta: npz / npy, not
+    .pt) and the rows divide by process_count: every process plans the
+    pack from that metadata, identically, and loads only its rows (a
+    failed load is a dummy slot in its own rows); otherwise it falls back
+    to plain batches with a warning. SpecAugment draws from
+    default_rng((seed, process_index))."""
     if process_count > 1:
-        raise NotImplementedError(
-            "multi-host iteration (process_count > 1) is not ported yet "
-            "(ROADMAP Queue 1 item 8)")
-    if audio_buckets:
-        audio_buckets = sorted(audio_buckets)
+        if batch_size % process_count:
+            raise ValueError(f"global batch {batch_size} not divisible by "
+                             f"{process_count} processes")
+
+        def gate(mode, rows):
+            meta_ok = getattr(dataset, "supports_meta", None)
+            if rows <= 0 or (rows % process_count == 0 and callable(meta_ok)
+                             and meta_ok(mode)):
+                return rows
+            warnings.warn(
+                f"multi-host {mode} sequence packing DISABLED: the store "
+                "has no header-readable metadata (.pt files?) or "
+                f"{mode}_pack_rows={rows} does not shard over "
+                f"{process_count} processes — falling back to plain "
+                "batches. For reference-format .pt corpora, run "
+                "scripts/convert_store.py once to regain packing.",
+                stacklevel=2)
+            return 0
+
+        asr_pack_rows = gate("asr", asr_pack_rows)
+        tts_pack_rows = gate("tts", tts_pack_rows)
+        pack_buckets = sorted(audio_buckets) if audio_buckets else None
+        pack_window = length_group_window
+        audio_buckets, length_group_window = None, 0
+    else:
+        if audio_buckets:
+            audio_buckets = sorted(audio_buckets)
+        pack_buckets, pack_window = audio_buckets, length_group_window
+    meta_mode = process_count > 1
+    per = batch_size // process_count
+    lo, hi = process_index * per, (process_index + 1) * per
     P = len(dataset.asr_prompt_ids)
     if asr_pack_rows > 0 and asr_pack_len < dataset.max_audio_len + 1 + P:
         raise ValueError(
@@ -352,6 +395,16 @@ def calm_batch_iterator(
             cursors[k] += 1
             return ex
 
+        def mine(k, pool, assign, rows):
+            """The examples of the pack rows this process holds: all of
+            them, or multi-process its rows / process_count, loaded from
+            their dataset indices."""
+            if not meta_mode:
+                return [[pool[i][0] for i in idxs] for idxs in assign]
+            rpp = rows // process_count
+            return [[dataset.get(k, pool[i][0]) for i in idxs] for idxs in
+                    assign[process_index * rpp:(process_index + 1) * rpp]]
+
         while True:
             ready = [k for k in orders if avail(k)]
             if not ready:
@@ -360,9 +413,18 @@ def calm_batch_iterator(
                 "asr" not in ready or rng.random() < task_prob_tts) else "asr"
             n_items = len(orders[task])
             if task == "asr" and asr_pack_rows > 0:
+                # pool entries (payload, llm tokens, frames): the loaded
+                # example, or multi-process the dataset index with its
+                # header metadata (an unreadable header keeps a stub cost
+                # in the plan; its owner's failed load zero-masks the slot)
                 want = asr_pack_rows * asr_pack_segments
                 pool, asr_carry = asr_carry, []
                 while len(pool) < want and cursors[task] < n_items:
+                    if meta_mode:
+                        j = orders[task][cursors[task]]
+                        cursors[task] += 1
+                        pool.append((j,) + (dataset.meta(task, j) or (P, 1)))
+                        continue
                     ex = draw(task)
                     if ex is not None:
                         pool.append((ex, P, min(len(ex.audio),
@@ -372,23 +434,30 @@ def calm_batch_iterator(
                 assign, left = plan_pack([e[2] + 1 + P for e in pool],
                                          asr_pack_rows, asr_pack_len,
                                          asr_pack_segments)
-                row_items = [[pool[i][0] for i in idxs] for idxs in assign]
+                row_items = mine(task, pool, assign, asr_pack_rows)
                 batch = materialize_asr_rows(
                     row_items, dataset.asr_prompt_ids, asr_pack_len,
                     asr_pack_segments, dataset.max_audio_len, latent_dim,
                     dataset.max_text_len, training=training, rng=aug_rng)
                 asr_carry = [pool[i] for i in left]
                 batch["task"] = "asr_packed"
-                batch["n_samples"] = sum(len(row) for row in row_items)
+                batch["n_samples"] = sum(ex is not None for row in row_items
+                                         for ex in row)
                 yielded = True
                 yield batch
                 continue
             if task == "tts" and tts_pack_rows > 0:
                 if not tts_pending:
                     gsize = tts_pack_rows * tts_pack_segments
-                    want = gsize * max(length_group_window, 1)
+                    want = gsize * max(pack_window, 1)
                     pool, tts_carry = tts_carry, []
                     while len(pool) < want and cursors[task] < n_items:
+                        if meta_mode:
+                            j = orders[task][cursors[task]]
+                            cursors[task] += 1
+                            pool.append((j,) + (dataset.meta(task, j)
+                                                or (1, 1)))
+                            continue
                         ex = draw(task)
                         if ex is not None:
                             pool.append((ex, min(len(ex.input_ids),
@@ -397,33 +466,47 @@ def calm_batch_iterator(
                                              dataset.max_audio_len)))
                     if not pool:
                         continue
-                    if length_group_window > 0:
+                    if pack_window > 0:
                         pool.sort(key=lambda e: e[2])  # stable, audio length
                     groups = [pool[i: i + gsize]
                               for i in range(0, len(pool), gsize)]
-                    if length_group_window > 0:
+                    if pack_window > 0:
                         group_rng.shuffle(groups)
                     tts_pending.extend(groups)
                 group = tts_pending.pop(0)
                 t_aud = dataset.max_audio_len
-                if audio_buckets:
+                if pack_buckets:
                     longest = max(e[2] for e in group)
-                    t_aud = next((b for b in audio_buckets if b >= longest),
+                    t_aud = next((b for b in pack_buckets if b >= longest),
                                  dataset.max_audio_len)
                 assign, left = plan_pack([e[1] + 1 for e in group],
                                          tts_pack_rows, tts_pack_len,
                                          tts_pack_segments)
-                row_items = [[group[i][0] for i in idxs] for idxs in assign]
+                row_items = mine(task, group, assign, tts_pack_rows)
                 batch = materialize_tts_rows(
                     row_items, tts_pack_len, tts_pack_segments, t_aud,
                     latent_dim, dataset.max_text_len)
                 tts_carry.extend(group[i] for i in left)
                 batch["task"] = "tts_packed"
-                batch["n_samples"] = sum(len(row) for row in row_items)
+                batch["n_samples"] = sum(ex is not None for row in row_items
+                                         for ex in row)
                 yielded = True
                 yield batch
                 continue
-            if length_group_window > 0:
+            if meta_mode:
+                idxs = orders[task][cursors[task]:cursors[task] + batch_size]
+                cursors[task] += batch_size
+                examples = []
+                for j in idxs[lo:hi]:
+                    ex = dataset.get(task, j)
+                    if ex is None:  # a zero stub keeps processes in step
+                        ex = CalmExample(
+                            input_ids=np.asarray([pad_token_id], np.int32),
+                            labels=np.asarray([-100], np.int32),
+                            audio=np.zeros((1, latent_dim), np.float32),
+                            mode=task)
+                    examples.append(ex)
+            elif length_group_window > 0:
                 if not pending[task]:
                     want = batch_size * length_group_window
                     window, carry[task] = carry[task], []
@@ -482,26 +565,33 @@ def mel_batch_iterator(dataset: MelDataset, batch_size: int,
     the dataset per epoch from `default_rng(seed)`, training crops from
     `default_rng((seed, process_index))`, the last partial batch dropped,
     a batch with a failed load skipped. A training epoch that yields no
-    batch raises (it would repeat forever); eval stops after one epoch."""
-    if process_count > 1:
-        raise NotImplementedError(
-            "multi-host iteration (process_count > 1) is not ported yet "
-            "(ROADMAP Queue 1 item 8)")
+    batch raises (it would repeat forever); eval stops after one epoch.
+    Multi-process: batch_size is global and each process yields its
+    batch_size / process_count rows of each batch (the same order stream);
+    a failed load becomes a zero mel, so the processes stay in step."""
+    if process_count > 1 and batch_size % process_count:
+        raise ValueError(f"global batch {batch_size} not divisible by "
+                         f"{process_count}")
     rng = np.random.default_rng(seed)
     crop_rng = np.random.default_rng((seed, process_index))
+    per = batch_size // process_count
+    lo, hi = process_index * per, (process_index + 1) * per
     epoch = 0
     while epochs is None or epoch < epochs:
         order = rng.permutation(len(dataset))
         yielded = False
         for i in range(0, len(order) - batch_size + 1, batch_size):
             mels = []
-            for j in order[i: i + batch_size]:
+            for j in order[i: i + batch_size][lo:hi]:
                 try:
                     mels.append(dataset.get(int(j),
                                             crop_rng if training else None))
                 except Exception:
+                    if process_count > 1:
+                        mels.append(np.zeros((dataset.crop_size, 80),
+                                             np.float32))
                     continue
-            if len(mels) < batch_size:
+            if len(mels) < hi - lo:
                 continue
             yielded = True
             yield {"mel": np.stack(mels)}

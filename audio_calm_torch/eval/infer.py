@@ -25,6 +25,8 @@ from audio_calm_torch import resolve_device
 from audio_calm_torch.models.calm import QwenCALM
 from audio_calm_torch.ops.alignment import build_alignment_from_durations
 from audio_calm_torch.ops.ode import ode_solve
+from audio_calm_torch.parallel.infer_shard import (shard_batch_rows,
+                                                   shard_inference_params)
 
 TTS_PROMPT = (
     "<|im_start|>user\nRead this text:\n{}<|im_end|>\n<|im_start|>assistant\n"
@@ -371,18 +373,41 @@ class CALMInference:
     noise also takes `x_init`, rows of that full-grid noise as arrays (one
     per item, or per chunk of a long-form call), used instead of the
     draws.
-    `device=None` is the card."""
+    `device=None` is the card.
+
+    mesh (parallel.mesh.Mesh [data, model]): the engine runs one replica of
+    the model per data row, its Qwen2 kernels split over the row's model
+    devices (parallel/infer_shard.shard_inference_params; the model passed
+    in is left as it is), and `tts_batch` / `asr_batch` split a group's
+    rows over the data rows when they divide (shard_batch_rows), else run
+    them on the first. Noise is drawn for the whole group first, so a row's
+    output does not depend on where it runs. `device` is then the mesh's
+    first device."""
 
     def __init__(self, model: QwenCALM, tokenizer=None,
                  max_audio_len: Optional[int] = None,
                  audio_buckets: Optional[Sequence[int]] = None,
-                 text_buckets: Optional[Sequence[int]] = None, device=None):
+                 text_buckets: Optional[Sequence[int]] = None, device=None,
+                 mesh=None):
+        self.mesh = mesh
+        if mesh is not None:
+            self.replicas = shard_inference_params(model, mesh)
+            model, device = self.replicas[0], mesh.devices[0][0]
+        else:
+            self.replicas = [model]
         self.model = model
         self.tokenizer = tokenizer
         self.max_audio_len = max_audio_len or model.cfg.max_audio_len
         self.audio_buckets = sorted(audio_buckets) if audio_buckets else None
         self.text_buckets = sorted(text_buckets) if text_buckets else None
         self.device = _on_model_device(model, device)
+
+    def _row_groups(self, *arrays: torch.Tensor):
+        """[(replica, its device, its rows of each array there)]: the whole
+        batch on the one model, or parallel/infer_shard.shard_batch_rows
+        over the mesh."""
+        return [(self.replicas[d], part[0].device, part)
+                for d, part in shard_batch_rows(arrays, self.mesh)]
 
     # ---- prompts, grids, noise -----------------------------------------
     def _encode_prompt(self, text: str) -> np.ndarray:
@@ -473,15 +498,15 @@ class CALMInference:
                             self.model.cfg.latent_dim, Bp)
         ids_t, mask_t = (torch.as_tensor(a, device=self.device)
                          for a in (ids, mask))
-        cond_vec, text_ctx, text_pad, num_frames = tts_encode(
-            self.model, ids_t, mask_t)
-        nf = num_frames.cpu().numpy()[:B]
+        encoded = [(rep, tts_encode(rep, i, m), x) for rep, _, (i, m, x)
+                   in self._row_groups(ids_t, mask_t, noise)]
+        nf = torch.cat([e[3].cpu() for _, e, _ in encoded]).numpy()[:B]
         t_aud = self.pick_bucket(int(nf.max()))
-        latents = tts_decode(
-            self.model, cond_vec, text_ctx, text_pad, num_frames, steps=steps,
-            cfg_scale=cfg_scale, t_aud=t_aud, method=method,
-            time_schedule=time_schedule, x_init=noise[:, :t_aud])
-        return (latents[:B].float().cpu().numpy(),
+        latents = torch.cat([tts_decode(
+            rep, *e, steps=steps, cfg_scale=cfg_scale, t_aud=t_aud,
+            method=method, time_schedule=time_schedule,
+            x_init=x[:, :t_aud]).float().cpu() for rep, e, x in encoded])
+        return (latents[:B].numpy(),
                 [int(min(n, t_aud)) for n in nf], t_aud)
 
     def tts(self, text: str, seed: int, steps: int = 50,
@@ -613,14 +638,17 @@ class CALMInference:
                  x_init=None) -> Tuple[np.ndarray, np.ndarray]:
         """`asr_batch`'s device work -> (ids [B, max_text_len], q_len [B]) as
         numpy, the padded rows dropped."""
-        *inputs, noise = self._asr_inputs(latents_list, seeds, pad_batch,
-                                          x_init)
-        ids, q_len = asr_generate_ids(
-            self.model, *inputs, steps=steps, cfg_scale=cfg_scale,
-            num_queries=self.model.cfg.max_text_len, method=method,
-            time_schedule=time_schedule, x_init=noise, device=self.device)
+        ids, q_len = [], []
+        for rep, dev, (*inputs, noise) in self._row_groups(
+                *self._asr_inputs(latents_list, seeds, pad_batch, x_init)):
+            i, q = asr_generate_ids(
+                rep, *inputs, steps=steps, cfg_scale=cfg_scale,
+                num_queries=self.model.cfg.max_text_len, method=method,
+                time_schedule=time_schedule, x_init=noise, device=dev)
+            ids.append(i.cpu())
+            q_len.append(q.cpu())
         B = len(latents_list)
-        return ids.cpu().numpy()[:B], q_len.cpu().numpy()[:B]
+        return (torch.cat(ids).numpy()[:B], torch.cat(q_len).numpy()[:B])
 
     def asr_batch(self, latents_list: Sequence[np.ndarray],
                   seeds: Sequence[int], steps: int = 20,

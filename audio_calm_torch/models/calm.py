@@ -215,19 +215,24 @@ class QwenCALM(nn.Module):
                     generator: Optional[torch.Generator] = None,
                     seed: int = 0, t: Optional[torch.Tensor] = None,
                     x0: Optional[torch.Tensor] = None,
-                    drop: Optional[torch.Tensor] = None
+                    drop: Optional[torch.Tensor] = None, dens=None
                     ) -> Dict[str, torch.Tensor]:
         """text ids [B, T_txt] + mask, raw latents [B, T_aud, latent_dim] +
         mask -> {loss, loss_tts, loss_len, loss_dur}. `generator` draws the
         flow loss's noise (t, x0 and the CFG drop may be passed in instead);
         `seed` fixes the dropout masks (LoRA and DiT attention) when
-        train=True."""
+        train=True. dens: (row count, valid frame count) of a larger batch
+        these rows belong to (a data-parallel rank's share): each term is
+        then these rows' sum over those denominators (and `loss_den` is
+        added), so that the ranks' terms sum to the whole batch's."""
         gt = self.normalize_latents(latents)
         cond_vec, text_ctx, text_pad = self.encode_text_for_tts(
             text_ids, attention_mask, train, seed)
+        real = None if dens is None else torch.ones(
+            gt.shape[0], dtype=torch.bool, device=gt.device)
         return self._tts_condition_and_loss(
             cond_vec, text_ctx, text_pad, gt, audio_mask.bool(), train,
-            generator, seed, t, x0, drop)
+            generator, seed, t, x0, drop, real=real, dens=dens)
 
     def _tts_condition_and_loss(self, cond_vec, text_ctx, text_pad, gt,
                                 tgt_mask, train, generator, seed, t=None,
@@ -388,13 +393,13 @@ class QwenCALM(nn.Module):
                     generator: Optional[torch.Generator] = None,
                     seed: int = 0, t: Optional[torch.Tensor] = None,
                     x0: Optional[torch.Tensor] = None,
-                    drop: Optional[torch.Tensor] = None
+                    drop: Optional[torch.Tensor] = None, den=None
                     ) -> Dict[str, torch.Tensor]:
         """prompt ids [B, T_txt] + mask, raw latents [B, T_aud, latent_dim]
         + mask, target ids [B, T_text] (-100 = ignore) -> {loss, loss_asr,
         loss_den}: [audio | SOA | prompt] through the LLM, then the
         per-utterance tail on the audio positions. Draws as in
-        forward_tts."""
+        forward_tts; `den` as in _asr_condition_and_loss."""
         gt = self.normalize_latents(latents)
         B, T_aud, _ = gt.shape
         audio_embeds = self.input_proj(gt).to(self.dtype)
@@ -407,16 +412,20 @@ class QwenCALM(nn.Module):
         hidden = self._llm_encode(inp, full_mask, train, seed)
         return self._asr_condition_and_loss(
             hidden[:, :T_aud], audio_mask, labels, train, generator, seed, t,
-            x0, drop)
+            x0, drop, den)
 
     def _asr_condition_and_loss(self, audio_context, audio_mask, labels,
                                 train, generator, seed, t=None, x0=None,
-                                drop=None) -> Dict[str, torch.Tensor]:
+                                drop=None, den=None
+                                ) -> Dict[str, torch.Tensor]:
         """Positional-query cross-attention + flow loss on the LLM's audio
         states [B, T_ctx, D] (mask [B, T_ctx], 1 = valid): the queries
         clip(arange(T_text), 0, max_text_len - 1), the condition and the
         target (the label embeddings) zeroed past the labels, the flow
-        loss over the valid label positions, whose count is `loss_den`."""
+        loss over the valid label positions, whose count is `loss_den`.
+        den: the valid count of a larger batch these rows belong to (a
+        data-parallel rank's share); the loss is then these rows' sum over
+        it."""
         c = self.cfg
         B, T_text = labels.shape
         valid = labels != -100
@@ -439,8 +448,11 @@ class QwenCALM(nn.Module):
             head_fn, generator, condition, target, valid,
             cfg_dropout_prob=c.cfg_dropout_prob if train else 0.0,
             x_mask=~valid, train=train, t=t, x0=x0, drop=drop)
+        n_valid = valid.float().sum()
+        if den is not None:
+            asr_loss = asr_loss * (n_valid / den)
         return {"loss": asr_loss * c.asr_loss_weight, "loss_asr": asr_loss,
-                "loss_den": valid.float().sum()}
+                "loss_den": n_valid}
 
     def forward_asr_packed(self, latents: torch.Tensor,
                            latent_mask: torch.Tensor, labels: torch.Tensor,
@@ -452,7 +464,7 @@ class QwenCALM(nn.Module):
                            generator: Optional[torch.Generator] = None,
                            seed: int = 0, t: Optional[torch.Tensor] = None,
                            x0: Optional[torch.Tensor] = None,
-                           drop: Optional[torch.Tensor] = None
+                           drop: Optional[torch.Tensor] = None, den=None
                            ) -> Dict[str, torch.Tensor]:
         """Packed ASR training (the batch layout is data/collator.
         pack_asr_window's): per-slot raw latents [R, S, L, D] + mask,
@@ -489,7 +501,7 @@ class QwenCALM(nn.Module):
         return self._asr_condition_and_loss(
             ctx.reshape(R * S, L, H), latent_mask.reshape(R * S, L),
             labels.reshape(R * S, labels.shape[-1]), train, generator, seed,
-            t, x0, drop)
+            t, x0, drop, den)
 
 
 @torch.no_grad()

@@ -33,7 +33,7 @@ from audio_calm_torch import resolve_device
 from audio_calm_torch.config import VAEModelConfig, from_dict
 from audio_calm_torch.models.layers import (Conv1d, ConvTranspose1d,
                                             GroupNorm, gelu)
-from audio_calm_torch.ops.dropout import dropout
+from audio_calm_torch.ops.dropout import draw, dropout
 from audio_calm_torch.ops.mel import stft_power
 from audio_calm_torch.ops.ssim import ssim_loss
 
@@ -161,8 +161,8 @@ class AcousticVAE(nn.Module):
             return mu
         std = torch.exp(0.5 * logvar)
         if eps is None:
-            eps = torch.randn(mu.shape, generator=generator,
-                              device=mu.device, dtype=mu.dtype)
+            eps = draw(torch.randn, mu.shape, generator=generator,
+                       device=mu.device, dtype=mu.dtype)
         z = mu + eps.to(mu.dtype) * std
         return dropout(z, self.cfg.latent_dropout, seed)
 

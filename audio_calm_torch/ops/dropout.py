@@ -8,9 +8,21 @@ generator seeded by `derive_seed(seed, site)`: `seed` is fixed per (step,
 microbatch slice) by the train step and `site` is the module's own index in
 the model (`assign_dropout_sites`). Same seed, same masks, however often a
 block runs.
+
+Data parallelism (train/steps.py with a process group): each process runs
+its share of a batch's rows, and every draw over a batch-major tensor must
+give those rows the numbers the one-process run gives them. Inside
+`row_shard(rank, world)`, `draw` makes the draw at the global leading size
+(world x the local one) and keeps this process's rows, so a rank's masks
+and noise are the rows of the one-process draw. The state is one module
+global, not a thread-local: autograd recomputes checkpointed blocks on its
+own device thread, and the recomputation must draw the same rows.
 """
 
 from __future__ import annotations
+
+import contextlib
+from typing import Callable, Sequence
 
 import torch
 from torch import nn
@@ -34,6 +46,34 @@ def derive_seed(*parts: int) -> int:
     return h & ((1 << 63) - 1)
 
 
+_ROWS = (0, 1)  # (rank, world) of the batch-major draws
+
+
+@contextlib.contextmanager
+def row_shard(rank: int, world: int):
+    """Within the block, `draw` keeps rows [rank n, (rank + 1) n) of a draw
+    made for world x n rows."""
+    global _ROWS
+    saved = _ROWS
+    _ROWS = (int(rank), int(world))
+    try:
+        yield
+    finally:
+        _ROWS = saved
+
+
+def draw(fn: Callable, shape: Sequence[int], **kw) -> torch.Tensor:
+    """fn(shape, **kw) (torch.rand / torch.randn with a generator) for this
+    process's rows: under row_shard(rank, world) the draw is made for the
+    global leading size and this rank's rows of it are returned."""
+    rank, world = _ROWS
+    shape = tuple(shape)
+    if world == 1:
+        return fn(shape, **kw)
+    n = shape[0]
+    return fn((n * world,) + shape[1:], **kw)[rank * n:(rank + 1) * n]
+
+
 def dropout(x: torch.Tensor, rate: float, seed: int) -> torch.Tensor:
     """flax nn.Dropout semantics: keep with probability 1 - rate, scale the
     kept values by 1 / (1 - rate); the mask comes from `seed` alone."""
@@ -41,7 +81,7 @@ def dropout(x: torch.Tensor, rate: float, seed: int) -> torch.Tensor:
         return x
     g = torch.Generator(device=x.device)
     g.manual_seed(seed)
-    keep = torch.rand(x.shape, generator=g, device=x.device) >= rate
+    keep = draw(torch.rand, x.shape, generator=g, device=x.device) >= rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 

@@ -8,7 +8,8 @@ sample, the condition and the cross-attention context are zeroed.
 
 Draws come from an explicit `torch.Generator` in JAX's order (drop, t, x0);
 `t`, `x0` and `drop` may be passed in instead, so that a test can feed both
-packages the same numbers.
+packages the same numbers. Under ops/dropout.row_shard the draws are a
+data-parallel rank's rows of the global batch's.
 """
 
 from __future__ import annotations
@@ -16,6 +17,8 @@ from __future__ import annotations
 from typing import Callable, Optional
 
 import torch
+
+from audio_calm_torch.ops.dropout import draw
 
 
 def compute_flow_loss(
@@ -41,17 +44,17 @@ def compute_flow_loss(
         x_mask = ~mask
     if train and cfg_dropout_prob > 0:
         if drop is None:
-            drop = torch.rand(B, generator=generator,
-                              device=dev) < cfg_dropout_prob
+            drop = draw(torch.rand, (B,), generator=generator,
+                        device=dev) < cfg_dropout_prob
         keep = ~drop.to(dev)[:, None, None]
         condition = torch.where(keep, condition, 0.0)
         if context is not None:
             context = torch.where(keep, context, 0.0)
     if t is None:
-        t = torch.rand(B, generator=generator, device=dev)
+        t = draw(torch.rand, (B,), generator=generator, device=dev)
     if x0 is None:
-        x0 = torch.randn(target.shape, generator=generator, device=dev,
-                         dtype=target.dtype)
+        x0 = draw(torch.randn, target.shape, generator=generator,
+                  device=dev, dtype=target.dtype)
     t, x0 = t.to(dev, torch.float32), x0.to(dev, target.dtype)
     tb = t.to(target.dtype)[:, None, None]
     xt = (1.0 - tb) * x0 + tb * target

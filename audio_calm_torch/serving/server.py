@@ -35,7 +35,11 @@ random one when it is null; load_vocoder (Griffin-Lim when
 evaluation.vocoder_path is null), the renderer and the bucketed ASR
 frontend. Like scripts/serve.py it does not read model.qwen_path: the LLM
 base is the seeded one under the checkpoint's LoRA. It runs on the card
-unless `--device cpu` is given. Device work runs on the batcher's worker thread,
+unless `--device cpu` is given. `--dp D --tp M` (D x M > 1) serves from a
+mesh of cuda:0 .. D*M-1 (it raises when the machine has fewer; with
+`--device cpu` the CPU stands in for every device): D model replicas
+split the rows of a batched group, each replica's Qwen2 kernels split
+over M devices (parallel/infer_shard.py). Device work runs on the batcher's worker thread,
 one group at a time behind a lock, in torch.inference_mode() (grad mode is
 per thread).
 """
@@ -74,6 +78,7 @@ from audio_calm_torch.models.layers import batch_invariant_
 from audio_calm_torch.models.quant import maybe_quantize_from_env
 from audio_calm_torch.models.vae import AcousticVAE, load_vae
 from audio_calm_torch.models.vocoder import load_vocoder
+from audio_calm_torch.parallel.mesh import make_mesh, serving_devices
 from audio_calm_torch.serving.batcher import RequestBatcher
 from audio_calm_torch.serving.frontend import make_asr_frontend
 from audio_calm_torch.serving.stats import ServingStats
@@ -162,19 +167,22 @@ def load_models(cfg: CALMConfig, device, components=None):
 
 
 def make_engine(cfg: CALMConfig, model: QwenCALM, vae: AcousticVAE,
-                tokenizer, device) -> Engine:
+                tokenizer, device, mesh=None) -> Engine:
     """The engine around a served model and VAE (on `device`): inference
     wrapper, vocoder, renderer and the bucketed ASR frontend. A bf16
     model's projections go through the batch-invariant product
     (models/layers.batch_invariant_), so a request's rows do not depend on
-    what it is batched with."""
+    what it is batched with. With `mesh` (parallel.mesh.Mesh, --dp x --tp)
+    the inference wrapper runs a replica per data row with its Qwen2
+    kernels split over the row (parallel/infer_shard.py); the VAE, the
+    vocoder and the frontend stay on `device`."""
     m = cfg.model
     if model.dtype == torch.bfloat16:
         batch_invariant_(model)
     inf = CALMInference(model, tokenizer,
                         audio_buckets=cfg.evaluation.audio_buckets,
                         text_buckets=cfg.evaluation.text_buckets,
-                        device=device)
+                        device=device, mesh=mesh)
     vae_cfg = VAEModelConfig(latent_channels=m.latent_dim)
     vocoder = load_vocoder(cfg.evaluation.vocoder_path, device=device)
     print(f"[serve] vocoder: {type(vocoder).__name__}", file=sys.stderr)
@@ -194,7 +202,18 @@ def build_engine(args) -> Engine:
     device = resolve_device(args.device)
     tokenizer = load_tokenizer(cfg.model, byte_fallback=args.byte_tokenizer)
     model, vae = load_models(cfg, device, args.components)
-    return make_engine(cfg, model, vae, tokenizer, device)
+    mesh = None
+    if args.dp * args.tp > 1:
+        # data rows shard batched groups, the model axis splits the Qwen2
+        # kernels: cuda:0 .. dp*tp-1, or the CPU repeated with --device cpu
+        mesh = make_mesh(data=args.dp, model=args.tp,
+                         devices=serving_devices(
+                             args.dp * args.tp,
+                             None if args.device is None or
+                             torch.device(args.device).type == "cuda"
+                             else args.device))
+        print(f"[serve] mesh {mesh.shape}", file=sys.stderr)
+    return make_engine(cfg, model, vae, tokenizer, device, mesh)
 
 
 def streaming_wav_header(sr: int = 16000) -> bytes:
@@ -654,6 +673,13 @@ def parse_args(argv=None):
     p.add_argument("--first-chunk-batch", type=int, default=0,
                    help="batch cap of the streaming first-chunk priority "
                         "lane; 0 = min(4, max-batch)")
+    p.add_argument("--dp", type=int, default=1,
+                   help="data-parallel devices: batched request groups "
+                        "split their rows over this many model replicas")
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel devices: the Qwen2 kernels of each "
+                        "replica split over this many devices (dp * tp <= "
+                        "the machine's CUDA devices)")
     return p.parse_args(argv)
 
 

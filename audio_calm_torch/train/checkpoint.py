@@ -43,6 +43,7 @@ import torch
 
 from audio_calm_torch.models import convert as C
 from audio_calm_torch.models.convert_export import save_reference_checkpoint
+from audio_calm_torch.parallel.mesh import barrier, is_primary
 
 COMPONENTS = (
     "input_proj",
@@ -260,15 +261,21 @@ def make_manager(directory: str, save_total_limit: int = 2,
 def save_train_state(manager: CheckpointManager, step: int, optimizer,
                      metrics: Optional[Dict[str, float]] = None) -> None:
     """Checkpoint the train state: the step, the optimizer's trainable
-    tensors (`optimizer.params`) and its state, copied to the host."""
+    tensors (`optimizer.params`) and its state, copied to the host. Under
+    a process group every rank calls it (a ZeRO optimizer gathers its
+    moments) and rank 0 alone writes, as JAX's loop writes from
+    process_index 0; the ranks wait for the write."""
     def host(x):
         if isinstance(x, dict):
             return {k: host(v) for k, v in x.items()}
         return x.detach().cpu().clone() if isinstance(x, torch.Tensor) else x
 
-    manager.save(step, {"step": int(step),
-                        "trainable": host(optimizer.params),
-                        "opt_state": host(optimizer.state_dict())}, metrics)
+    state = optimizer.state_dict()
+    if is_primary():
+        manager.save(step, {"step": int(step),
+                            "trainable": host(optimizer.params),
+                            "opt_state": host(state)}, metrics)
+    barrier()
 
 
 @torch.no_grad()

@@ -20,6 +20,10 @@ One step (`make_distill_step`, JAX distill.py:142-301):
     the valid frames; the student then advances on its own prediction
     (gradient stopped), so it is supervised at the states inference visits;
   - the loss is the mean over the K intervals; one optimizer update.
+With a distributed optimizer over W ranks (train/optim.AdamW), each rank
+runs its rows of the global batch: x0 is its rows of the global draw
+(ops/dropout.row_shard) and the masked mean's denominator the global valid
+count, so the ranks' losses and gradients sum to the one-process step's.
 Only the K student evaluations are recorded by autograd: on the card the
 teacher's attention is the fused forward (K3) and the student's K3 forward
 with the K5 backward (ops/attention_kernel.flash_attention).
@@ -45,7 +49,8 @@ from audio_calm_torch.eval.infer import (asr_encode, asr_generate_ids,
                                          tts_generate_latents)
 from audio_calm_torch.models.convert import (from_jax_params, jax_path,
                                              to_jax_params)
-from audio_calm_torch.ops.dropout import derive_seed
+from audio_calm_torch.ops.dropout import derive_seed, draw, row_shard
+from audio_calm_torch.parallel.mesh import all_reduce_sum
 
 BATCH_KEYS = {"tts": ("text_ids", "attention_mask"),
               "asr": ("text_ids", "attention_mask", "latents", "audio_mask")}
@@ -194,11 +199,12 @@ def make_distill_step(model, teacher: nn.Module, optimizer, task: str = "tts",
         if x0 is None:
             gen = torch.Generator(device=condition.device)
             gen.manual_seed(derive_seed(step_seed, 0))
-            x0 = torch.randn(B, T, x_dim, generator=gen,
-                             device=condition.device, dtype=condition.dtype)
+            x0 = draw(torch.randn, (B, T, x_dim), generator=gen,
+                      device=condition.device, dtype=condition.dtype)
         x = x0.to(condition.device, condition.dtype)
         mf = valid.float()
-        denom = mf.sum().clamp_min(1.0)
+        # data-parallel ranks: the global batch's valid count
+        denom = all_reduce_sum(mf.sum().detach()).clamp_min(1.0)
         total = torch.zeros((), dtype=torch.float32, device=x.device)
         for i in range(K):
             t0 = i * h
@@ -212,13 +218,21 @@ def make_distill_step(model, teacher: nn.Module, optimizer, task: str = "tts",
         loss = total / K
         return {"loss": loss, "loss_distill": loss}
 
+    rank, world = getattr(optimizer, "rank", 0), getattr(optimizer,
+                                                         "world", 1)
+
     def step(batch: Dict[str, torch.Tensor],
              x0: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
         for p in params.values():
             p.grad = None
-        out = loss_fn(batch, derive_seed(seed, step.count), x0)
-        out["loss"].backward()
+        with row_shard(rank, world):
+            out = loss_fn(batch, derive_seed(seed, step.count), x0)
+            out["loss"].backward()
         metrics = {k: v.detach() for k, v in out.items()}
+        if world > 1:  # each rank's loss is its rows' share of the sum
+            vec = all_reduce_sum(torch.stack([metrics["loss"],
+                                              metrics["loss_distill"]]))
+            metrics["loss"], metrics["loss_distill"] = vec.unbind()
         metrics["grad_norm"] = optimizer.step(
             {n: p.grad for n, p in params.items()})
         step.count += 1

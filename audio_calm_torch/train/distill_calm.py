@@ -25,7 +25,14 @@ quality probe runs on one batch of min(batch, 4) and the components are
 written in the reference layout to `<that dir>/components` (what the
 server's --components reads).
 
-Not ported: --distributed (multi-host, ROADMAP Queue 1 item 8).
+--distributed: one process per device over torch.distributed, from
+torchrun's variables (parallel/mesh.init_distributed_from_env; NCCL on
+cuda:LOCAL_RANK, gloo with --device cpu): the global batch is
+per_device_train_batch_size x the world size, each rank loads its rows
+and the step is data-parallel with ZeRO-2 (train/optim.AdamW), the same
+run as one process over the global batches. Rank 0 alone logs and writes
+the checkpoints and the components; every rank needs the same
+training.output_dir (a shared directory), where a resumed run reads them.
 """
 
 from __future__ import annotations
@@ -47,6 +54,9 @@ from audio_calm_torch.data.datasets import CalmDataset
 from audio_calm_torch.data.prefetch import prefetch
 from audio_calm_torch.data.tokenizer import load_tokenizer
 from audio_calm_torch.models.calm import QwenCALM
+from audio_calm_torch.parallel.mesh import (barrier, finish_distributed,
+                                            init_distributed_from_env,
+                                            is_primary, rank_world)
 from audio_calm_torch.train.checkpoint import save_components
 from audio_calm_torch.train.distill import (BATCH_KEYS, make_distill_step,
                                             perturb_head, quality_probe,
@@ -100,21 +110,21 @@ def parse_args(argv=None):
                    help="torch device; default the CUDA card ('cpu' only "
                         "when asked)")
     p.add_argument("--distributed", action="store_true",
-                   help="multi-host (not ported: ROADMAP Queue 1 item 8)")
+                   help="one process per device from torchrun's variables "
+                        "(NCCL; gloo with --device cpu)")
     return p.parse_args(argv)
 
 
 def distill(argv=None) -> DistillRun:
     args = parse_args(argv)
-    if args.distributed:
-        raise NotImplementedError("distill_calm --distributed (multi-host) "
-                                  "is not ported yet (ROADMAP Queue 1 item 8)")
     cfg = load_config(args.config, cls=CALMConfig, overrides=args.override)
     t, d, m, e = cfg.training, cfg.data, cfg.model, cfg.evaluation
     task = args.task
     cfg_scale = args.cfg_scale if args.cfg_scale is not None else (
         e.cfg_scale if task == "tts" else e.asr_cfg_scale)
-    device = resolve_device(args.device)
+    device = (init_distributed_from_env(args.device) if args.distributed
+              else resolve_device(args.device))
+    rank, world = rank_world()
     tokenizer = load_tokenizer(m, byte_fallback=args.byte_tokenizer)
 
     src = d.datasets.get(task)
@@ -146,7 +156,7 @@ def distill(argv=None) -> DistillRun:
     out_root = os.path.join(t.output_dir, f"distill_{task}")
     t = dataclasses.replace(t, output_dir=out_root,
                             run_name=f"{t.run_name}_distill_{task}")
-    global_bs = t.per_device_train_batch_size
+    global_bs = t.per_device_train_batch_size * world
     total_steps = args.max_steps or (t.max_steps if t.max_steps > 0
                                      else 2000)
 
@@ -156,8 +166,9 @@ def distill(argv=None) -> DistillRun:
     print(f"distilling {task} head ({n_train / 1e6:.2f}M params) to "
           f"{args.student_steps} steps, teacher cfg={cfg_scale} x "
           f"{args.teacher_substeps} substeps | steps: {total_steps} | "
-          f"global batch: {global_bs} | device: {device}")
-    opt = AdamW(params, labels, t, total_steps)
+          f"global batch: {global_bs} | device: {device}"
+          + (f" | rank {rank} of {world}" if args.distributed else ""))
+    opt = AdamW(params, labels, t, total_steps, distributed=args.distributed)
     step = make_distill_step(model, teacher, opt, task,
                              student_steps=args.student_steps,
                              cfg_scale=cfg_scale,
@@ -173,7 +184,8 @@ def distill(argv=None) -> DistillRun:
     def batches(start_step: int):
         return prefetch(calm_batch_iterator(
             ds, global_bs, pad_id, m.latent_dim, task_prob_tts=task_prob,
-            training=True, seed=t.seed + 1_000_003 * start_step))
+            training=True, seed=t.seed + 1_000_003 * start_step,
+            process_index=rank, process_count=world))
 
     history = run_training(step, batches, t, total_steps, optimizer=opt,
                            batch_filter=batch_filter, device=device)
@@ -187,8 +199,10 @@ def distill(argv=None) -> DistillRun:
     print(f"quality probe (teacher-dense reference): {json.dumps(probe)}")
 
     out_dir = os.path.join(out_root, "components")
-    save_components(model, out_dir)
-    print(f"saved distilled components to {out_dir}")
+    if is_primary():
+        save_components(model, out_dir)
+        print(f"saved distilled components to {out_dir}")
+    barrier()
     print(f"serve with: evaluation.ode_method=euler "
           f"evaluation.steps={args.student_steps} evaluation.cfg_scale=1.0"
           if task == "tts" else
@@ -201,6 +215,7 @@ def distill(argv=None) -> DistillRun:
 
 def main(argv=None) -> int:
     distill(argv)
+    finish_distributed()
     return 0
 
 

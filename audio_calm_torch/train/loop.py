@@ -9,6 +9,11 @@ steps or at a logging step, the queued step metrics are read back in one
 pass (which waits for the device). The next batch is prepared (step
 chosen, samples and FLOPs counted, moved to the device) before the current
 step's metrics are read, so host work overlaps the device's.
+
+Data-parallel runs (a process group): every rank runs the loop on its
+rows; the metrics are the global batch's, rank 0 alone logs, and
+checkpoints are written by rank 0 (train/checkpoint.save_train_state) and
+read by every rank.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ from typing import Callable, Dict, List, Optional
 import torch
 
 from audio_calm_torch.config import TrainingConfig
+from audio_calm_torch.parallel.mesh import is_primary
 from audio_calm_torch.train.checkpoint import (make_manager,
                                                restore_train_state,
                                                save_train_state)
@@ -29,10 +35,14 @@ from audio_calm_torch.utils import profiling
 
 class MetricLogger:
     """`metrics.jsonl` under output_dir plus the printed line; wandb when
-    asked for and importable (else nothing more)."""
+    asked for and importable (else nothing more). Under a process group
+    only rank 0 logs; the others' logger does nothing."""
 
     def __init__(self, output_dir: str, run_name: str,
                  report_to: str = "none"):
+        self.enabled = is_primary()
+        if not self.enabled:
+            return
         os.makedirs(output_dir, exist_ok=True)
         self.path = os.path.join(output_dir, "metrics.jsonl")
         self.f = open(self.path, "a")
@@ -48,6 +58,8 @@ class MetricLogger:
                 self.wandb = None
 
     def log(self, step: int, metrics: Dict[str, float]) -> None:
+        if not self.enabled:
+            return
         rec = {"step": step, **{k: float(v) for k, v in metrics.items()}}
         self.f.write(json.dumps(rec) + "\n")
         self.f.flush()
@@ -57,7 +69,8 @@ class MetricLogger:
         print(f"[step {step}] {items}", flush=True)
 
     def close(self) -> None:
-        self.f.close()
+        if self.enabled:
+            self.f.close()
 
 
 def _sync(tensors) -> None:

@@ -28,6 +28,17 @@ hand because torch's defaults differ from optax's:
   - a trainable tensor that got no gradient counts as a zero gradient
     (weight decay still moves it).
 Everything stays on the device: no host round trip per step.
+
+`AdamW(..., distributed=True)` is data-parallel ZeRO-2 over the default
+torch.distributed group (JAX: shard_step's zero_sharding): a tensor that
+parallel/mesh.zero_leaf_spec shards has its gradient reduce-scattered
+(summed) on that dim, its moments kept for this rank's shard only, the
+update applied to that shard and the tensor all-gathered after it; small
+or indivisible tensors are all-reduced and updated whole on every rank.
+The global norm (for clipping and the metric) sums the shards' squares
+across ranks, in the order of the one-process sum. `state_dict()` then
+gathers the moments (every rank calls it) and `load_state_dict` takes a
+full state and keeps this rank's shards.
 """
 
 from __future__ import annotations
@@ -36,10 +47,12 @@ import math
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from audio_calm_torch.config import TrainingConfig
 from audio_calm_torch.models.convert import jax_path
+from audio_calm_torch.parallel.mesh import rank_world, zero_leaf_spec
 
 GROUPS = ("decay", "no_decay", "proj", "head", "soa")
 
@@ -134,16 +147,55 @@ def global_norm(tensors) -> torch.Tensor:
     return torch.sqrt(sum((t.float() ** 2).sum() for t in tensors))
 
 
+def _nccl() -> bool:
+    return dist.get_backend() == "nccl"
+
+
+def reduce_scatter(t: torch.Tensor, dim: int, rank: int,
+                   world: int) -> torch.Tensor:
+    """This rank's shard (along `dim`) of the sum over ranks of `t`, laid
+    out as t is."""
+    if _nccl():
+        x = t.movedim(dim, 0).contiguous()
+        out = x.new_empty((x.shape[0] // world,) + x.shape[1:])
+        dist.reduce_scatter_tensor(out, x)
+        return out.movedim(0, dim).contiguous()
+    dist.all_reduce(t)  # gloo has no reduce-scatter
+    c = t.shape[dim] // world
+    return t.narrow(dim, rank * c, c).contiguous()
+
+
+def all_gather(shard: torch.Tensor, dim: int, world: int) -> torch.Tensor:
+    """The ranks' shards joined along `dim`, in rank order."""
+    x = shard.movedim(dim, 0).contiguous()
+    if _nccl():
+        buf = x.new_empty((x.shape[0] * world,) + x.shape[1:])
+        dist.all_gather_into_tensor(buf, x)
+    else:
+        parts = [torch.empty_like(x) for _ in range(world)]
+        dist.all_gather(parts, x)
+        buf = torch.cat(parts)
+    return buf.movedim(0, dim)
+
+
 class AdamW:
     """The JAX package's make_optimizer over named trainable tensors.
 
     params: {name: tensor} (updated in place); labels: {name: group}.
     `step(grads)` takes {name: gradient or None} and returns the global
-    norm of those gradients (before clipping)."""
+    norm of those gradients (before clipping). distributed=True: ZeRO-2
+    over the default process group (the module docstring); the gradients
+    passed in are this rank's and are summed over the ranks here."""
 
     def __init__(self, params: Dict[str, torch.Tensor], labels: Dict[str, str],
-                 cfg: TrainingConfig, total_steps: int):
+                 cfg: TrainingConfig, total_steps: int,
+                 distributed: bool = False):
         self.params = params
+        self.distributed = distributed
+        self.rank, self.world = rank_world() if distributed else (0, 1)
+        # ZeRO: the dim each tensor's moments and update are sharded on
+        self.zero_dim = {n: zero_leaf_spec(self.world, p) if distributed
+                         else None for n, p in params.items()}
         self.schedule = make_schedule(cfg, total_steps)
         self.hyper = {  # group -> (lr multiplier, weight decay)
             "decay": (1.0, cfg.weight_decay), "no_decay": (1.0, 0.0),
@@ -159,26 +211,47 @@ class AdamW:
                                       cfg.adam_epsilon)
         self.max_norm = cfg.max_grad_norm
         self.k = cfg.gradient_accumulation_steps
-        self.mu = {n: torch.zeros_like(p, dtype=torch.float32)
-                   for n, p in params.items()}
-        self.nu = {n: torch.zeros_like(p, dtype=torch.float32)
-                   for n, p in params.items()}
-        self.acc = ({n: torch.zeros_like(p, dtype=torch.float32)
-                     for n, p in params.items()} if self.k > 1 else None)
+        def zeros(n, p):
+            return torch.zeros_like(self._shard(n, p), dtype=torch.float32)
+
+        self.mu = {n: zeros(n, p) for n, p in params.items()}
+        self.nu = {n: zeros(n, p) for n, p in params.items()}
+        self.acc = ({n: zeros(n, p) for n, p in params.items()}
+                    if self.k > 1 else None)
         self.count = 0  # real updates so far (the schedule's count)
         self.mini_step = 0
+
+    def _shard(self, n: str, t: torch.Tensor) -> torch.Tensor:
+        """This rank's shard of tensor `n`'s full-shape `t` (t itself when
+        it is not sharded)."""
+        d = self.zero_dim[n]
+        if d is None:
+            return t
+        c = t.shape[d] // self.world
+        return t.narrow(d, self.rank * c, c)
+
+    def _full(self, tensors: Optional[Dict[str, torch.Tensor]]):
+        """Per-rank shards -> full tensors (collective)."""
+        if tensors is None or not self.distributed:
+            return tensors
+        return {n: t if self.zero_dim[n] is None
+                else all_gather(t, self.zero_dim[n], self.world)
+                for n, t in tensors.items()}
 
     def state_dict(self) -> Dict:
         """The optimizer state (for train/checkpoint.py): the moments `mu`
         and `nu`, the MultiSteps accumulator `acc` (None when k = 1), the
-        update count and the position inside an accumulation."""
-        return {"mu": self.mu, "nu": self.nu, "acc": self.acc,
-                "count": self.count, "mini_step": self.mini_step}
+        update count and the position inside an accumulation; full tensors
+        (distributed: gathered, so every rank must call it)."""
+        return {"mu": self._full(self.mu), "nu": self._full(self.nu),
+                "acc": self._full(self.acc), "count": self.count,
+                "mini_step": self.mini_step}
 
     @torch.no_grad()
     def load_state_dict(self, state: Dict) -> None:
         """Copy a `state_dict()` into this optimizer's tensors in place
-        (their devices and dtypes stay); names and shapes must match."""
+        (their devices and dtypes stay; distributed, this rank's shards);
+        names and shapes must match."""
         if (state["acc"] is None) != (self.acc is None):
             raise ValueError("optimizer state: gradient_accumulation_steps "
                              "differs from the saved run's")
@@ -190,20 +263,47 @@ class AdamW:
                 raise ValueError(f"optimizer state {key}: the saved tensors "
                                  "are not this optimizer's")
             for n, t in mine.items():
-                if t.shape != saved[n].shape:
+                full = self.params[n].shape
+                if full != saved[n].shape:
                     raise ValueError(f"optimizer state {key}.{n}: shape "
                                      f"{tuple(saved[n].shape)}, expected "
-                                     f"{tuple(t.shape)}")
-                t.copy_(saved[n])
+                                     f"{tuple(full)}")
+                t.copy_(self._shard(n, saved[n].to(t.device)))
         self.count = int(state["count"])
         self.mini_step = int(state["mini_step"])
+
+    def _reduce(self, g: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Sum the ranks' gradients: this rank's shard of a sharded
+        tensor's, a replicated tensor's whole."""
+        out = {}
+        for n, t in g.items():
+            d = self.zero_dim[n]
+            if d is None:
+                dist.all_reduce(t)
+                out[n] = t
+            else:
+                out[n] = reduce_scatter(t, d, self.rank, self.world)
+        return out
+
+    def _norm(self, g: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """The global norm of gradients `g` (shards summed over ranks)."""
+        sq = {n: (t.float() ** 2).sum() for n, t in g.items()}
+        if self.distributed:
+            sharded = [n for n in g if self.zero_dim[n] is not None]
+            if sharded:
+                vec = torch.stack([sq[n] for n in sharded])
+                dist.all_reduce(vec)
+                sq.update(zip(sharded, vec.unbind()))
+        return torch.sqrt(sum(sq[n] for n in g))
 
     @torch.no_grad()
     def step(self, grads: Dict[str, Optional[torch.Tensor]]) -> torch.Tensor:
         g = {n: (grads.get(n) if grads.get(n) is not None
                  else torch.zeros_like(p)).float()
              for n, p in self.params.items()}
-        norm = global_norm(g.values())
+        if self.distributed:
+            g = self._reduce(g)
+        norm = self._norm(g)
         if self.acc is None:
             self._update(g, norm)
             return norm
@@ -211,14 +311,16 @@ class AdamW:
             self.acc[n] += (g[n] - self.acc[n]) / (self.mini_step + 1)
         self.mini_step += 1
         if self.mini_step == self.k:
-            self._update(self.acc, global_norm(self.acc.values()))
+            self._update(self.acc, self._norm(self.acc))
             self.mini_step = 0
             for a in self.acc.values():
                 a.zero_()
         return norm
 
     def _update(self, g: Dict[str, torch.Tensor], norm: torch.Tensor) -> None:
-        """One AdamW update from gradients `g` whose global norm is `norm`."""
+        """One AdamW update from gradients `g` (distributed: this rank's
+        shards) whose global norm is `norm`; sharded tensors are gathered
+        after it."""
         clip = norm >= self.max_norm  # optax: scale when not norm < max
         c = self.count + 1
         bc1, bc2 = 1.0 - self.b1 ** c, 1.0 - self.b2 ** c
@@ -230,6 +332,9 @@ class AdamW:
             nu.copy_((1.0 - self.b2) * gn * gn + self.b2 * nu)
             u = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
             mult, wd = self.hyper[self.group[n]]
-            u = u + wd * p.float()
-            p.add_((u * (-base_lr * mult)).to(p.dtype))
+            ps = self._shard(n, p)
+            u = u + wd * ps.float()
+            ps.add_((u * (-base_lr * mult)).to(p.dtype))
+            if self.distributed and self.zero_dim[n] is not None:
+                p.copy_(all_gather(ps, self.zero_dim[n], self.world))
         self.count = c

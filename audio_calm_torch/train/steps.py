@@ -34,6 +34,28 @@ one update a call on {"mel"}, its eps drawn from a generator and its
 latent-dropout mask from a seed, both from (seed, step); metrics the five
 loss terms, mu_std (the std of mu over the batch), var_mean
 (mean exp(logvar)) and grad_norm.
+
+Data parallelism (JAX: shard_step over a "data" mesh axis): with an
+optimizer built `distributed=True` over a process group of W ranks, each
+rank passes its own rows (the collator's process_index slice) and the
+step is the one-process step over the global batch, the ranks' rows in
+rank order:
+  - the CALM steps gather the batch's rows on every rank; microbatch slice
+    i is rows [i b, (i + 1) b) of the global batch (b = B / k, which W
+    must divide) and each rank runs its b / W of them;
+  - every denominator is the global one, computed from the gathered rows:
+    a plain slice's row and valid-frame counts ("tts") or valid label
+    count ("asr"), the whole batch's global_dens ("tts_packed") or valid
+    label count ("asr_packed"); each rank's loss terms are its rows' sums
+    over them, so the ranks' terms and gradients add up to the one-process
+    ones (the VAE's terms are plain means over equal shares: each rank's
+    over W);
+  - flow noise, the CFG drop and every dropout mask are drawn at the
+    global slice's size and each rank keeps its rows (ops/dropout.
+    row_shard), so a rank draws exactly its rows' one-process numbers;
+  - the optimizer sums the gradients over the ranks (ZeRO-2), and the
+    norm and clipping come after that sum.
+With W = 1 the step is the one-process step, collectives and all.
 """
 
 from __future__ import annotations
@@ -42,7 +64,8 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
-from audio_calm_torch.ops.dropout import derive_seed
+from audio_calm_torch.ops.dropout import derive_seed, row_shard
+from audio_calm_torch.parallel.mesh import all_reduce_sum, gather_rows
 from audio_calm_torch.utils.profiling import count_flops
 
 TTS_KEYS = ("text_ids", "attention_mask", "latents", "audio_mask")
@@ -70,14 +93,26 @@ def global_dens(batch: Dict[str, torch.Tensor]
     return slots, frames
 
 
+def valid_count(labels: torch.Tensor) -> torch.Tensor:
+    """The number of label positions that count (not -100), at least 1."""
+    return (labels != -100).float().sum().clamp_min(1.0)
+
+
 def slice_loss(model, batch: Dict[str, torch.Tensor], seed: int,
-               task: str = "tts", dens=None) -> Dict[str, torch.Tensor]:
+               task: str = "tts", dens=None, den=None
+               ) -> Dict[str, torch.Tensor]:
     """The train-mode forward of one slice of `task` (`forward_tts_packed`
-    against the denominators `dens`), its flow noise drawn from a
-    generator seeded by `seed` and its dropout masks fixed by `seed`."""
+    against the denominators `dens`; `forward_tts` too when dens is given;
+    the ASR forwards against the valid label count `den` when given), its
+    flow noise drawn from a generator seeded by `seed` and its dropout
+    masks fixed by `seed`."""
     gen = torch.Generator(device=batch["latents"].device)
     gen.manual_seed(derive_seed(seed, 0))
-    kw = {"global_den": dens} if task == "tts_packed" else {}
+    kw = {}
+    if dens is not None:
+        kw["global_den" if task == "tts_packed" else "dens"] = dens
+    if den is not None:
+        kw["den"] = den
     return getattr(model, _FORWARD[task])(
         *(batch[k] for k in TASK_KEYS[task]), train=True, generator=gen,
         seed=derive_seed(seed, 1), **kw)
@@ -134,18 +169,67 @@ def accumulate_grads(model, batch: Dict[str, torch.Tensor],
     return {k: v if k == "loss_den" else v / total for k, v in sums.items()}
 
 
+def accumulate_grads_dp(model, batch: Dict[str, torch.Tensor],
+                        microbatch: int, seed: int, task: str, rank: int,
+                        world: int) -> Dict[str, torch.Tensor]:
+    """accumulate_grads for data-parallel rank `rank` of `world` holding
+    its rows of the global batch (module docstring): the .grad are this
+    rank's share, which the ranks' sum makes the one-process gradient; the
+    returned loss terms are already summed over the ranks."""
+    keys = TASK_KEYS[task]
+    full = gather_rows({k: batch[k] for k in keys})
+    summed = task in ("tts_packed", "asr_packed")
+    dens = global_dens(full) if task == "tts_packed" else None
+    den = valid_count(full["labels"]) if task == "asr_packed" else None
+    scale = 1.0 if summed else 1.0 / microbatch
+    sums: Dict[str, torch.Tensor] = {}
+    for i, sub in enumerate(_slices(full, task, microbatch)):
+        b = sub[keys[0]].shape[0]
+        if b % world:
+            raise ValueError(f"a microbatch slice of {b} rows does not "
+                             f"split over {world} ranks")
+        n = b // world
+        mine = {k: v[rank * n:(rank + 1) * n] for k, v in sub.items()}
+        if task == "tts":
+            dens = (torch.tensor(float(b), device=sub["latents"].device),
+                    sub["audio_mask"].float().sum().clamp_min(1.0))
+        elif task == "asr":
+            den = valid_count(sub["labels"])
+        with row_shard(rank, world):  # the backward's recomputes too
+            out = slice_loss(model, mine, derive_seed(seed, i), task, dens,
+                             den)
+            (out["loss"] * scale).backward()
+        for k, v in out.items():
+            if task == "tts" and k == "loss_den":
+                continue  # the one-process plain step reports none
+            v = v.detach().float()
+            sums[k] = sums.get(k, 0.0) + (v if k == "loss_den" else v * scale)
+    names = sorted(sums)
+    vec = all_reduce_sum(torch.stack([sums[k] for k in names]))
+    return dict(zip(names, vec.unbind()))
+
+
 def make_calm_step(model, optimizer, task: str = "tts", microbatch: int = 1,
                    seed: int = 0) -> Callable:
     """step(batch) -> metrics; one optimizer update per call. The step
-    count (`step.count`) folds into every slice's seed."""
+    count (`step.count`) folds into every slice's seed. With a distributed
+    optimizer over W > 1 ranks, `batch` is this rank's rows and the step
+    is data-parallel (module docstring)."""
     _check_task(task)
     params = optimizer.params
+    rank, world = getattr(optimizer, "rank", 0), getattr(optimizer,
+                                                         "world", 1)
 
     def step(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         for p in params.values():
             p.grad = None
-        metrics = accumulate_grads(model, batch, microbatch,
-                                   derive_seed(seed, step.count), task)
+        if world > 1:
+            metrics = accumulate_grads_dp(model, batch, microbatch,
+                                          derive_seed(seed, step.count),
+                                          task, rank, world)
+        else:
+            metrics = accumulate_grads(model, batch, microbatch,
+                                       derive_seed(seed, step.count), task)
         metrics["grad_norm"] = optimizer.step(
             {n: p.grad for n, p in params.items()})
         step.count += 1
@@ -193,20 +277,40 @@ def vae_loss(model, mel: torch.Tensor, seed: int,
 def make_vae_step(model, optimizer, seed: int = 0) -> Callable:
     """step(batch, eps=None) -> metrics; one optimizer update per call on
     batch["mel"] [B, T, n_mels]. The step count (`step.count`) folds into
-    the seed; `eps` injects the reparameterization noise."""
+    the seed; `eps` injects the reparameterization noise. With a
+    distributed optimizer over W > 1 ranks, `batch` is this rank's rows:
+    each rank's loss counts 1 / W, its draws are its rows of the global
+    batch's, and the metrics are the global batch's."""
     params = optimizer.params
+    rank, world = getattr(optimizer, "rank", 0), getattr(optimizer,
+                                                         "world", 1)
 
     def step(batch: Dict[str, torch.Tensor],
              eps: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
         for p in params.values():
             p.grad = None
-        out = vae_loss(model, batch["mel"], derive_seed(seed, step.count),
-                       eps)
-        out["loss"].backward()
+        with row_shard(rank, world):
+            out = vae_loss(model, batch["mel"],
+                           derive_seed(seed, step.count), eps)
+            (out["loss"] / world if world > 1 else out["loss"]).backward()
         metrics = {k: out[k].detach() for k in VAE_LOSSES}
         with torch.no_grad():  # latent health (reference train_vae.py)
-            metrics["mu_std"] = out["mu"].float().std(unbiased=False)
-            metrics["var_mean"] = torch.exp(out["logvar"].float()).mean()
+            if world > 1:
+                mu = out["mu"].float()
+                vec = all_reduce_sum(torch.stack(
+                    [metrics[k].float() for k in VAE_LOSSES]
+                    + [torch.exp(out["logvar"].float()).mean(),
+                       mu.sum(), (mu * mu).sum()]))
+                metrics = dict(zip(VAE_LOSSES, (vec[:5] / world).unbind()))
+                metrics["var_mean"] = vec[5] / world
+                n = mu.numel() * world
+                mean = vec[6] / n
+                metrics["mu_std"] = torch.sqrt(
+                    (vec[7] / n - mean * mean).clamp_min(0.0))
+            else:
+                metrics["mu_std"] = out["mu"].float().std(unbiased=False)
+                metrics["var_mean"] = torch.exp(
+                    out["logvar"].float()).mean()
         metrics["grad_norm"] = optimizer.step(
             {n: p.grad for n, p in params.items()})
         step.count += 1

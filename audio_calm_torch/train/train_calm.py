@@ -24,6 +24,18 @@ step per task, the plain forward) and best-model retention follow the
 training section. At the end the components are written to
 `<output_dir>/components` in the reference layout (the server's
 `--components` reads it).
+
+`--distributed` (scripts/train_calm.py's flag): one process per device
+over torch.distributed, from torchrun's variables (parallel/mesh.
+init_distributed_from_env; NCCL on cuda:LOCAL_RANK, gloo with `--device
+cpu`): the global batch is per_device_train_batch_size x the world size,
+each rank loads its rows of every batch (the collator's process_index
+slice; packing from header metadata), and the steps are data-parallel with
+ZeRO-2 (train/steps.py, train/optim.AdamW), the same run as one process
+over the global batches. Each microbatch slice (global rows / microbatch
+steps) must divide by the world size. Rank 0 alone logs and writes the
+checkpoints and the components; every rank needs the same
+training.output_dir (a shared directory), where a resumed run reads them.
 """
 
 from __future__ import annotations
@@ -46,6 +58,9 @@ from audio_calm_torch.data.prefetch import prefetch
 from audio_calm_torch.data.tokenizer import load_tokenizer
 from audio_calm_torch.models.calm import QwenCALM
 from audio_calm_torch.models.flagship import random_normal_
+from audio_calm_torch.parallel.mesh import (barrier, finish_distributed,
+                                            init_distributed_from_env,
+                                            is_primary, rank_world)
 from audio_calm_torch.train.checkpoint import (COMPONENTS,
                                                load_qwen2_backbone,
                                                save_components, soft_restart)
@@ -85,6 +100,9 @@ def parse_args(argv=None):
     p.add_argument("--device", default=None,
                    help="torch device; default the CUDA card ('cpu' only "
                         "when asked)")
+    p.add_argument("--distributed", action="store_true",
+                   help="one process per device from torchrun's variables "
+                        "(NCCL; gloo with --device cpu)")
     return p.parse_args(argv)
 
 
@@ -178,7 +196,9 @@ def train(argv=None) -> TrainRun:
     if t.frozen_weights_dtype not in ("float32", "bfloat16"):
         raise ValueError(
             f"unknown frozen_weights_dtype {t.frozen_weights_dtype!r}")
-    device = resolve_device(args.device)
+    device = (init_distributed_from_env(args.device) if args.distributed
+              else resolve_device(args.device))
+    rank, world = rank_world()
     tokenizer = load_tokenizer(m, byte_fallback=args.byte_tokenizer)
     tasks = [task for task in ("tts", "asr")
              if d.task_mode in (task, "mix")]
@@ -192,7 +212,7 @@ def train(argv=None) -> TrainRun:
     print(f"dataset: {len(ds.tts_items)} tts + {len(ds.asr_items)} asr "
           "items")
 
-    global_bs = t.per_device_train_batch_size
+    global_bs = t.per_device_train_batch_size * world
     total_steps = args.max_steps or int(
         max(len(ds) // global_bs, 1) * t.num_train_epochs)
     rows = {"tts": d.tts_pack_rows, "asr": d.asr_pack_rows}
@@ -204,6 +224,11 @@ def train(argv=None) -> TrainRun:
             raise ValueError(f"data.{task}_pack_rows={rows[task]} must be "
                              "divisible by microbatch_steps = "
                              f"{k_of[task]}")
+        slice_rows = (rows[task] if pack[task] else global_bs) // max(
+            k_of[task], 1)
+        if world > 1 and task in tasks and slice_rows % world:
+            raise ValueError(f"{task}: a microbatch slice of {slice_rows} "
+                             f"rows does not split over {world} ranks")
     epochs_arg, loop_cap = None, total_steps
     if not args.max_steps and (pack["asr"] or pack["tts"]):
         spe = 0
@@ -235,11 +260,13 @@ def train(argv=None) -> TrainRun:
     n_froz = sum(p.numel() for p in model.parameters()) - n_train
     print(f"trainable: {n_train / 1e6:.2f}M | frozen: {n_froz / 1e6:.2f}M | "
           f"steps: {total_steps} | global batch: {global_bs} | device: "
-          f"{device}")
+          f"{device}" + (f" | rank {rank} of {world}" if args.distributed
+                         else ""))
     # one optimizer for every task's step: the loop sets each step's count
     # to the global step, so the update count and the MultiSteps
     # accumulation run across tasks
-    opt = AdamW(trainable, labels, t, total_steps)
+    opt = AdamW(trainable, labels, t, total_steps,
+                distributed=args.distributed)
     step_task = {task: task + "_packed" if pack[task] else task
                  for task in tasks}
     steps = {step_task[task]: make_calm_step(model, opt, step_task[task],
@@ -266,8 +293,10 @@ def train(argv=None) -> TrainRun:
 
     peak = device_peak_flops(device)
     for task in steps:
-        fl = step_flops(dict(_fake_max_batch(cfg, task, global_bs),
-                             task=task))
+        # this rank's rows of a batch at the largest grid
+        fake = _fake_max_batch(cfg, task, global_bs)
+        fl = step_flops(dict({k: v[:len(v) // world]
+                              for k, v in fake.items()}, task=task))
         line = (f"{task} step: {fl / 1e12:.2f} TFLOPs at max grid"
                 if fl >= 1e11 else
                 f"{task} step: {fl / 1e9:.2f} GFLOPs at max grid")
@@ -318,21 +347,25 @@ def train(argv=None) -> TrainRun:
             asr_pack_segments=d.asr_pack_segments,
             tts_pack_rows=d.tts_pack_rows if pack["tts"] else 0,
             tts_pack_len=d.tts_pack_len,
-            tts_pack_segments=d.tts_pack_segments))
+            tts_pack_segments=d.tts_pack_segments,
+            process_index=rank, process_count=world))
 
     history = run_training(None, batches, t, loop_cap, optimizer=opt,
                            eval_fn=eval_fn, batch_filter=batch_filter,
                            step_selector=lambda raw: steps[raw["task"]],
                            step_flops=step_flops, device=device)
     out_dir = os.path.join(t.output_dir, "components")
-    save_components(model, out_dir)
-    print(f"saved components to {out_dir}")
+    if is_primary():
+        save_components(model, out_dir)
+        print(f"saved components to {out_dir}")
+    barrier()
     return TrainRun(model, opt, history, total_steps, loop_cap, out_dir,
                     steps, batches, batch_filter, step_flops)
 
 
 def main(argv=None) -> int:
     train(argv)
+    finish_distributed()
     return 0
 
 

@@ -24,7 +24,16 @@ the same `vae_config.json` sidecar beside it. The port's
 `models/vae.load_vae` reads that file, and so does the JAX package's
 `load_vae` (its torch-file branch).
 
-Not ported: `--distributed` (multi-host, ROADMAP Queue 1 item 8).
+`--distributed`: one process per device over torch.distributed, from
+torchrun's variables (parallel/mesh.init_distributed_from_env; NCCL on
+cuda:LOCAL_RANK, gloo with `--device cpu`), as the JAX script's
+multi-process runs: the global batch is per_device_train_batch_size x the
+world size, each rank loads its rows (`mel_batch_iterator`'s
+process_index slice) and the step is data-parallel with ZeRO-2
+(train/optim.AdamW), the same run as one process over the global batches.
+Rank 0 alone logs and writes the checkpoints and `vae.bin`; every rank
+needs the same training.output_dir (a shared directory), where a resumed
+run reads them.
 """
 
 from __future__ import annotations
@@ -47,6 +56,10 @@ from audio_calm_torch.data.prefetch import prefetch
 from audio_calm_torch.models.convert import to_jax_params
 from audio_calm_torch.models.convert_export import export_vae
 from audio_calm_torch.models.vae import AcousticVAE, init_vae_
+from audio_calm_torch.parallel.mesh import (barrier, finish_distributed,
+                                            init_distributed_from_env,
+                                            is_primary, rank_world,
+                                            shard_host_batch)
 from audio_calm_torch.train.loop import run_training
 from audio_calm_torch.train.optim import AdamW, param_labels, vae_param_label
 from audio_calm_torch.train.steps import (backward_flops, make_vae_step,
@@ -83,7 +96,8 @@ def parse_args(argv=None):
                    help="torch device; default the CUDA card ('cpu' only "
                         "when asked)")
     p.add_argument("--distributed", action="store_true",
-                   help="multi-host (not ported: ROADMAP Queue 1 item 8)")
+                   help="one process per device from torchrun's variables "
+                        "(NCCL; gloo with --device cpu)")
     return p.parse_args(argv)
 
 
@@ -104,19 +118,18 @@ def export(model: AcousticVAE, cfg: VAEConfig, output_dir: str) -> str:
 
 def train(argv=None) -> VAERun:
     args = parse_args(argv)
-    if args.distributed:
-        raise NotImplementedError("train_vae --distributed (multi-host) is "
-                                  "not ported yet (ROADMAP Queue 1 item 8)")
     cfg = load_config(args.config, cls=VAEConfig, overrides=args.override)
     t, d = cfg.training, cfg.data
-    device = resolve_device(args.device)
+    device = (init_distributed_from_env(args.device) if args.distributed
+              else resolve_device(args.device))
+    rank, world = rank_world()
 
     train_ds = MelDataset(d.data_dir, d.train_subsets, d.crop_size,
                           training=True)
     if len(train_ds) == 0:
         raise FileNotFoundError(f"no training data under {d.data_dir}")
     print(f"train files: {len(train_ds)}")
-    global_bs = t.per_device_train_batch_size
+    global_bs = t.per_device_train_batch_size * world
     steps_per_epoch = max(len(train_ds) // global_bs, 1)
     total_steps = args.max_steps or int(steps_per_epoch * t.num_train_epochs)
 
@@ -124,14 +137,16 @@ def train(argv=None) -> VAERun:
         model = AcousticVAE(cfg.model)
     init_vae_(model, seed=t.seed)
     params = dict(model.named_parameters())
-    opt = AdamW(params, param_labels(model, vae_param_label), t, total_steps)
+    opt = AdamW(params, param_labels(model, vae_param_label), t, total_steps,
+                distributed=args.distributed)
     step = make_vae_step(model, opt, seed=t.seed)
     n_params = sum(p.numel() for p in params.values())
     print(f"params: {n_params / 1e6:.2f}M | total steps: {total_steps} | "
-          f"global batch: {global_bs} | device: {device}")
+          f"global batch: {global_bs} | device: {device}"
+          + (f" | rank {rank} of {world}" if args.distributed else ""))
 
-    # the step's FLOPs, counted once on a batch of its shape
-    mel0 = torch.zeros(global_bs, d.crop_size, cfg.model.in_channels,
+    # the step's FLOPs, counted once on a batch of its (this rank's) shape
+    mel0 = torch.zeros(global_bs // world, d.crop_size, cfg.model.in_channels,
                        device=device)
     step_fl = backward_flops(model, lambda: vae_loss(model, mel0,
                                                      t.seed)["loss"])
@@ -141,7 +156,7 @@ def train(argv=None) -> VAERun:
           + (f" ({step_fl / peak * 1e3:.2f} ms at peak)" if peak else ""))
 
     def batch_filter(raw):
-        return {"mel": torch.from_numpy(raw["mel"]).to(device)}
+        return shard_host_batch(raw, device)
 
     eval_fn = None
     if d.eval_data_dir:
@@ -166,19 +181,24 @@ def train(argv=None) -> VAERun:
         # the seed folds in the resume step: no epoch-head replay
         return prefetch(mel_batch_iterator(
             train_ds, global_bs, training=True,
-            seed=t.seed + 1_000_003 * start_step))
+            seed=t.seed + 1_000_003 * start_step, process_index=rank,
+            process_count=world))
 
     history = run_training(step, batches, t, total_steps, optimizer=opt,
                            eval_fn=eval_fn, batch_filter=batch_filter,
                            step_flops=lambda raw: step_fl, device=device)
-    path = export(model, cfg, t.output_dir)
-    print(f"saved final VAE params to {path}")
+    path = os.path.join(t.output_dir, "vae.bin")
+    if is_primary():
+        export(model, cfg, t.output_dir)
+        print(f"saved final VAE params to {path}")
+    barrier()
     return VAERun(model, opt, history, total_steps, path, step, batches,
                   batch_filter, step_fl)
 
 
 def main(argv=None) -> int:
     train(argv)
+    finish_distributed()
     return 0
 
 

@@ -154,6 +154,28 @@ Phases, in order; any failure exits non-zero and prints no result:
      products' cost against cuBLAS, in turns: the served pair's group
      (wall, device ms), its B = 1 encode and the flagship's ODE (device
      ms);
+  5m. (after 5l) the evaluation, sanity and demo entry points at
+     configs/calm.yaml's width on a synthetic store of 2 ASR and 2 TTS
+     items (seeded weights, the byte tokenizer, Griffin-Lim): `python -m
+     audio_calm_torch.eval.eval_calm`'s main with its device defaulted
+     (the CSV, one wav a TTS item of n x 1024 samples, its transcripts
+     those of CALMInference.asr called directly with the same seeds),
+     diagnostics/sanity_checks (every verdict line; its exit code follows
+     them) and serving/web_demo's two callbacks through a stub gradio;
+     launches and walls;
+  5n. the TP + DP engine: calm.yaml's served model on a (data 2, model 2)
+     mesh of four cuda:0 entries (serving/server.make_engine with an
+     explicit device list), bf16 and int8 LLM weights: a B = 2 TTS group
+     and a B = 2 ASR group against the one-device engine (the encode's
+     hidden state within 2e-2 and the latents within 0.1 relative; ids
+     margin-aware), each dp-split row against the request alone on the
+     mesh (bit for bit), K4 and A1 launches at the split shapes;
+  5o. `--distributed` in one NCCL rank (WORLD_SIZE=1): train_calm at
+     configs/tts.yaml's width with 2 LLM layers for 3 steps and train_vae
+     at configs/vae.yaml's width (B = 32 crops) for 2 steps, each against
+     the same run without the flag (every loss term and grad_norm within
+     1e-5 relative), the ZeRO optimizer's collectives over NCCL; each of
+     5m-5o prints its wall beside the card's name and power limit;
   6. per kernel: its launches on its main path, its device time per launch
      at main-path shapes, the bound, the plain version's and the library
      call's device time (the batch-invariant product: at GEMM_ROWS, its
@@ -4153,6 +4175,452 @@ def phase_invariance_cost(card):
     return out
 
 
+
+# ---------------------------------------------------------------------------
+# 5m-5o: eval / sanity / demo entry points, the TP + DP engine, and
+# distributed training in one rank
+# ---------------------------------------------------------------------------
+EVAL_STORE = ["--asr-n", "2", "--tts-n", "2", "--dev-n", "2", "--seed", "8"]
+
+
+def calm_yaml_argv(store, *extra):
+    """configs/calm.yaml with the byte tokenizer, the seeded random VAE
+    and the dev split of `store` as both evaluation datasets (and the
+    training TTS data the sanity check reads), then `extra`."""
+    argv = ["--config", "configs/calm.yaml", "--byte-tokenizer"]
+    for ov in ("model.vae_path=null", "model.qwen_path=null",
+               f"evaluation.datasets.asr.latent_dir={store}/dev/LibriSpeech",
+               "evaluation.datasets.asr.subsets=dev-clean",
+               f"evaluation.datasets.tts.latent_dir={store}/dev/LibriTTS_R",
+               "evaluation.datasets.tts.subsets=dev-clean",
+               f"data.datasets.tts.latent_dir={store}/dev/LibriTTS_R",
+               "data.datasets.tts.subsets=dev-clean", *extra):
+        argv += ["--override", ov]
+    return argv
+
+
+def launches():
+    """The attention forward's (K3/K4) and the batch-invariant product's
+    (A1) launch counters."""
+    from audio_calm_torch.ops.attention_kernel import attention_fwd
+    from audio_calm_torch.ops.gemm_kernel import linear as gemm_linear
+
+    return {"attention_fwd": attention_fwd.launches,
+            "gemm": gemm_linear.launches}
+
+
+def zero_launches():
+    from audio_calm_torch.ops.attention_kernel import attention_fwd
+    from audio_calm_torch.ops.gemm_kernel import linear as gemm_linear
+
+    attention_fwd.launches = gemm_linear.launches = 0
+
+
+def phase_entry_points(card, smi):
+    """5m: configs/calm.yaml's width through the port's eval_calm,
+    sanity_checks and web_demo on a synthetic store of 2 ASR and 2 TTS
+    items (seeded weights, the byte tokenizer, Griffin-Lim): eval_calm
+    with its device defaulted writes the CSV and one wav a TTS item (a
+    multiple of 1024 samples) and its transcripts are those of
+    CALMInference.asr called directly with the same seeds; sanity_checks
+    prints every verdict line (its exit code follows them); web_demo's
+    two callbacks run through a stub gradio. Launches and walls of each."""
+    import contextlib as cl
+    import csv
+    import io
+    import types
+    import wave
+
+    from audio_calm_torch.config import CALMConfig, load_config
+    from audio_calm_torch.data import synth_corpus
+    from audio_calm_torch.data.datasets import load_array, scan_corpus
+    from audio_calm_torch.data.tokenizer import load_tokenizer
+    from audio_calm_torch.diagnostics import sanity_checks
+    from audio_calm_torch.eval import eval_calm
+    from audio_calm_torch.eval.infer import CALMInference, chunk_seed
+    from audio_calm_torch.eval.metrics import normalize_text
+    from audio_calm_torch.serving import web_demo
+
+    out, walls = {"card": smi}, {}
+    tmp = tempfile.mkdtemp(prefix="entry_points_")
+    try:
+        store = os.path.join(tmp, "store")
+        check(synth_corpus.main(["--out", store] + EVAL_STORE) == 0,
+              "synthetic store")
+        res = os.path.join(tmp, "eval")
+        argv = calm_yaml_argv(store, f"evaluation.output_dir={res}",
+                              "evaluation.max_samples=2")
+        zero_launches()
+        buf = io.StringIO()
+        with cl.redirect_stdout(buf):
+            rc, walls["eval_calm_s"] = synced(lambda: eval_calm.main(argv))
+        text = buf.getvalue()
+        out["eval_calm_launches"] = launches()
+        log("  eval_calm: " + " | ".join(text.strip().splitlines()))
+        check(rc == 0 and "vocoder: GriffinLimVocoder" in text
+              and "wrote 2 wavs" in text, "eval_calm ran on the card")
+        with open(os.path.join(res, "asr_results.csv")) as f:
+            rows = list(csv.reader(f))
+        check(rows[0] == ["id", "ref", "pred", "wer", "cer"]
+              and len(rows) == 3, "eval_calm's asr_results.csv")
+        lens = []
+        for i in range(2):
+            with wave.open(os.path.join(res, "tts_wavs",
+                                        f"tts_{i:04d}.wav")) as w:
+                lens.append(w.getnframes())
+        check(all(n > 0 and n % 1024 == 0 for n in lens),
+              f"eval_calm's wavs are multiples of 1024 samples ({lens})")
+        out["tts_wav_samples"] = lens
+        # the CSV's transcripts against CALMInference.asr on the card
+        cfg = load_config("configs/calm.yaml", cls=CALMConfig,
+                          overrides=argv[4::2])
+        e = cfg.evaluation
+        inf = CALMInference(eval_calm.build_model(cfg, card),
+                            load_tokenizer(cfg.model, byte_fallback=True),
+                            audio_buckets=e.audio_buckets,
+                            text_buckets=e.text_buckets)
+        items = scan_corpus(e.datasets["asr"].latent_dir,
+                            e.datasets["asr"].subsets, "asr")[:2]
+        direct = [normalize_text(inf.asr(
+            load_array(it["file_path"], expected_dim=cfg.model.latent_dim),
+            chunk_seed(e.seed, i), steps=e.asr_steps,
+            cfg_scale=e.asr_cfg_scale, method=e.ode_method,
+            time_schedule=e.time_schedule)) for i, it in enumerate(items)]
+        check([r[2] for r in rows[1:]] == direct,
+              "eval_calm's transcripts are CALMInference.asr's")
+        del inf
+        torch.cuda.empty_cache()
+
+        zero_launches()
+        buf = io.StringIO()
+        with cl.redirect_stdout(buf):
+            rc, walls["sanity_checks_s"] = synced(lambda: sanity_checks.main(
+                calm_yaml_argv(store) + [
+                    "--latent-audit", os.path.join(store, "dev"),
+                    "--vae-upper-bound", os.path.join(store, "dev",
+                                                      "LibriTTS_R"),
+                    "--out-dir", os.path.join(tmp, "sanity"),
+                    "--max-batches", "1"]))
+        text = buf.getvalue()
+        out["sanity_checks_launches"] = launches()
+        log("  sanity_checks: " + " | ".join(text.strip().splitlines()))
+        lines = ("[latent audit] ", "[vae upper bound] decoded ",
+                 "[flow check] ", "[len predictor] rel err mean=")
+        check(all(line in text for line in lines),
+              "sanity_checks printed every verdict line")
+        check(rc == (1 if "FAIL" in text else 0),
+              f"sanity_checks' exit code follows its verdicts ({rc})")
+        out["sanity_checks_rc"] = rc
+        torch.cuda.empty_cache()
+
+        registry = {"clicks": []}
+        gr = types.ModuleType("gradio")
+
+        class Widget:
+            def __init__(self, *a, **k):
+                pass
+
+            def __enter__(self):
+                return self
+
+            def __exit__(self, *a):
+                return False
+
+            def click(self, fn, inputs, outputs):
+                registry["clicks"].append(fn)
+
+            def launch(self, **kw):
+                registry["launched"] = kw
+
+        for name in ("Markdown", "Tab", "Textbox", "Slider", "Audio",
+                     "Button", "Blocks"):
+            setattr(gr, name, Widget)
+        saved = sys.modules.get("gradio")
+        sys.modules["gradio"] = gr
+        try:
+            rc, walls["web_demo_build_s"] = synced(lambda: web_demo.main(
+                calm_yaml_argv(store)[:3] + ["--override",
+                                             "model.vae_path=null"]))
+        finally:
+            if saved is None:
+                sys.modules.pop("gradio", None)
+            else:
+                sys.modules["gradio"] = saved
+        check(rc == 0 and len(registry["clicks"]) == 2
+              and "launched" in registry, "web_demo built on the card")
+        tts_fn, asr_fn = registry["clicks"]
+        zero_launches()
+        (sr, wav), walls["web_demo_tts_s"] = synced(
+            lambda: tts_fn("The demo speaks on the card.", 12, 2.5))
+        out["web_demo_tts_launches"] = launches()
+        check(sr == 16000 and wav.dtype == np.int16 and len(wav) > 0
+              and len(wav) % 1024 == 0, "web_demo's TTS callback")
+        zero_launches()
+        transcript, walls["web_demo_asr_s"] = synced(
+            lambda: asr_fn((16000, wav), 10))
+        out["web_demo_asr_launches"] = launches()
+        check(isinstance(transcript, str), "web_demo's ASR callback")
+        out["web_demo_tts_samples"] = len(wav)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["walls_s"] = walls
+    log("  entry points " + json.dumps(out))
+    return out
+
+
+def mesh_asr_states(models):
+    """Record the ODE state each model hands search_nearest_tokens (a
+    mesh engine's replicas in data-row order) -> (the list, restore)."""
+    seen = []
+    originals = []
+    for m in models:
+        orig = m.search_nearest_tokens
+        originals.append((m, "search_nearest_tokens" in vars(m), orig))
+
+        def rec(x, orig=orig):
+            seen.append(x.detach().clone())
+            return orig(x)
+
+        m.search_nearest_tokens = rec
+
+    def restore():
+        for m, own, orig in originals:
+            if own:
+                m.search_nearest_tokens = orig
+            else:
+                del m.search_nearest_tokens
+
+    return seen, restore
+
+
+def phase_mesh_engine(card, smi):
+    """5n: configs/calm.yaml's served model on a (data 2, model 2) mesh of
+    four cuda:0 entries (make_engine with an explicit device list; the
+    server's own --dp 2 --tp 2 asks for four cards and raises here),
+    bf16, then int8 LLM weights: a B = 2 TTS group and a B = 2 ASR group
+    against the one-device engine on the same model (the encode's hidden
+    state within 2e-2 and the latents within 0.1 relative, phase 5h's
+    bf16 bounds; ASR ids margin-aware), each dp-split row against the
+    same request alone on the mesh (latents and ids bit for bit), and the
+    launches of K4 and A1 at the split shapes (6 q / 1 kv heads a shard;
+    q/k/v, gate/up and o/down products at half their columns or rows)."""
+    import copy
+    import gc
+
+    from audio_calm_torch.config import load_config
+    from audio_calm_torch.data.tokenizer import load_tokenizer
+    from audio_calm_torch.models.quant import quantize_llm_int8
+    from audio_calm_torch.parallel.infer_shard import TPAttention, TPMLP
+    from audio_calm_torch.parallel.mesh import make_mesh, serving_devices
+    from audio_calm_torch.serving import server
+
+    args = server.parse_args(SERVE_ARGV + ["--dp", "2", "--tp", "2"])
+    check((args.dp, args.tp) == (2, 2), "the server takes --dp and --tp")
+    if torch.cuda.device_count() < 4:
+        try:
+            serving_devices(4)
+            check(False, "a 4-device mesh on fewer cards raises")
+        except ValueError:
+            pass
+    cfg = load_config(args.config, overrides=args.override)
+    e = cfg.evaluation
+    tok = load_tokenizer(cfg.model, byte_fallback=True)
+    model, vae = server.load_models(cfg, card)
+    mesh = make_mesh(2, 2, [card] * 4)
+    texts, seeds = [t for t, _ in SERVE_PAIR], [s for _, s in SERVE_PAIR]
+    kw = dict(steps=e.steps, cfg_scale=e.cfg_scale, method=e.ode_method,
+              time_schedule=e.time_schedule)
+    rng = np.random.default_rng(5)
+    lats = [rng.standard_normal((n, cfg.model.latent_dim)).astype(np.float32)
+            for n in (300, 180)]
+    aseeds = [21, 22]
+    akw = dict(steps=e.asr_steps, cfg_scale=e.asr_cfg_scale,
+               method=e.ode_method, time_schedule=e.time_schedule)
+    out = {"card": smi, "mesh": mesh.shape}
+
+    def rel(a, b):
+        return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-12))
+
+    for variant in ("bf16", "int8"):
+        if variant == "int8":
+            model = copy.deepcopy(model)
+            check(quantize_llm_int8(model) == 196, "196 int8 projections")
+        one = server.make_engine(cfg, model, vae, tok, card)
+        (meshed, build_s) = synced(lambda: server.make_engine(
+            cfg, model, vae, tok, card, mesh))
+        rep = meshed.inf.replicas
+        check(len(rep) == 2 and all(
+            isinstance(layer.self_attn, TPAttention)
+            and isinstance(layer.mlp, TPMLP)
+            and layer.self_attn.shards[0].cfg.num_attention_heads == 6
+            and layer.self_attn.shards[0].cfg.num_key_value_heads == 1
+            for r in rep for layer in r.llm.layers),
+            "every Qwen2 layer of both replicas split 6 / 1 heads a shard")
+        res = {"mesh_build_s": build_s}
+        with torch.inference_mode():
+            ids = torch.as_tensor(one.inf._prompt_arrays(texts[0])[0],
+                                  device=card)
+            h1 = one.inf.model.encode_text_for_tts(ids, torch.ones_like(ids))
+            hm = rep[1].encode_text_for_tts(ids, torch.ones_like(ids))
+            res["encode_rel"] = rel(hm[1].float().cpu().numpy(),
+                                    h1[1].float().cpu().numpy())
+            zero_launches()
+            la, na, ga = one.inf.tts_batch(texts, seeds, **kw)
+            res["one_device_tts_launches"] = launches()
+            zero_launches()
+            (lb, nb, gb), res["mesh_tts_s"] = synced(
+                lambda: meshed.inf.tts_batch(texts, seeds, **kw))
+            res["mesh_tts_launches"] = launches()
+            check((na, ga) == (nb, gb), f"the mesh group's lengths and grid "
+                  f"({nb}, {gb}) are the one-device engine's ({na}, {ga})")
+            res["tts_latents_rel"] = rel(lb, la)
+            solo = [meshed.inf.tts_batch([t], [s], **kw)
+                    for t, s in zip(texts, seeds)]
+            res["tts_rows_bit_equal_solo"] = [
+                bool(g == gb and np.array_equal(l[0], lb[i]))
+                for i, (l, n, g) in enumerate(solo)]
+            res["tts_solo_grids"] = [g for _, _, g in solo]
+
+            seen1, restore1 = mesh_asr_states([one.inf.model])
+            zero_launches()
+            ids1, q1 = one.inf._asr_ids(lats, aseeds, **akw)
+            res["one_device_asr_launches"] = launches()
+            restore1()
+            seen2, restore2 = mesh_asr_states(rep)
+            zero_launches()
+            (ids2, q2), res["mesh_asr_s"] = synced(
+                lambda: meshed.inf._asr_ids(lats, aseeds, **akw))
+            res["mesh_asr_launches"] = launches()
+            restore2()
+            check(np.array_equal(q1, q2), "the ASR query lengths")
+            agree = ids_agreement(
+                torch.cat(seen1), torch.cat(seen2),
+                one.inf.model.embed.embedding, torch.as_tensor(ids1),
+                torch.as_tensor(ids2))
+            res["asr_ids_checked_agreeing_total_bad"] = agree
+            check(agree[3] == 0, "the mesh's ASR ids agree wherever the "
+                  "margin decides them")
+            solo_ids = [meshed.inf._asr_ids([x], [s], **akw)[0][0]
+                        for x, s in zip(lats, aseeds)]
+            res["asr_rows_equal_solo"] = [
+                bool(np.array_equal(solo_ids[i], ids2[i])) for i in range(2)]
+        log(f"  mesh engine ({variant}): " + json.dumps(res))
+        check(res["encode_rel"] < 2e-2, f"{variant} mesh encode within 2e-2")
+        check(res["tts_latents_rel"] < 0.1,
+              f"{variant} mesh latents within 0.1")
+        check(all(res["tts_rows_bit_equal_solo"][i]
+                  for i in range(2) if res["tts_solo_grids"][i] == gb)
+              and res["tts_solo_grids"][0] == gb,
+              "a dp-split TTS row is the request alone on the mesh, bit "
+              "for bit")
+        check(all(res["asr_rows_equal_solo"]),
+              "each dp-split ASR row has the ids of the request alone")
+        check(res["mesh_tts_launches"]["gemm"] > 0
+              and res["mesh_asr_launches"]["attention_fwd"] > 0,
+              "the mesh engine launched K4 and A1")
+        out[variant] = res
+        del one, meshed, rep
+        gc.collect()
+        torch.cuda.empty_cache()
+    del model, vae
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+DIST_STORE = ["--asr-n", "0", "--tts-n", "128", "--dev-n", "0", "--seed",
+              "9"]
+DIST_CALM_STEPS, DIST_VAE_STEPS, DIST_LLM_LAYERS = 3, 2, 2
+
+
+def phase_distributed_training(card, smi):
+    """5o: `--distributed` in one rank (WORLD_SIZE=1, NCCL on the card):
+    train_calm on configs/tts.yaml's width with DIST_LLM_LAYERS LLM layers
+    (packed rows, 2 slices) for DIST_CALM_STEPS steps and train_vae on
+    configs/vae.yaml's width (B = 32 crops, not 256) for DIST_VAE_STEPS
+    steps, each against the same run without the flag: every logged loss
+    term and grad_norm equal. The ZeRO optimizer's reduce-scatters and
+    all-gathers run over NCCL; two ranks on one card is not what users
+    run, so the multi-rank proof is tests/test_torch_multiprocess.py on
+    the CPU."""
+    import socket
+
+    from audio_calm_torch.data import synth_corpus
+    from audio_calm_torch.parallel.mesh import finish_distributed
+    from audio_calm_torch.train import train_calm, train_vae
+
+    out, walls = {"card": smi}, {}
+    tmp = tempfile.mkdtemp(prefix="distributed_")
+    env_keys = ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK",
+                "LOCAL_RANK")
+    saved = {k: os.environ.get(k) for k in env_keys}
+    try:
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            port = s.getsockname()[1]
+        os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port),
+                          WORLD_SIZE="1", RANK="0", LOCAL_RANK="0")
+        store = os.path.join(tmp, "store")
+        check(synth_corpus.main(["--out", store] + DIST_STORE) == 0,
+              "synthetic store")
+        mels = os.path.join(tmp, "mels")
+        write_mel_store(mels, card, seed=1)
+
+        def compare(name, runs, keys):
+            recs = [packed_records(o)[0] for o in runs]
+            gap = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-12)
+                      for a, b in zip(*recs) for k in keys if k in b)
+            equal = all(a.get(k) == b.get(k)
+                        for a, b in zip(*recs) for k in keys)
+            out[name] = {"steps": [r["step"] for r in recs[0]],
+                         "losses": [[r["loss"] for r in rs] for rs in recs],
+                         "max_rel_gap": gap, "bit_equal": equal}
+            check([r["step"] for r in recs[0]] == [r["step"] for r in recs[1]]
+                  and len(recs[0]) > 0, f"{name}: the same steps")
+            check(gap <= 1e-5, f"{name}: --distributed losses equal the "
+                  f"plain run's (largest relative gap {gap:.2e})")
+
+        calm_runs = []
+        for flag in (["--distributed"], []):
+            o = os.path.join(tmp, "calm" + "".join(flag))
+            argv = recipe_argv(
+                "configs/tts.yaml", ("tts",), store, o, DIST_CALM_STEPS,
+                f"model.qwen.num_hidden_layers={DIST_LLM_LAYERS}",
+                "training.eval_steps=1000", "training.save_steps=1000",
+                "data.datasets.tts.eval_latent_dir=null") + flag
+            _, walls["train_calm" + "".join(flag) + "_s"] = synced(
+                lambda: train_calm.train(argv))
+            calm_runs.append(o)
+        compare("train_calm", calm_runs, ("loss", "loss_tts", "loss_len",
+                                          "loss_dur", "grad_norm"))
+        vae_runs = []
+        for flag in (["--distributed"], []):
+            o = os.path.join(tmp, "vae" + "".join(flag))
+            argv = vae_argv(mels, o, DIST_VAE_STEPS) + [
+                "--override", "training.per_device_train_batch_size=32",
+                "--override", "data.eval_data_dir=null"] + flag
+            _, walls["train_vae" + "".join(flag) + "_s"] = synced(
+                lambda: train_vae.train(argv))
+            vae_runs.append(o)
+        compare("train_vae", vae_runs, ("loss", "rec_loss", "ssim_loss",
+                                        "stft_loss", "kl_loss", "grad_norm"))
+        import torch.distributed as dist
+
+        out["backend"] = dist.get_backend()
+        check(out["backend"] == "nccl", "the process group is NCCL")
+    finally:
+        finish_distributed()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["walls_s"] = walls
+    log("  distributed training " + json.dumps(out))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card is available", file=sys.stderr)
@@ -4392,6 +4860,29 @@ def main() -> int:
     served_product["invariance_cost"] = phase_invariance_cost(card)
     log(f"phase batch-invariance cost: ok in "
         f"{time.perf_counter() - t0:.1f} s")
+    # 5m. the eval, sanity and demo entry points at calm.yaml's width
+    t0 = time.perf_counter()
+    entry = phase_entry_points(card, smi)
+    log(f"phase entry points: ok in {time.perf_counter() - t0:.1f} s ({smi})")
+    # 5n. the TP + DP engine on a (2, 2) mesh of cuda:0
+    t0 = time.perf_counter()
+    meshed = phase_mesh_engine(card, smi)
+    log(f"phase mesh engine: ok in {time.perf_counter() - t0:.1f} s ({smi})")
+    # 5o. --distributed in one NCCL rank against the plain runs
+    t0 = time.perf_counter()
+    distributed = phase_distributed_training(card, smi)
+    log(f"phase distributed training: ok in "
+        f"{time.perf_counter() - t0:.1f} s ({smi})")
+    gemm = next(k for k in kernels if k["name"] == "gemm")
+    fwd["entry_points_launches"] = {
+        k: v["attention_fwd"] for k, v in entry.items()
+        if k.endswith("_launches")}
+    for name, entry_ in (("attention_fwd", fwd), ("gemm", gemm)):
+        entry_["mesh_engine_launches"] = {
+            f"{variant}_{path}": meshed[variant][f"{path}_launches"][name]
+            for variant in ("bf16", "int8")
+            for path in ("mesh_tts", "one_device_tts", "mesh_asr",
+                         "one_device_asr")}
     log("trained " + json.dumps(trained))
     log("packed_training " + json.dumps(packed))
     log("asr_training " + json.dumps(asr_trained))
@@ -4403,6 +4894,9 @@ def main() -> int:
     log("checkpoint_product " + json.dumps(ckpt_product))
     log("data_prep " + json.dumps(prep))
     log("e2e_proof " + json.dumps(proof))
+    log("entry_points " + json.dumps(entry))
+    log("mesh_engine " + json.dumps(meshed))
+    log("distributed_training " + json.dumps(distributed))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -166,12 +166,13 @@ def test_tts_batch_iterator_matches_jax(store, case):
 
 
 def test_iterator_refuses_what_is_not_ported(store):
-    """Multi-host iteration is not ported and raises; what JAX refuses the
-    port refuses too (no full batch, packed rows too short for a segment)."""
+    """What JAX refuses the port refuses too: a global batch that does not
+    split over the processes, no full batch, packed rows too short for a
+    segment."""
     root, _ = store
     tset, _ = _datasets(root)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        next(tcol.calm_batch_iterator(tset, 4, 0, LAT, process_count=2))
+    with pytest.raises(ValueError, match="not divisible by 3"):
+        next(tcol.calm_batch_iterator(tset, 4, 0, LAT, process_count=3))
     with pytest.raises(ValueError, match="no full batch"):
         next(tcol.calm_batch_iterator(tset, 64, 0, LAT))
     with pytest.raises(ValueError, match="cannot fit"):
@@ -414,8 +415,9 @@ def test_mel_batch_iterator_matches_jax(mel_store, training):
 
 def test_mel_iterator_refuses_an_empty_epoch_and_multi_host():
     """tests/test_data_pipeline.py's empty-epoch check in the port: a
-    training epoch with no full batch raises, eval ends quietly; multi-host
-    iteration is not ported and raises."""
+    training epoch with no full batch raises, eval ends quietly; a
+    multi-host global batch that does not split over the processes
+    raises."""
 
     class _TinyMels:
         crop_size = 16
@@ -433,5 +435,5 @@ def test_mel_iterator_refuses_an_empty_epoch_and_multi_host():
     assert list(tcol.mel_batch_iterator(_TinyMels(), batch_size=8,
                                         training=False, seed=0,
                                         epochs=1)) == []
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        next(tcol.mel_batch_iterator(_TinyMels(), 2, process_count=2))
+    with pytest.raises(ValueError, match="not divisible by 2"):
+        next(tcol.mel_batch_iterator(_TinyMels(), 3, process_count=2))

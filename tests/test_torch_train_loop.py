@@ -614,7 +614,7 @@ def test_train_vae_entry_point_on_cpu(tmp_path, capsys):
             "mu_std", "var_mean", "grad_norm", "samples_per_sec"))
     assert [r["step"] for r in recs if "eval_loss" in r] == [2]
     assert tckpt.make_manager(str(out1), 2).all_steps() == [2, 3]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+    with pytest.raises(RuntimeError, match="torchrun's variables"):
         train_vae.train(argv + ["--distributed"])
 
     run2 = train_vae.train(argv + [

@@ -195,8 +195,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "audio_calm_torch." + ".".join(p.relative_to(pkg).with_suffix("")
                                        .parts).replace(".__init__", "")
         for p in pkg.rglob("*.py"))
-    # the training, vocoder, serving and checkpoint slices' modules and the
-    # kernel wrappers are covered
+    # the training, vocoder, serving, checkpoint, diagnostics and parallel
+    # slices' modules and the kernel wrappers are covered
     for name in ("train.optim", "train.steps", "train.loop", "ops.mas",
                  "ops.flow", "ops.dropout", "ops.attention_kernel",
                  "ops.cuda_build", "ops.mel", "ops.vocoder_kernel",
@@ -208,7 +208,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                  "data.collator", "data.prefetch", "data.synth_corpus",
                  "utils.profiling", "ops.gemm_kernel", "data.preprocess",
                  "data.process_dataset", "data.convert_store",
-                 "eval.metrics", "eval.e2e_demo"):
+                 "eval.metrics", "eval.e2e_demo", "diagnostics.sanity",
+                 "diagnostics.sanity_checks", "eval.eval_calm",
+                 "serving.web_demo", "parallel.mesh", "parallel.tp",
+                 "parallel.infer_shard"):
         assert f"audio_calm_torch.{name}" in modules, name
     from audio_calm_torch.ops import cuda_build
     for src in cuda_build.SOURCES:
