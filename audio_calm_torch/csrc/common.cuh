@@ -1,8 +1,8 @@
 // Device helpers shared by the hand-written kernels: scalar conversions,
-// the shared-memory attribute, 16-byte asynchronous copies (cp.async) and
-// the bf16 tensor-core building blocks (ldmatrix, ldmatrix.trans, mma.sync
-// m16n8k16 with fp32 accumulators, bf16 pair packing). The HiFi-GAN
-// kernels' own tiling sits in vocoder_common.cuh.
+// the shared-memory attribute and the bf16 tensor-core building blocks
+// (ldmatrix, ldmatrix.trans, mma.sync m16n8k16 with fp32 accumulators, bf16
+// pair packing). The HiFi-GAN kernels' own tiling sits in
+// vocoder_common.cuh.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -26,25 +26,6 @@ template <typename K>
 int set_smem(K kern, size_t smem) {
   return (int)cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                    (int)smem);
-}
-
-// 16 bytes global -> shared, asynchronously; `full` false writes 16 zero
-// bytes and reads nothing (gmem must still be a valid address).
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool full) {
-  const uint32_t dst = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem),
-               "r"(full ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// wait until at most N of this thread's committed groups are in flight
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 namespace tc {

@@ -20,7 +20,12 @@ backward is `attention_bwd`. `attention_fwd` itself returns a tensor with
 no gradient on the card, so it refuses inputs that require one. Neither
 kernel has a length limit: K5 streams key and query tiles through its
 rings and keeps one row statistic a query row, sized from T (the TPU's
-512 gate was a limit of its VMEM, and JAX sends longer rows to XLA).
+512 gate was a limit of its VMEM, and JAX sends longer rows to XLA). In
+bf16 K5 runs wgmma products on TMA tiles in a launch of row statistics,
+one of dQ and dK/dV blocks and, where a key tile's work is split, one that
+adds dK/dV's partials in a fixed order; `attention_bwd_plan` chooses from
+the shape and the card's SM count how many blocks share a key tile's work,
+and `attention_bwd_plan_items` mirrors which items each takes.
 
 Head dims the kernels have no instantiation for (d <= 128 outside
 _KERNEL_HEAD_DIMS: d = 24 in the end-to-end proof's Qwen2 and DiT; JAX
@@ -43,6 +48,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
 import math
 from typing import List, NamedTuple, Optional
 
@@ -55,13 +61,17 @@ NEG = -1e30
 _KERNEL_HEAD_DIMS = (32, 48, 64, 96, 128)
 _TILE_ROWS = 64  # query rows of a bf16 tile (one warpgroup product)
 _KEY_TILE = 64  # keys of a streamed tile
-# The plan's thresholds, chosen on an H100 (PERF.md section 6;
-# audio_calm_torch/tools/attention_probe.py --plans times every plan):
+# The plans' thresholds, chosen on an H100 (PERF.md section 6;
+# audio_calm_torch/tools/attention_probe.py and attention_bwd_probe.py
+# --plans time every plan):
 _PACK_T = (128, 512)  # causal GQA rows packed for T in (lo, hi]
 _SPLIT_MIN_WALK = 4  # key split only where a tile walks this many key tiles
 _SPLIT_PROGRAMS = 32  # ... and a batch row has at most this many programs,
 _SPLIT_PROGRAMS_CAUSAL = 192  # or this many where causal
+_BWD_MIN_ITEMS = 6  # the least (query head, query tile) items a dK/dV split
+# takes (the backward's plan)
 _FLASH = "audio_calm_torch.ops.attention_kernel.flash_attention"
+_H100_SMS = 132  # the plan's SM count where no card is asked (the CPU)
 
 
 class FlopTally:
@@ -289,8 +299,8 @@ def candidate_plans(T: int, S: int, Hq: int, Hkv: int, d: int,
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
     """Contiguous, and copied when a contiguous view starts off a 16-byte
-    boundary (the forward's tensor maps and the backward's 16-byte copies
-    need 16-byte aligned rows)."""
+    boundary (the kernels' tensor maps and bulk copies need 16-byte aligned
+    rows)."""
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone(
         memory_format=torch.contiguous_format)
@@ -391,11 +401,95 @@ def attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             per_kv_head(dv).to(v.dtype))
 
 
+class BwdPlan(NamedTuple):
+    """How the bf16 backward tiles one call: `key_tiles` blocks of 64 keys
+    and `query_tiles` of 64 query rows per (head, batch row); `splits`
+    blocks share the (query head, query tile) items of one key tile (of one
+    kv head and batch row), each writing fp32 partials of dK and dV that a
+    last launch adds in split order."""
+    key_tiles: int
+    query_tiles: int
+    splits: int
+
+
+def _bwd_plan(T, S, splits) -> BwdPlan:
+    return BwdPlan(-(-S // _KEY_TILE), -(-T // _TILE_ROWS), splits)
+
+
+def attention_bwd_plan(B: int, T: int, S: int, Hq: int, Hkv: int, d: int,
+                       causal: bool, sms: int = _H100_SMS) -> BwdPlan:
+    """The bf16 backward's plan for one call, from the shape and the card's
+    SM count alone. Key tiles x kv heads x batch rows blocks of dK/dV that
+    leave SMs idle are split: into enough to give every SM a block and,
+    causal, into enough that a split walks no more items than the dQ
+    kernel's longest walk has key tiles (the key tiles near the start see
+    every query tile: split once, they would be the launch's longest
+    chain); but a split takes at least _BWD_MIN_ITEMS of the key tile's
+    items, or its fixed cost (K and V in, fp32 partials out) outweighs
+    them."""
+    plan = _bwd_plan(T, S, 1)
+    units = plan.key_tiles * Hkv * B
+    if units >= sms:
+        return plan
+    items = Hq // Hkv * plan.query_tiles
+    splits = -(-sms // units)
+    if causal:
+        splits = max(splits, -(-items // plan.key_tiles))
+    return plan._replace(splits=max(1, min(items // _BWD_MIN_ITEMS, splits)))
+
+
+def candidate_bwd_plans(B: int, T: int, S: int, Hq: int, Hkv: int, d: int,
+                        causal: bool) -> List[BwdPlan]:
+    """Every plan the bf16 backward takes at this shape up to 16 splits
+    (tools/attention_bwd_probe.py times them)."""
+    items = Hq // Hkv * -(-T // _TILE_ROWS)
+    return [_bwd_plan(T, S, n) for n in (1, 2, 3, 4, 6, 8, 12, 16)
+            if n <= items]
+
+
+def attention_bwd_plan_items(plan: BwdPlan, Hq: int, Hkv: int,
+                             t_lo: int = 0):
+    """The items of one key tile that each split takes, as dkv_kernel
+    assigns them: (query head within the kv head's group, query tile) from
+    query tile t_lo on (`bwd_first_query_tile`), head-major, split s the
+    contiguous range [s n / splits, (s + 1) n / splits) of the n items."""
+    per_head = plan.query_tiles - t_lo
+    n = Hq // Hkv * per_head
+    items = [(i // per_head, t_lo + i % per_head) for i in range(n)]
+    return [items[s * n // plan.splits:(s + 1) * n // plan.splits]
+            for s in range(plan.splits)]
+
+
+def bwd_first_query_tile(T: int, S: int, key_tile: int, causal: bool,
+                         key_valid_row) -> int:
+    """The first query tile whose rows see keys of `key_tile`, as
+    dkv_kernel decides: under the causal mask the rows before key 64
+    key_tile - (S - T) do not, unless query row 0 sees no valid key (then
+    some row is uniform over every key, and every tile counts)."""
+    shift = S - T
+    if not causal or not any(bool(key_valid_row[s])
+                             for s in range(min(shift, S - 1) + 1)):
+        return 0
+    return max(0, key_tile * _KEY_TILE - shift) // _TILE_ROWS
+
+
+def bwd_partial_bytes(plan: BwdPlan, B: int, S: int, Hkv: int,
+                      d: int) -> int:
+    """Bytes of the fp32 dK/dV partials a split plan writes (and its last
+    launch reads once more); 0 with one split (bf16 written directly)."""
+    return 0 if plan.splits == 1 else plan.splits * 2 * B * S * Hkv * d * 4
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _bwd_lib() -> ctypes.CDLL:
     lib = cuda_build.load("attention_bwd")
     if not getattr(lib, "_argtypes_set", False):
         P, I = ctypes.c_void_p, ctypes.c_int
-        lib.attention_bwd.argtypes = [P] * 10 + [I] * 8 + [P]
+        lib.attention_bwd.argtypes = [P] * 11 + [I] * 9 + [P]
         lib.attention_bwd.restype = I
         lib._argtypes_set = True
     return lib
@@ -407,7 +501,15 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   causal: bool = False):
     """Gradients of `attention_fwd` -> (dq, dk, dv), given its inputs, its
     output and the output's gradient. CPU tensors take the plain version;
-    CUDA tensors launch csrc/attention_bwd.cu."""
+    CUDA tensors launch csrc/attention_bwd.cu, bf16 under
+    `attention_bwd_plan`."""
+    return _attention_bwd(q, k, v, out, dout, key_valid, causal, None)
+
+
+def _attention_bwd(q, k, v, out, dout, key_valid, causal,
+                   plan: Optional[BwdPlan]):
+    """`attention_bwd` under `plan` (None: `attention_bwd_plan`'s); another
+    plan only for measurements and tests (tools/attention_bwd_probe.py)."""
     hidden = _tally(q, k, 5)
     if q.device.type == "cpu":
         with hidden:
@@ -417,26 +519,36 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     cuda_build.refuse_autograd("attention_bwd", (q, k, v, out, dout),
                                _FLASH)
     return _pad_head_dim(_launch_bwd, q, k, v, out, dout, key_valid, causal,
-                         grads=True)
+                         plan, grads=True)
 
 
-def _launch_bwd(q, k, v, out, dout, key_valid, causal):
+def _launch_bwd(q, k, v, out, dout, key_valid, causal, plan):
     """One launch of csrc/attention_bwd.cu at a kernel head dim."""
     _check_bwd(q, k, v, out, dout)
     B, T, Hq, d = q.shape
     S, Hkv = k.shape[1], k.shape[2]
+    bf16 = q.dtype == torch.bfloat16
+    if plan is None:
+        plan = attention_bwd_plan(B, T, S, Hq, Hkv, d, causal,
+                                  _sm_count(q.device.index or 0))
+    splits = plan.splits if bf16 else 1  # the fp32 kernels take no plan
     valid = _valid_bytes(key_valid, B, S, q.device)
     q, k, v, out = (_aligned(t) for t in (q, k, v, out))
     dout = _aligned(dout.to(q.dtype))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    # per query row: the softmax max, 1 / sum and delta = rowsum(dO * O)
-    stats = torch.empty(B, Hq, T, 4, dtype=torch.float32, device=q.device)
+    # per query row: the softmax max, 1 / sum and delta = rowsum(dO * O),
+    # rows rounded up to whole query tiles
+    stats = torch.empty(B, Hq, plan.query_tiles * _TILE_ROWS, 4,
+                        dtype=torch.float32, device=q.device)
+    part = (torch.empty(splits, 2, B, S, Hkv, d, dtype=torch.float32,
+                        device=q.device) if splits > 1 else None)
     lib = _bwd_lib()
     status = lib.attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         dout.data_ptr(), valid.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), stats.data_ptr(), int(q.dtype == torch.bfloat16),
-        B, T, S, Hq, Hkv, d, int(causal),
+        dv.data_ptr(), stats.data_ptr(),
+        None if part is None else part.data_ptr(), int(bf16),
+        B, T, S, Hq, Hkv, d, int(causal), splits,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     cuda_build.check(lib, status, "attention_bwd")

@@ -7,11 +7,13 @@ Phases, in order; any failure exits non-zero and prints no result:
   1. the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels (one nvcc per source, in parallel);
   3. each kernel against its plain PyTorch version on the card, at the main
-     paths' shapes, fp32 and bf16 (the attention backward at the Qwen2
-     training shapes of TTS and of plain ASR (461 positions), the DiT
-     self- and cross-attention shapes and the ASR head's (d = 48), and a
-     causal row of T = S = 1024 past the TPU's 512 gate, two launches
-     giving the same bits, the forward also at the ASR path's three shapes
+     paths' shapes, fp32 and bf16 (the attention backward at the seven
+     rows of tools/attention_bwd_probe.ROWS: the Qwen2 training slices of
+     TTS and of plain ASR (461 positions), the DiT self-attention of a
+     training slice and of a distillation student, the students' DiT
+     cross-attention and ASR head (d = 48), and a causal row of T = S =
+     1024 past the TPU's 512 gate, two launches giving the same bits, the
+     forward also at the ASR path's three shapes
      and at T = S = 1024 and 2048, and the flash_attention Function
      against autograd through the plain forward; the resblock kernel at
      C = 12, 24, 48, 96, 128, 256 and k = 3, 7, 11 with a ragged last tile,
@@ -198,14 +200,17 @@ Phases, in order; any failure exits non-zero and prints no result:
      the generators' weights: the kernel alone and the whole wrapper call,
      the plain version and the bound, and on each shape's log line the
      plan (tile, window, ring stages, N split) and the earlier design's
-     time quoted from PERF.md (K6_EARLIER_MS);
+     time quoted from PERF.md (K6_EARLIER_MS); the attention backward at
+     the same seven rows through attention_bwd_probe.time_row: device time
+     a call and per launch (row statistics, dQ, dK/dV, the partials' sum)
+     beside autograd's SDPA backward and the bound, and on a log line the
+     earlier design's time quoted from PERF.md (K5_EARLIER_MS);
   7. the served requests once more under torch.profiler (device activity
      only): the device's busy share, the kernels that take most time and
      the stage kernel's device time;
      then one more training step, the same way, with K5's share of it,
      and one more packed TTS step (its busy share); after phase 5j, one
-     more packed ASR and plain ASR step the same way. Phase 6 times the
-     attention backward also at the distillation students' shapes.
+     more packed ASR and plain ASR step the same way.
 Then the card, one `kernels` JSON line, and as the last line
 {"ok": true, "device": {...}}.
 """
@@ -225,6 +230,10 @@ import time
 import numpy as np
 import torch
 
+from audio_calm_torch.tools.attention_bwd_probe import PASSES as K5_PASSES
+from audio_calm_torch.tools.attention_bwd_probe import ROWS as K5_ROWS
+from audio_calm_torch.tools.attention_bwd_probe import check_row as k5_check_row
+from audio_calm_torch.tools.attention_bwd_probe import time_row as k5_time_row
 from audio_calm_torch.tools.attention_probe import (ROWS, attn_cost,
                                                     row_inputs, time_row)
 from audio_calm_torch.tools.gemm_probe import ROWS as GEMM_ROWS
@@ -286,6 +295,17 @@ K6_EARLIER_MS = {
     ("odd-width C=24", 11): 1.2790,
     ("V1 C=128", 3): 1.4346, ("V1 C=128", 7): 2.9338, ("V1 C=128", 11): 4.9345,
     ("V1 C=256", 3): 1.1018, ("V1 C=256", 7): 1.9982, ("V1 C=256", 11): 4.0990,
+}
+# the attention backward's earlier design (mma.sync on cp.async rings, two
+# sweeps of the keys for the row statistics and dQ, one block per 32 or 64
+# keys) at tools/attention_bwd_probe.ROWS, label -> device ms a call:
+# PERF.md section 6, run K5 (the probe's --old-csrc timing, in one process
+# with the redesign)
+K5_EARLIER_MS = {
+    "Qwen2 training slice": 0.04634, "Qwen2 plain-ASR training slice": 0.20052,
+    "DiT self training slice": 0.25978, "DiT self distillation student": 0.49807,
+    "DiT cross distillation student": 0.21322,
+    "ASR head self distillation student": 0.04208, "causal past 512": 0.48146,
 }
 TRAIN_STEPS = 5
 # configs/asr.yaml, written out by hand: the card's machine has no YAML
@@ -881,120 +901,34 @@ def qwen_train_inputs(B, dt, card, seed=0):
     return q, k, v, dout, valid
 
 
-def dit_train_inputs(B, dt, card, seed=0):
-    """DiT self-attention operands of a dropout-off training slice: q/k/v/
-    dout [B, 384, 16, 64], the audio-frame key mask (48-384 valid frames)."""
-    g = torch.Generator(card).manual_seed(seed)
-    q, k, v, dout = (torch.randn(B, 384, 16, 64, generator=g,
-                                 device=card).to(dt) for _ in range(4))
-    frames = torch.randint(48, 385, (B,), generator=g, device=card)
-    valid = torch.arange(384, device=card)[None, :] < frames[:, None]
-    return q, k, v, dout, valid
-
-
-def attn_inputs(B, T, S, H, d, lo, dt, card, seed=0):
-    """Attention operands q/dout [B, T, H, d], k/v [B, S, H, d] and a key
-    mask with lo..S valid keys a row."""
-    g = torch.Generator(card).manual_seed(seed)
-    q, dout = (torch.randn(B, T, H, d, generator=g, device=card).to(dt)
-               for _ in range(2))
-    k, v = (torch.randn(B, S, H, d, generator=g, device=card).to(dt)
-            for _ in range(2))
-    n = torch.randint(lo, S + 1, (B,), generator=g, device=card)
-    valid = torch.arange(S, device=card)[None, :] < n[:, None]
-    return q, k, v, dout, valid
-
-
-def dit_cross_inputs(B, dt, card, seed=0):
-    """The DiT's cross-attention in a distillation student: 384 audio
-    queries over the 96-position text context (4-96 valid), 16 heads of
-    64 (tts.yaml)."""
-    return attn_inputs(B, 384, 96, 16, 64, 4, dt, card, seed)
-
-
-def asr_head_inputs(B, dt, card, seed=0):
-    """The ASR head's self-attention in a distillation student: 96 queries
-    (10-96 valid), 16 heads of 48 (asr.yaml's 768-wide head)."""
-    return attn_inputs(B, 96, 96, 16, 48, 10, dt, card, seed)
-
-
-def long_causal_inputs(B, dt, card, seed=0):
-    """Causal GQA 12/2 attention operands at T = S = 1024, d = 128, past the
-    TPU's 512 gate (K5 has none): q/dout [B, 1024, 12, 128], k/v [B, 1024,
-    2, 128], 64-1024 valid keys a row."""
-    g = torch.Generator(card).manual_seed(seed)
-    q, dout = (torch.randn(B, 1024, 12, 128, generator=g, device=card).to(dt)
-               for _ in range(2))
-    k, v = (torch.randn(B, 1024, 2, 128, generator=g, device=card).to(dt)
-            for _ in range(2))
-    n = torch.randint(64, 1025, (B,), generator=g, device=card)
-    valid = torch.arange(1024, device=card)[None, :] < n[:, None]
-    return q, k, v, dout, valid
-
-
-def asr_train_inputs(B, dt, card, seed=0):
-    """Qwen2 attention operands of a plain ASR training slice (asr.yaml:
-    B = 16 in 8 slices): q/dout [B, 461, 12, 128], k/v [B, 461, 2, 128]
-    (the 384-frame grid, SOA and the byte tokenizer's 76-token prompt),
-    the [audio frames | pads | SOA | prompt] key mask with mixed audio
-    lengths."""
-    g = torch.Generator(card).manual_seed(seed)
-    T = 384 + 1 + asr_prompt_len()
-    q, dout = (torch.randn(B, T, 12, 128, generator=g, device=card).to(dt)
-               for _ in range(2))
-    k, v = (torch.randn(B, T, 2, 128, generator=g, device=card).to(dt)
-            for _ in range(2))
-    frames = torch.randint(48, 385, (B,), generator=g, device=card)
-    valid = torch.arange(T, device=card)[None, :] < frames[:, None]
-    valid[:, 384:] = True  # SOA and the prompt
-    return q, k, v, dout, valid
-
-
 def phase_attention_bwd(card):
-    """K5 vs its plain version at the Qwen2 training shapes (TTS and plain
-    ASR), the DiT self- and cross-attention shapes and the ASR head's
-    (d = 48, the distillation students'), and a causal row of 1024 past the
-    TPU's 512 gate, fp32 and bf16; two bf16
-    launches give the same bits; the flash_attention Function vs autograd
-    through the plain forward."""
-    from audio_calm_torch.ops.attention_kernel import (attention_bwd,
-                                                       attention_bwd_plain,
-                                                       attention_fwd,
-                                                       attention_fwd_plain,
+    """K5 vs its plain version at the seven rows the training paths launch
+    it at (tools/attention_bwd_probe.ROWS: the Qwen2 slices of tts.yaml and
+    plain asr.yaml, the DiT self-attention of a training slice and of a
+    distillation student, the students' DiT cross-attention and ASR head
+    (d = 48), and a causal row of 1024 past the TPU's 512 gate), fp32 and
+    bf16, under the shipped plan: fp32 within 2e-5 of the largest gradient
+    (summation order over up to 6 heads x S keys), bf16 within 2^-7 (one
+    rounding step); two launches give the same bits; the flash_attention
+    Function vs autograd through the plain forward."""
+    from audio_calm_torch.ops.attention_kernel import (attention_fwd_plain,
                                                        flash_attention)
 
+    asr_row = next(r for r in K5_ROWS if "plain-ASR" in r[0])
+    check(asr_row[2] == 384 + 1 + asr_prompt_len(),
+          "the plain-ASR row is the path's 384 + SOA + prompt positions")
     worst = 0.0
-    cases = [("Qwen2 [16, 97, 12/2, 128]", qwen_train_inputs, 16, True),
-             ("Qwen2 plain ASR [2, 461, 12/2, 128]", asr_train_inputs, 2,
-              True),
-             ("DiT self [4, 384, 16, 64]", dit_train_inputs, 4, False),
-             ("DiT cross [4, 384 / 96, 16, 64]", dit_cross_inputs, 4, False),
-             ("ASR head self [4, 96, 16, 48]", asr_head_inputs, 4, False),
-             ("causal past 512 [2, 1024, 12/2, 128]", long_causal_inputs, 2,
-              True)]
-    for label, inputs, B, causal in cases:
+    for row in K5_ROWS:
         for dt in (torch.float32, torch.bfloat16):
-            q, k, v, dout, valid = inputs(B, dt, card)
-            with torch.no_grad():
-                out = attention_fwd(q, k, v, valid, causal)
-                got = attention_bwd(q, k, v, out, dout, valid, causal)
-                ref = attention_bwd_plain(q, k, v, out, dout, valid, causal)
-                again = attention_bwd(q, k, v, out, dout, valid, causal)
-            check(all(torch.equal(a, b) for a, b in zip(got, again)),
-                  f"attention_bwd {label} {dt}: two launches, same bits")
-            for a, b, name in zip(got, ref, ("dq", "dk", "dv")):
-                a, b = a.float(), b.float()
-                err = (a - b).abs().max().item()
-                # fp32: summation order over up to 6 heads x S keys; bf16:
-                # one rounding step of the largest gradient
-                bound = (2e-5 if dt == torch.float32 else 2 ** -7) * \
-                    b.abs().max().item()
-                log(f"  attention_bwd {label} {name} {str(dt)[6:]}: "
-                    f"max_abs_err {err:.3e} bound {bound:.3e}")
-                check(err <= bound and a.shape == b.shape,
-                      f"attention_bwd {label} {name} {dt}")
+            res = k5_check_row(row, card, dt)  # SystemExit on a failure
+            for name, (err, bound, _) in res["errors"].items():
+                log(f"  attention_bwd {row[0]} {list(row[1:8])} {name} "
+                    f"{str(dt)[6:]}: max_abs_err {err:.3e} bound "
+                    f"{bound:.3e}")
                 if dt == torch.bfloat16:
                     worst = max(worst, err)
+            log(f"  attention_bwd {row[0]} {str(dt)[6:]}: two launches, "
+                f"same bits")
     q, k, v, dout, valid = qwen_train_inputs(4, torch.float32, card, seed=1)
     grads = []
     for fn in (flash_attention, attention_fwd_plain):
@@ -1285,8 +1219,10 @@ def phase_train_profile(probe, step_s):
         log(f"    {1e3 * s_:9.3f} ms {n:6d} calls  {name[:90]}")
     launches = sum(r[2] for r in rows)
     log(f"  device kernels and copies in the step: {launches}")
-    # K5's two passes (csrc/attention_bwd.cu: dq_kernel, dkv_kernel)
-    k5 = [r for r in rows if re.search(r"\bd(q|kv)_kernel<", r[0])]
+    # K5's launches (csrc/attention_bwd.cu: the row statistics, dQ, dK/dV
+    # and the sum of dK/dV's partials)
+    k5 = [r for r in rows if any(re.search(p, r[0])
+                                 for p in K5_PASSES.values())]
     k5_s = sum(r[1] for r in k5)
     check(sum(r[2] for r in k5) > 0, "the profiler saw K5 in the step")
     log(f"  K5 in the step: {1e3 * k5_s:.3f} ms device time in "
@@ -2763,69 +2699,21 @@ def phase_kernel_times(voc, counts, errs, card):
 
 
 def kernel_time_attention_bwd(train_counts, train_steps, errs, card):
-    """K5 at the training path's shape (one Qwen2 layer of one microbatch
-    slice: B=16, bf16, causal, the [text | pads | SOA] key mask), at the
-    plain ASR step's (B=2 of asr.yaml's 16 in 8 slices, 461 positions, the
-    [audio | pads | SOA | prompt] key mask) and at the DiT self-attention
-    shape of a dropout-off training slice (B=16, 384 frames, the
-    audio-frame key mask), and at the distillation students' shapes
-    (tts.yaml's DiT self and cross at B=32, asr.yaml's ASR head self at
-    B=16, d = 48), and at a causal row of 1024 past the TPU's 512 gate:
-    device ms per launch beside the bound, the plain
-    version and autograd's backward of SDPA. The row's top-level numbers
-    are the Qwen2 shape's, the path's K5 launches."""
-    import torch.nn.functional as F
-
-    from audio_calm_torch.ops.attention_kernel import (attention_bwd,
-                                                       attention_bwd_plain,
-                                                       attention_fwd)
-
+    """K5 at the seven rows of tools/attention_bwd_probe.ROWS (one Qwen2
+    layer of a tts.yaml microbatch slice, of a plain asr.yaml slice, the DiT
+    self-attention of a training slice and of a distillation student, the
+    students' DiT cross-attention and ASR head, a causal row of 1024 past
+    the TPU's 512 gate), through `time_row`: device ms a call (the row
+    statistics, dQ, dK/dV and, under a split plan, the partials' sum) and
+    per pass beside the bound, the plain version and autograd's backward of
+    SDPA, and the earlier design's time (K5_EARLIER_MS, quoted, not
+    measured here). The line's top-level numbers are the Qwen2 slice's,
+    the path's K5 launches."""
     rows = []
-    for label, inputs, B, causal in (
-            ("Qwen2 training slice", qwen_train_inputs, 16, True),
-            ("Qwen2 plain-ASR training slice", asr_train_inputs, 2, True),
-            ("DiT self training slice", dit_train_inputs, 16, False),
-            ("DiT self distillation student", dit_train_inputs, 32, False),
-            ("DiT cross distillation student", dit_cross_inputs, 32,
-             False),
-            ("ASR head self distillation student", asr_head_inputs, 16,
-             False),
-            ("causal past 512", long_causal_inputs, 2, True)):
-        q, k, v, dout, valid = inputs(B, torch.bfloat16, card, seed=2)
-        B, T, Hq, d = q.shape
-        S, Hkv = k.shape[1], k.shape[2]
-        with torch.no_grad():
-            out = attention_fwd(q, k, v, valid, causal)
-            bwd = lambda: attention_bwd(q, k, v, out, dout, valid, causal)
-            bwd()
-            _, prof = device_profile(bwd, 50)
-            passes = {f"pass_{name}_ms": 1e3 / 50 * sum(
-                r[1] for r in prof if re.search(rf"\b{kern}_kernel<", r[0]))
-                for name, kern in (("a", "dq"), ("b", "dkv"))}
-            ms = 1e3 / 50 * sum(r[1] for r in prof)
-            plain = device_ms(lambda: attention_bwd_plain(
-                q, k, v, out, dout, valid, causal), 10)
-        mask = valid[:, None, None, :]
-        if causal:
-            mask = mask & torch.ones(T, S, dtype=torch.bool,
-                                     device=card).tril(S - T)
-        leaves = [t.transpose(1, 2).detach().requires_grad_()
-                  for t in (q, k, v)]
-        lib_out = F.scaled_dot_product_attention(
-            *leaves, attn_mask=mask, enable_gqa=Hq != Hkv)
-        g = dout.transpose(1, 2)
-        lib = device_ms(lambda: torch.autograd.grad(lib_out, leaves, g,
-                                                    retain_graph=True), 50)
-        # five products of 2*d per attended (query, key) pair and head;
-        # bytes: q, k, v, o, dO read once, dq, dk, dv written once, the mask
-        flops = 2.5 * attn_cost(q, k, valid, causal)[0]
-        nbytes = (4 * q.numel() + 4 * k.numel()) * 2 + valid.numel()
-        b, by = bound_ms(flops, nbytes)
-        rows.append({"shape": label, "q": [B, T, Hq, d], "kv": [B, S, Hkv, d],
-                     "causal": causal, "ms": ms, **passes, "plain_ms": plain,
-                     "library_ms": lib, "bound_ms": b, "bound_by": by,
-                     "flop": flops, "bytes": nbytes})
-        log("  attention_bwd " + json.dumps(rows[-1]))
+    for row in K5_ROWS:
+        rows.append(k5_time_row(row, card, reps=1))
+        log(f"  attention_bwd {json.dumps(rows[-1])}; earlier design "
+            f"{K5_EARLIER_MS.get(row[0])} ms (PERF.md, run K5)")
     top = rows[0]
     return {
         "name": "attention_bwd", "route": "cuda",
@@ -2833,7 +2721,8 @@ def kernel_time_attention_bwd(train_counts, train_steps, errs, card):
         "replaces": "audio_calm_tpu/ops/pallas_attention.py:306",
         "launches": train_counts["attention_bwd"],
         "launches_per_step": train_counts["attention_bwd"] // train_steps,
-        "max_abs_err": errs["attention_bwd"],
+        "max_abs_err": max(errs["attention_bwd"],
+                           max(r["max_abs_err"] for r in rows)),
         **{key: top[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
                                      "library_ms")},
         "per_launch": "one Qwen2 layer's backward for one microbatch slice: "

@@ -24,12 +24,15 @@ import torch
 from audio_calm_torch.config import HiFiGANConfig
 from audio_calm_torch.models.vocoder import HiFiGANGenerator
 from audio_calm_torch.ops import cuda_build
-from audio_calm_torch.ops.attention_kernel import (_attention_fwd,
+from audio_calm_torch.ops.attention_kernel import (_attention_bwd,
+                                                   _attention_fwd,
                                                    attention_bwd,
                                                    attention_bwd_plain,
+                                                   attention_bwd_plan,
                                                    attention_fwd,
                                                    attention_fwd_plain,
                                                    attention_plan,
+                                                   candidate_bwd_plans,
                                                    candidate_plans,
                                                    flash_attention)
 from audio_calm_torch.ops.vocoder_kernel import (_halo, fused_resblock,
@@ -37,7 +40,7 @@ from audio_calm_torch.ops.vocoder_kernel import (_halo, fused_resblock,
                                                  hifigan_apply_fused,
                                                  stage_plan, vocoder_stage,
                                                  vocoder_stage_plain)
-from audio_calm_torch.tools import gemm_probe
+from audio_calm_torch.tools import attention_bwd_probe, gemm_probe
 from audio_calm_torch.tools.attention_probe import (ROWS, repeat_mismatches,
                                                     row_inputs)
 
@@ -638,6 +641,49 @@ def test_attention_bwd_is_deterministic(card, B, T, S, Hq, Hkv, d, causal):
     second = attention_bwd(q, k, v, out, dout, valid, causal)
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("row", attention_bwd_probe.ROWS,
+                         ids=[r[0] for r in attention_bwd_probe.ROWS])
+def test_attention_bwd_at_training_rows(card, row, dtype):
+    """K5 at the shapes the training paths launch it at (chip_smoke's rows,
+    tools/attention_bwd_probe.ROWS), with their key masks, under the
+    shipped plan: within 2^-7 of the largest gradient in bf16, 2e-4 in fp32
+    (the JAX package's tolerance), and two launches give the same bits."""
+    res = attention_bwd_probe.check_row(row, card, getattr(torch, dtype))
+    assert res["same_bits"]
+    for name, (err, bound, shape_ok) in res["errors"].items():
+        assert shape_ok and err <= bound, (name, err, bound)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [32, 48, 64, 96, 128])
+@pytest.mark.parametrize("T", [96, 97, 461])
+def test_attention_bwd_lengths_off_the_tile(card, T, d, causal):
+    """bf16 K5 at lengths on, just past and far off the 64-row tile, every
+    kernel head dim, causal and not, GQA 4/2 with a key-padded row, under
+    every plan the shape offers: within 2^-7 of the largest gradient."""
+    q, k, v, dout, valid = _bwd_inputs(card, 2, T, T, 4, 2, d,
+                                       torch.bfloat16, 12)
+    out = attention_fwd(q, k, v, valid, causal)
+    ref = attention_bwd_plain(q, k, v, out, dout, valid, causal)
+    for plan in candidate_bwd_plans(2, T, T, 4, 2, d, causal):
+        got = _attention_bwd(q, k, v, out, dout, valid, causal, plan)
+        for a, b in zip(got, ref):
+            a, b = a.float(), b.float()
+            assert (a - b).abs().max().item() <= 2 ** -7 * \
+                b.abs().max().item(), plan
+
+
+def test_attention_bwd_split_plan_repeats_agree(card):
+    """The plain-ASR row's split plan (fp32 partials added in a fixed
+    order; no atomics): 200 launches, each after an L2 flush, give the
+    first launch's bits."""
+    row = next(r for r in attention_bwd_probe.ROWS if "plain-ASR" in r[0])
+    assert attention_bwd_plan(*row[1:8]).splits > 1
+    res = attention_bwd_probe.repeat_row(row, card, 200)
+    assert res["mismatched"] == 0, res
 
 
 def _off_boundary(t):
