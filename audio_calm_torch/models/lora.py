@@ -26,6 +26,30 @@ from audio_calm_torch.models.layers import Linear, product
 from audio_calm_torch.ops.dropout import derive_seed, dropout
 
 
+def base_product(mod: torch.nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """x W^T + b of a projection `mod` (its weight, bias, int8
+    `kernel_scale` and `batch_invariant` switch), in x's dtype."""
+    dt = x.dtype
+    w = mod.weight
+    w = w * mod.kernel_scale.to(dt)[:, None] if w.dtype == torch.int8 \
+        else w.to(dt)
+    return product(mod, x, w, None if mod.bias is None else mod.bias.to(dt))
+
+
+def lora_delta(mod: torch.nn.Module, x: torch.Tensor, a: torch.Tensor,
+               b: torch.Tensor, site: int, train: bool, seed: int,
+               cols=(0, 1)) -> torch.Tensor:
+    """(alpha / r) (drop(x) a) b for the adapter settings of `mod`
+    (`scaling`, `lora_dropout`) with the mask of dropout site `site`; cols
+    (j, n): x is shard j of n's columns of the input, and so is its mask
+    (ops/dropout.draw)."""
+    xa = x
+    if train:
+        xa = dropout(x, mod.lora_dropout, derive_seed(seed, site), cols)
+    h = product(mod, xa, a.to(x.dtype), kn=True)
+    return mod.scaling * product(mod, h, b.to(x.dtype), kn=True)
+
+
 class LoRADense(Linear):
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
                  rank: int = 0, alpha: float = 1.0, lora_dropout: float = 0.0):
@@ -40,20 +64,8 @@ class LoRADense(Linear):
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 seed: int = 0) -> torch.Tensor:
-        if self.weight.dtype == torch.int8:
-            dt = x.dtype
-            w = self.weight * self.kernel_scale.to(dt)[:, None]
-            y = product(self, x, w, None if self.bias is None
-                        else self.bias.to(dt))
-        else:
-            y = super().forward(x)
+        y = base_product(self, x)
         if self.rank > 0:
-            xa = x
-            if train:
-                xa = dropout(x, self.lora_dropout,
-                             derive_seed(seed, self.dropout_site))
-            h = product(self, xa, self.lora_a.to(x.dtype), kn=True)
-            y = y + self.scaling * product(self, h, self.lora_b.to(x.dtype),
-                                           kn=True)
+            y = y + lora_delta(self, x, self.lora_a, self.lora_b,
+                               self.dropout_site, train, seed)
         return y
-

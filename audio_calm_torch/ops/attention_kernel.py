@@ -352,12 +352,13 @@ def _launch_fwd(q, k, v, key_valid, causal, plan) -> torch.Tensor:
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
     out = torch.empty_like(q)
     lib = _attn_lib()
-    status = lib.attention_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(),
-        out.data_ptr(), int(q.dtype == torch.bfloat16), B, T, S, Hq, Hkv, d,
-        int(causal), int(plan.group > 1), plan.consumers,
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
+    with torch.cuda.device(q.device):  # a shard's card need not be current
+        status = lib.attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(),
+            out.data_ptr(), int(q.dtype == torch.bfloat16), B, T, S, Hq,
+            Hkv, d, int(causal), int(plan.group > 1), plan.consumers,
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
     cuda_build.check(lib, status, "attention_fwd")
     attention_fwd.launches += 1
     return out
@@ -543,14 +544,15 @@ def _launch_bwd(q, k, v, out, dout, key_valid, causal, plan):
     part = (torch.empty(splits, 2, B, S, Hkv, d, dtype=torch.float32,
                         device=q.device) if splits > 1 else None)
     lib = _bwd_lib()
-    status = lib.attention_bwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        dout.data_ptr(), valid.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), stats.data_ptr(),
-        None if part is None else part.data_ptr(), int(bf16),
-        B, T, S, Hq, Hkv, d, int(causal), splits,
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
+    with torch.cuda.device(q.device):  # a shard's card need not be current
+        status = lib.attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), valid.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), stats.data_ptr(),
+            None if part is None else part.data_ptr(), int(bf16),
+            B, T, S, Hq, Hkv, d, int(causal), splits,
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
     cuda_build.check(lib, status, "attention_bwd")
     attention_bwd.launches += 1
     return dq, dk, dv

@@ -17,12 +17,20 @@ give those rows the numbers the one-process run gives them. Inside
 and noise are the rows of the one-process draw. The state is one module
 global, not a thread-local: autograd recomputes checkpointed blocks on its
 own device thread, and the recomputation must draw the same rows.
+
+Tensor parallelism (parallel/tp_shard.py): a row-split projection (o_proj,
+down_proj) on shard j of n sees columns [j m, (j + 1) m) of its input, and
+its LoRA dropout mask must be those columns of the one-device mask. `draw`
+and `dropout` take `cols=(j, n)`: the draw is made at n x the last size
+and shard j's columns are kept. The share is an argument of the shard's
+own call, so a checkpointed block's recomputation, which runs the shard's
+forward again on whatever thread autograd picks, draws the same columns.
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import Callable, Sequence
+from typing import Callable, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -62,26 +70,36 @@ def row_shard(rank: int, world: int):
         _ROWS = saved
 
 
-def draw(fn: Callable, shape: Sequence[int], **kw) -> torch.Tensor:
+def draw(fn: Callable, shape: Sequence[int], cols: Tuple[int, int] = (0, 1),
+         **kw) -> torch.Tensor:
     """fn(shape, **kw) (torch.rand / torch.randn with a generator) for this
     process's rows: under row_shard(rank, world) the draw is made for the
-    global leading size and this rank's rows of it are returned."""
+    global leading size and this rank's rows of it are returned. cols (j,
+    n): the draw is made for n x the last size and columns [j m, (j + 1) m)
+    of it are returned (m the last size of `shape`)."""
     rank, world = _ROWS
-    shape = tuple(shape)
-    if world == 1:
-        return fn(shape, **kw)
-    n = shape[0]
-    return fn((n * world,) + shape[1:], **kw)[rank * n:(rank + 1) * n]
+    j, n = cols
+    shape = list(shape)
+    if world == 1 and n == 1:
+        return fn(tuple(shape), **kw)
+    rows, m = shape[0], shape[-1]
+    shape[0] *= world
+    shape[-1] *= n
+    return fn(tuple(shape), **kw).narrow(0, rank * rows, rows).narrow(
+        -1, j * m, m)
 
 
-def dropout(x: torch.Tensor, rate: float, seed: int) -> torch.Tensor:
+def dropout(x: torch.Tensor, rate: float, seed: int,
+            cols: Tuple[int, int] = (0, 1)) -> torch.Tensor:
     """flax nn.Dropout semantics: keep with probability 1 - rate, scale the
-    kept values by 1 / (1 - rate); the mask comes from `seed` alone."""
+    kept values by 1 / (1 - rate); the mask comes from `seed` alone (with
+    `cols`, shard j of n's columns of the mask of the whole width)."""
     if rate <= 0.0:
         return x
     g = torch.Generator(device=x.device)
     g.manual_seed(seed)
-    keep = draw(torch.rand, x.shape, generator=g, device=x.device) >= rate
+    keep = draw(torch.rand, x.shape, cols, generator=g,
+                device=x.device) >= rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 

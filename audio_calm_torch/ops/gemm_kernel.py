@@ -245,11 +245,12 @@ def _linear(x, w, bias, kn, plan: Optional[GemmPlan]) -> torch.Tensor:
     work = (torch.empty(plan.splits, M, N, dtype=torch.float32,
                         device=x.device) if plan.spread else None)
     lib = _gemm_lib()
-    status = lib.gemm_bf16(
-        x2.data_ptr(), w.data_ptr(), None if b is None else b.data_ptr(),
-        out.data_ptr(), None if work is None else work.data_ptr(),
-        M, N, K, int(not kn), plan.bn, plan.nc, plan.chunk_steps,
-        int(plan.spread), torch.cuda.current_stream(x.device).cuda_stream)
+    with torch.cuda.device(x.device):  # a shard's card need not be current
+        status = lib.gemm_bf16(
+            x2.data_ptr(), w.data_ptr(), None if b is None else b.data_ptr(),
+            out.data_ptr(), None if work is None else work.data_ptr(),
+            M, N, K, int(not kn), plan.bn, plan.nc, plan.chunk_steps,
+            int(plan.spread), torch.cuda.current_stream(x.device).cuda_stream)
     cuda_build.check(lib, status, "gemm")
     linear.launches += 1
     return out

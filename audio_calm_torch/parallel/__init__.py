@@ -1,2 +1,2 @@
-"""Data parallelism, ZeRO and tensor-parallel inference placement
-(counterpart of audio_calm_tpu/parallel/)."""
+"""Data parallelism, ZeRO and tensor-parallel placement for inference and
+training (counterpart of audio_calm_tpu/parallel/)."""

@@ -15,8 +15,11 @@ Paths are the port's parameter names split at the dots (the JAX tree's
 module names; models/convert.jax_path maps one onto the other), and a
 rule gives the split dim in the port's layout (a torch Linear weight is
 [out, in], where a flax kernel is [in, out]). The placement that runs the
-split is parallel/infer_shard.py; like the JAX package, it splits the
-Qwen2 kernels only.
+split is parallel/tp_shard.py, for inference (parallel/infer_shard.py) and
+training (train/steps.shard_step). It splits the Qwen2 kernels and the
+embedding; the rules also name the DiT heads' and the ASR
+cross-attention's q/k/v, which GSPMD splits in JAX and the port's
+placement leaves whole (tp_shard.split_dims).
 """
 
 from __future__ import annotations

@@ -58,6 +58,10 @@ from audio_calm_torch.tools.profiler_probe import (bound_ms, device_ms,
 ROWS = [
     # one Qwen2 layer of a tts.yaml microbatch slice (56 a plain step)
     ("Qwen2 training slice", 16, 97, 97, 12, 2, 128, True, "text", 4),
+    # the same layer on one of 2 tensor-parallel shards (train/steps.
+    # shard_step: 6 q / 1 kv heads a shard, 112 a plain step)
+    ("Qwen2 TP-shard training slice", 16, 97, 97, 6, 1, 128, True, "text",
+     4),
     # asr.yaml's plain rows: B = 16 in 8 slices, 384 + SOA + 76 prompt
     ("Qwen2 plain-ASR training slice", 2, 461, 461, 12, 2, 128, True, "asr",
      48),

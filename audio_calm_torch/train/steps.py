@@ -56,6 +56,27 @@ rank order:
   - the optimizer sums the gradients over the ranks (ZeRO-2), and the
     norm and clipping come after that sum.
 With W = 1 the step is the one-process step, collectives and all.
+
+Tensor parallelism (JAX: shard_step over a mesh whose "model" axis is >
+1): `shard_step(model, mesh)` places a model that optim.freeze has
+labelled, in place, as this rank's replica: row `rank` of the mesh, its
+Qwen2 kernels split over that row's devices by parallel/tp_shard.
+place_tensor_parallel. The data axis is the processes, as above: it must
+equal the world size. Every trainable tensor stays one tensor, whole on
+the row's first device under its one-device name, so the steps, AdamW
+(and its ZeRO rule over the data axis), run_training and the train-state
+checkpoints take the placed model as they take the one-device one. JAX
+puts a TP-split trainable's optimizer moments on its split. The port
+splits only the Qwen2 kernels and the embedding (tp_shard.split_dims),
+which calm_param_label freezes for every task (LoRA a and b are
+replicated by the rules), so the trainables' moments stay whole with
+their tensors under the ZeRO rule, and `shard_step` refuses a model with
+a trainable tensor among those it splits. (JAX's rules also split the
+DiT heads' and the ASR cross-attention's trainable q/k/v, and their
+moments; the port keeps those whole on the row's first device.) The
+step's math is the one-device step's: the shards' draws are
+the one-device draws (ops/dropout.draw's `cols`), and only the order of
+the split sums differs.
 """
 
 from __future__ import annotations
@@ -65,7 +86,10 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 
 from audio_calm_torch.ops.dropout import derive_seed, row_shard
-from audio_calm_torch.parallel.mesh import all_reduce_sum, gather_rows
+from audio_calm_torch.parallel.mesh import (Mesh, all_reduce_sum, gather_rows,
+                                            rank_world)
+from audio_calm_torch.parallel.tp_shard import (place_tensor_parallel,
+                                                split_dims)
 from audio_calm_torch.utils.profiling import count_flops
 
 TTS_KEYS = ("text_ids", "attention_mask", "latents", "audio_mask")
@@ -237,6 +261,28 @@ def make_calm_step(model, optimizer, task: str = "tts", microbatch: int = 1,
 
     step.count = 0
     return step
+
+
+def shard_step(model, mesh: Mesh):
+    """This rank's replica of a labelled QwenCALM on `mesh` [data, model]
+    (module docstring): row `rank` of the mesh, the Qwen2 kernels split
+    over its devices, in place. mesh.shape["data"] must be the process
+    group's world size (1 without a group); with a model axis of 1 the
+    model is returned as it is."""
+    rank, world = rank_world()
+    if mesh.shape["data"] != world:
+        raise ValueError(f"the mesh's data axis is {mesh.shape['data']}, "
+                         f"the process group has {world} ranks: the port's "
+                         f"data axis is its processes")
+    if mesh.shape["model"] == 1:
+        return model
+    named = dict(model.named_parameters())
+    bad = sorted(n for n in split_dims(model, mesh.shape["model"])
+                 if named[n].requires_grad)
+    if bad:
+        raise ValueError(f"trainable tensors the model axis would split "
+                         f"(freeze them first): {bad}")
+    return place_tensor_parallel(model, mesh.devices[rank])
 
 
 def make_calm_eval_step(model, task: str) -> Callable:

@@ -7,9 +7,10 @@ Phases, in order; any failure exits non-zero and prints no result:
   1. the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels (one nvcc per source, in parallel);
   3. each kernel against its plain PyTorch version on the card, at the main
-     paths' shapes, fp32 and bf16 (the attention backward at the seven
+     paths' shapes, fp32 and bf16 (the attention backward at the eight
      rows of tools/attention_bwd_probe.ROWS: the Qwen2 training slices of
-     TTS and of plain ASR (461 positions), the DiT self-attention of a
+     TTS, of a tensor-parallel shard's 6 q / 1 kv heads and of plain ASR
+     (461 positions), the DiT self-attention of a
      training slice and of a distillation student, the students' DiT
      cross-attention and ASR head (d = 48), and a causal row of T = S =
      1024 past the TPU's 512 gate, two launches giving the same bits, the
@@ -177,7 +178,17 @@ Phases, in order; any failure exits non-zero and prints no result:
      at configs/vae.yaml's width (B = 32 crops) for 2 steps, each against
      the same run without the flag (every loss term and grad_norm within
      1e-5 relative), the ZeRO optimizer's collectives over NCCL; each of
-     5m-5o prints its wall beside the card's name and power limit;
+     5m-5p prints its wall beside the card's name and power limit;
+  5p. the tensor-parallel training step (train/steps.shard_step) on a
+     (data 1, model 2) mesh of two cuda:0 entries: the 28-layer flagship
+     under phase 5b's recipe (bf16, B = 32 in 2 slices), the one-device
+     model and its replica from the same seed for 3 steps each (loss
+     terms within 2e-2, grad_norm within 5e-2, K4 / K5 launches a step
+     twice the one-device step's, every one at 6 q / 1 kv heads, both
+     step walls), then one fp32 step of "tts", "tts_packed" and
+     "asr_packed" at 2 LLM layers each (loss terms and grad_norm within
+     1e-4); one card stands in for two, so it proves the code, not a
+     tensor-parallel speed-up;
   6. per kernel: its launches on its main path, its device time per launch
      at main-path shapes, the bound, the plain version's and the library
      call's device time (the batch-invariant product: at GEMM_ROWS, its
@@ -201,7 +212,7 @@ Phases, in order; any failure exits non-zero and prints no result:
      the plain version and the bound, and on each shape's log line the
      plan (tile, window, ring stages, N split) and the earlier design's
      time quoted from PERF.md (K6_EARLIER_MS); the attention backward at
-     the same seven rows through attention_bwd_probe.time_row: device time
+     the same eight rows through attention_bwd_probe.time_row: device time
      a call and per launch (row statistics, dQ, dK/dV, the partials' sum)
      beside autograd's SDPA backward and the bound, and on a log line the
      earlier design's time quoted from PERF.md (K5_EARLIER_MS);
@@ -611,6 +622,8 @@ def phase_kernels(gen, card):
         (2, 384, 25, 16, 16, 64, False, "DiT cross"),
         (1, 25, 25, 12, 2, 128, True, "Qwen2 T=25"),
         (2, 97, 97, 12, 2, 128, True, "Qwen2 T=97"),
+        # a tensor-parallel shard's training slice (train/steps.shard_step)
+        (16, 97, 97, 6, 1, 128, True, "Qwen2 TP shard T=97"),
         # ASR at configs/asr.yaml's width: the query cross-attention (16
         # heads over 1536), the ASR head's self-attention (768 / 16), the
         # Qwen2 encode over [audio 384 | SOA | 76 prompt tokens]
@@ -902,9 +915,10 @@ def qwen_train_inputs(B, dt, card, seed=0):
 
 
 def phase_attention_bwd(card):
-    """K5 vs its plain version at the seven rows the training paths launch
-    it at (tools/attention_bwd_probe.ROWS: the Qwen2 slices of tts.yaml and
-    plain asr.yaml, the DiT self-attention of a training slice and of a
+    """K5 vs its plain version at the eight rows the training paths launch
+    it at (tools/attention_bwd_probe.ROWS: the Qwen2 slices of tts.yaml, of
+    its tensor-parallel shard (6 q / 1 kv heads) and of plain asr.yaml, the
+    DiT self-attention of a training slice and of a
     distillation student, the students' DiT cross-attention and ASR head
     (d = 48), and a causal row of 1024 past the TPU's 512 gate), fp32 and
     bf16, under the shipped plan: fp32 within 2e-5 of the largest gradient
@@ -2699,8 +2713,9 @@ def phase_kernel_times(voc, counts, errs, card):
 
 
 def kernel_time_attention_bwd(train_counts, train_steps, errs, card):
-    """K5 at the seven rows of tools/attention_bwd_probe.ROWS (one Qwen2
-    layer of a tts.yaml microbatch slice, of a plain asr.yaml slice, the DiT
+    """K5 at the eight rows of tools/attention_bwd_probe.ROWS (one Qwen2
+    layer of a tts.yaml microbatch slice, of its tensor-parallel shard, of
+    a plain asr.yaml slice, the DiT
     self-attention of a training slice and of a distillation student, the
     students' DiT cross-attention and ASR head, a causal row of 1024 past
     the TPU's 512 gate), through `time_row`: device ms a call (the row
@@ -4510,6 +4525,200 @@ def phase_distributed_training(card, smi):
     return out
 
 
+# phase 5p: the tensor-parallel training step on a (data 1, model 2) mesh
+# of two cuda:0 entries: TP_STEPS bf16 flagship steps a model, then one
+# fp32 step of each of dryrun_multichip's tasks at TP_LLM_LAYERS layers
+TP_STEPS = 3
+TP_LLM_LAYERS = 2
+TP_TASKS = {"tts": "tts", "tts_packed": "tts", "asr_packed": "asr"}
+
+
+def tp_steps(model, labels, tcfg, task, batches, k, mesh):
+    """`batches` through one make_calm_step update each on `model`, placed
+    by shard_step on `mesh` first when it has one -> (metrics per step,
+    host walls, K4 / K5 launches per step, the (q, kv) heads of every K4
+    and K5 launch)."""
+    import collections
+
+    import audio_calm_torch.ops.attention_kernel as ak
+    from audio_calm_torch.train.optim import AdamW
+    from audio_calm_torch.train.steps import make_calm_step, shard_step
+
+    if mesh is not None:
+        model = shard_step(model, mesh)
+    params = {n: p for n, p in model.named_parameters() if p.requires_grad}
+    opt = AdamW(params, labels, tcfg, total_steps=len(batches))
+    step = make_calm_step(model, opt, task, microbatch=k, seed=tcfg.seed)
+    heads = {"attention_fwd": collections.Counter(),
+             "attention_bwd": collections.Counter()}
+    real = ak._launch_fwd, ak._launch_bwd
+
+    def recorded(name, fn):
+        def launch(q, k_, *rest):
+            heads[name][f"{q.shape[2]}/{k_.shape[2]}"] += 1
+            return fn(q, k_, *rest)
+        return launch
+
+    ak._launch_fwd = recorded("attention_fwd", real[0])
+    ak._launch_bwd = recorded("attention_bwd", real[1])
+    metrics, walls, counts = [], [], []
+    try:
+        for b in batches:
+            ak.attention_fwd.launches = ak.attention_bwd.launches = 0
+            m, s = synced(lambda: {key: float(v) for key, v in
+                                   step(b).items()})
+            counts.append({"attention_fwd": ak.attention_fwd.launches,
+                           "attention_bwd": ak.attention_bwd.launches})
+            metrics.append(m)
+            walls.append(s)
+    finally:
+        ak._launch_fwd, ak._launch_bwd = real
+    return metrics, walls, counts, {n: dict(c) for n, c in heads.items()}
+
+
+def rel_gaps(got, ref, keys):
+    """{key: the largest relative gap over the steps}."""
+    return {key: max(abs(a[key] - b[key]) / max(abs(b[key]), 1e-12)
+                     for a, b in zip(got, ref)) for key in keys}
+
+
+def phase_tp_training(card, smi):
+    """5p: the tensor-parallel training step (train/steps.shard_step, JAX's
+    shard_step with a model axis of 2) on a (data 1, model 2) mesh of two
+    cuda:0 entries. One card stands in for two: the phase proves the code
+    (the split layers' forward and backward, every draw, K4 and K5 at the
+    shard's 6 q / 1 kv heads), not a tensor-parallel speed-up.
+      - bf16: the 28-layer flagship at tts.yaml's width (frozen bf16) with
+        phase 5b's recipe (B = 32 in 2 slices, "tts"), the one-device
+        model and its replica from the same seeded weights on the same
+        batches, TP_STEPS steps each: every loss term within 2e-2
+        relative, grad_norm within 5e-2 (bf16 sums split in another
+        order; PR 18's mesh engine gave 1.2e-2 on the encode); K4 and K5
+        launches a step exactly twice the one-device step's, every TP
+        launch at 6 / 1 heads; both steps' walls.
+      - fp32 (TF32 off), TP_LLM_LAYERS LLM layers: one step of each of
+        "tts", "tts_packed" and "asr_packed" (dryrun_multichip's tasks),
+        every loss term and grad_norm within 1e-4 relative (the bound of
+        tests/test_tensor_parallel.py)."""
+    import copy
+    import gc
+
+    from audio_calm_torch.config import TrainingConfig
+    from audio_calm_torch.data.collator import pack_asr_window, pack_tts_window
+    from audio_calm_torch.data.datasets import CalmExample
+    from audio_calm_torch.models.calm import QwenCALM
+    from audio_calm_torch.models.flagship import flagship_config, random_normal_
+    from audio_calm_torch.parallel.mesh import make_mesh
+    from audio_calm_torch.train.optim import freeze
+
+    mesh = make_mesh(1, 2, [card, card])
+    out = {"card": smi, "mesh": mesh.shape,
+           "note": "one card stands in for two: the code, not a speed-up"}
+    tcfg = TrainingConfig(
+        per_device_train_batch_size=32, microbatch_steps=2, soa_lr_mult=3.0,
+        proj_lr_mult=1.0, head_lr_mult=3.0, learning_rate=5e-5,
+        frozen_weights_dtype="bfloat16", lr_scheduler_type="cosine",
+        warmup_ratio=0.1, max_grad_norm=1.0)
+    cfg = flagship_config()
+    gen = torch.Generator(card).manual_seed(23)
+    batches = [train_batch(32, card, gen) for _ in range(TP_STEPS)]
+    runs = {}
+    for name, m in (("one_device", None), ("tp2", mesh)):
+        with torch.device(card):
+            model = QwenCALM(cfg, compute_dtype=torch.bfloat16)
+        random_normal_(model, seed=0)
+        labels = freeze(model, tcfg, task_mode="tts")
+        runs[name] = tp_steps(model, labels, tcfg, "tts", batches, 2, m)
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    (m1, w1, c1, h1), (m2, w2, c2, h2) = runs["one_device"], runs["tp2"]
+    keys = ("loss", "loss_tts", "loss_len", "loss_dur", "grad_norm")
+    gaps = rel_gaps(m2, m1, keys)
+    L = cfg.qwen.num_hidden_layers
+    bf16 = {"steps": TP_STEPS, "batch": 32, "microbatch": 2,
+            "one_device": [{key: r[key] for key in keys} for r in m1],
+            "tp2": [{key: r[key] for key in keys} for r in m2],
+            "max_rel_gaps": gaps, "one_device_step_s": w1,
+            "tp2_step_s": w2, "one_device_launches_per_step": c1[0],
+            "tp2_launches_per_step": c2[0], "tp2_heads": h2,
+            "one_device_heads": h1}
+    log(f"  TP bf16 flagship ({smi}): " + json.dumps(bf16))
+    for key, gap in gaps.items():
+        bound = 5e-2 if key == "grad_norm" else 2e-2
+        log(f"  TP bf16 {key}: largest relative gap {gap:.3e} bound {bound}")
+        check(gap <= bound, f"TP bf16 {key} within {bound} of one device")
+    check(all(c == c1[0] for c in c1) and all(c == c2[0] for c in c2)
+          and c1[0] == {"attention_fwd": 2 * L * 2, "attention_bwd": L * 2},
+          f"one-device launches a step {c1}: K4 twice (remat) and K5 once "
+          f"a layer and slice")
+    check(c2[0] == {key: 2 * v for key, v in c1[0].items()},
+          f"TP launches a step {c2[0]} twice the one-device step's")
+    check(set(h2["attention_bwd"]) == {"6/1"}
+          and set(h2["attention_fwd"]) == {"6/1"}
+          and set(h1["attention_bwd"]) == {"12/2"},
+          f"every TP launch of K4 and K5 at 6 / 1 heads ({h2})")
+    out["bf16_flagship"] = bf16
+    # K4 at the shard's heads beside the one-device slice's, in turns
+    lens = [int(n) for n in np.random.default_rng(24).integers(4, 97, 16)]
+    with torch.no_grad():
+        out["k4_rows"] = [time_row(
+            (label, 16, 97, 97, hq, hkv, 128, True, ("pad", lens), n),
+            card, reps=1) for label, hq, hkv, n in (
+                ("Qwen2 training slice", 12, 2, c1[0]["attention_fwd"]),
+                ("Qwen2 TP-shard training slice", 6, 1,
+                 c2[0]["attention_fwd"]))]
+    for r in out["k4_rows"]:
+        log(f"  attention_fwd {r['shape']} ({smi}; launches a step): "
+            + json.dumps(r))
+
+    # fp32 at TP_LLM_LAYERS layers: dryrun_multichip's tasks
+    rng = np.random.default_rng(31)
+    tts_exs = [CalmExample(
+        input_ids=rng.integers(10, 5000, n).astype(np.int32),
+        labels=np.full((n,), -100, np.int32),
+        audio=(0.039775 + 1.190864 * rng.standard_normal((a, 128))).astype(
+            np.float32), mode="tts")
+        for n, a in zip([96, 60, 33, 71, 12, 45, 90], [96, 80, 20, 64, 11,
+                                                       50, 70])]
+    tts_packed, left = pack_tts_window(tts_exs, 2, 256, 4, 96, 128, 96)
+    check(not left, "the TP packed TTS batch holds every utterance")
+    prompt, asr_exs = asr_examples([384, 200, 150], [96, 40, 17], seed=32)
+    asr_packed, left = pack_asr_window(asr_exs, prompt, 2, 512, 4, 384, 128,
+                                       96)
+    check(not left, "the TP packed ASR batch holds every utterance")
+    small = flagship_config(TP_LLM_LAYERS)
+    ftcfg = TrainingConfig(learning_rate=5e-5, warmup_ratio=0.0,
+                           lr_scheduler_type="constant",
+                           frozen_weights_dtype="float32")
+    fp32 = {}
+    with exact_fp32():
+        for task, mode in TP_TASKS.items():
+            batch = (train_batch(4, card, gen, t_aud=192) if task == "tts"
+                     else {k: torch.from_numpy(v).to(card) for k, v in (
+                         tts_packed if task == "tts_packed"
+                         else asr_packed).items()})
+            res = []
+            for m in (None, mesh):
+                with torch.device(card):
+                    model = QwenCALM(small)
+                random_normal_(model, seed=1)
+                labels = freeze(model, ftcfg, task_mode=mode)
+                res.append(tp_steps(model, labels, ftcfg, task, [batch], 2,
+                                    m))
+            keys = sorted(res[0][0][0])
+            gaps = rel_gaps(res[1][0], res[0][0], keys)
+            fp32[task] = {"one_device": res[0][0][0], "tp2": res[1][0][0],
+                          "max_rel_gaps": gaps,
+                          "launches": [r[2][0] for r in res]}
+            log(f"  TP fp32 {task}: " + json.dumps(fp32[task]))
+            for key, gap in gaps.items():
+                check(gap <= 1e-4, f"TP fp32 {task} {key} within 1e-4 of one "
+                      f"device ({gap:.3e})")
+    out["fp32_reduced_depth"] = fp32
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card is available", file=sys.stderr)
@@ -4762,6 +4971,21 @@ def main() -> int:
     distributed = phase_distributed_training(card, smi)
     log(f"phase distributed training: ok in "
         f"{time.perf_counter() - t0:.1f} s ({smi})")
+    # 5p. the tensor-parallel training step on (1, 2) entries of cuda:0
+    t0 = time.perf_counter()
+    tp_trained = phase_tp_training(card, smi)
+    tp_s = time.perf_counter() - t0
+    log(f"phase tensor-parallel training: ok in {tp_s:.1f} s ({smi}; one "
+        f"card stands in for two: the code, not a speed-up)")
+    tp_trained["phase_s"] = tp_s
+    for name, entry_ in (("attention_fwd", fwd), ("attention_bwd", bwd)):
+        entry_["tp_training_launches_per_step"] = {
+            "one_device": tp_trained["bf16_flagship"][
+                "one_device_launches_per_step"][name],
+            "tp2": tp_trained["bf16_flagship"]["tp2_launches_per_step"][name]}
+    fwd["tp_shard_row"] = {key: tp_trained["k4_rows"][1][key] for key in (
+        "shape", "q", "Hkv", "ms", "plain_ms", "library_ms", "bound_ms",
+        "bound_by", "max_abs_err")}
     gemm = next(k for k in kernels if k["name"] == "gemm")
     fwd["entry_points_launches"] = {
         k: v["attention_fwd"] for k, v in entry.items()
@@ -4786,6 +5010,7 @@ def main() -> int:
     log("entry_points " + json.dumps(entry))
     log("mesh_engine " + json.dumps(meshed))
     log("distributed_training " + json.dumps(distributed))
+    log("tp_training " + json.dumps(tp_trained))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -103,12 +103,29 @@ def test_bwd_plans_at_the_training_rows():
     rows fill the card unsplit."""
     plans = {r[0]: attention_bwd_plan(*r[1:8], SMS).splits for r in ROWS}
     assert plans == {"Qwen2 training slice": 2,
+                     "Qwen2 TP-shard training slice": 2,
                      "Qwen2 plain-ASR training slice": 6,
                      "DiT self training slice": 1,
                      "DiT self distillation student": 1,
                      "DiT cross distillation student": 1,
                      "ASR head self distillation student": 1,
                      "causal past 512": 6}
+
+
+def test_bwd_plan_splits_at_one_kv_head():
+    """A tensor-parallel shard's Qwen2 heads (6 q / 1 kv at tp 2): half the
+    dK/dV blocks of the one-device row, so the plan splits them, bounded
+    by _BWD_MIN_ITEMS: 2 at the 16-row slice (12 items a key tile), 8 at
+    a 461-position row (48 items)."""
+    tts = attention_bwd_plan(16, 97, 97, 6, 1, 128, True, SMS)
+    asr = attention_bwd_plan(2, 461, 461, 6, 1, 128, True, SMS)
+    assert (tts.key_tiles, tts.query_tiles, tts.splits) == (2, 2, 2)
+    assert (asr.key_tiles, asr.query_tiles, asr.splits) == (8, 8, 8)
+    for plan in (tts, asr):
+        items = 6 * plan.query_tiles
+        assert plan.splits == items // _BWD_MIN_ITEMS
+        assert [len(p) for p in attention_bwd_plan_items(plan, 6, 1)] == \
+            [_BWD_MIN_ITEMS] * plan.splits
 
 
 @pytest.mark.parametrize("T,S,causal,valid0,want", [

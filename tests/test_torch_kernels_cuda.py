@@ -338,6 +338,7 @@ def test_hifigan_apply_fused_card_matches_cpu(card):
     (2, 384, 384, 16, 16, 64, False),   # DiT self-attention (CFG 2B)
     (2, 384, 25, 16, 16, 64, False),    # DiT cross-attention
     (2, 97, 97, 12, 2, 128, True),      # Qwen2 causal GQA
+    (16, 97, 97, 6, 1, 128, True),      # a tensor-parallel shard's heads
     (2, 70, 130, 8, 4, 96, True),       # the other head widths, S > T
     (2, 5, 9, 4, 1, 32, False),
     (2, 70, 130, 8, 4, 48, True),       # d = 48 (768 / 16 heads), S > T
@@ -674,6 +675,35 @@ def test_attention_bwd_lengths_off_the_tile(card, T, d, causal):
             a, b = a.float(), b.float()
             assert (a - b).abs().max().item() <= 2 ** -7 * \
                 b.abs().max().item(), plan
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,T", [(16, 97), (2, 461)])
+def test_attention_bwd_splits_at_one_kv_head(card, B, T, dtype):
+    """K5 at a tensor-parallel shard's Qwen2 heads (6 q / 1 kv, causal,
+    d 128: train/steps.shard_step at tp 2), where attention_bwd_plan splits
+    the one kv head's dK/dV blocks (2 splits at the 16-row slice, 8 at 461
+    positions): the shipped plan and, in bf16, every plan the shape offers
+    against the plain version (2e-5 of the largest gradient in fp32, 2^-7
+    in bf16); two launches give the same bits."""
+    dtype = getattr(torch, dtype)
+    assert attention_bwd_plan(B, T, T, 6, 1, 128, True).splits > 1
+    q, k, v, dout, valid = _bwd_inputs(card, B, T, T, 6, 1, 128, dtype, 7)
+    out = attention_fwd(q, k, v, valid, True)
+    ref = attention_bwd_plain(q, k, v, out, dout, valid, True)
+    plans = [None]
+    if dtype == torch.bfloat16:
+        plans += candidate_bwd_plans(B, T, T, 6, 1, 128, True)
+    scale = 2e-5 if dtype == torch.float32 else 2 ** -7
+    for plan in plans:
+        got = _attention_bwd(q, k, v, out, dout, valid, True, plan)
+        for a, b, name in zip(got, ref, ("dq", "dk", "dv")):
+            err = (a.float() - b.float()).abs().max().item()
+            assert err <= scale * b.float().abs().max().item(), (plan, name,
+                                                                 err)
+    first = attention_bwd(q, k, v, out, dout, valid, True)
+    second = attention_bwd(q, k, v, out, dout, valid, True)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 def test_attention_bwd_split_plan_repeats_agree(card):

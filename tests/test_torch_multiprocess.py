@@ -13,6 +13,12 @@ zipped and their rows concatenated in rank order, as JAX's comparator
 assembles them) within 1e-4, the bound of tests/test_multiprocess.py
 (relative for a value past 1, such as a gradient norm).
 Only rank 0 logs and writes the exported weights.
+
+Data x tensor parallelism: two gloo processes, each a row of a (2, 2) mesh
+of CPU entries through train/steps.shard_step (the Qwen2 kernels split
+over the row's two entries), take two "tts" steps on their rows of the
+global batches; rank 0's metrics against one process on one device within
+the same 1e-4.
 """
 
 import json
@@ -29,9 +35,11 @@ from audio_calm_torch.data import collator, synth_corpus
 from audio_calm_torch.train import train_calm, train_vae
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+TESTS = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, TESTS)
 
 from test_torch_train_loop import TINY_YAML, VAE_YAML, _mel_store  # noqa
+from torch_tp_worker import tp_setup, tts_steps  # noqa
 
 
 @pytest.fixture(autouse=True)
@@ -51,6 +59,13 @@ def _free_port():
 def _two_ranks(module, argv, log_dir):
     """Run `python -m module argv` as ranks 0 and 1 of a gloo group ->
     their stdout texts."""
+    return _two_processes([sys.executable, "-m", module, *argv, "--device",
+                           "cpu", "--distributed"], log_dir)
+
+
+def _two_processes(cmd, log_dir):
+    """Run `cmd` as ranks 0 and 1 of a group (torchrun's variables set) ->
+    their stdout texts."""
     port = _free_port()
     procs, logs = [], []
     for rank in range(2):
@@ -62,9 +77,7 @@ def _two_ranks(module, argv, log_dir):
         log = open(os.path.join(log_dir, f"rank{rank}.log"), "w")
         logs.append(log)
         procs.append(subprocess.Popen(
-            [sys.executable, "-m", module, *argv, "--device", "cpu",
-             "--distributed"], stdout=log, stderr=subprocess.STDOUT,
-            env=env, cwd=REPO))
+            cmd, stdout=log, stderr=subprocess.STDOUT, env=env, cwd=REPO))
     for p in procs:
         p.wait(timeout=600)
     outs = []
@@ -237,3 +250,21 @@ def test_two_process_distill_calm(tmp_path, monkeypatch):
     for a, b in zip(got, run.history):
         for k in ("loss", "loss_distill", "grad_norm"):
             assert _close(a[k], b[k]), (k, got, run.history)
+
+
+def test_two_processes_each_tensor_parallel(tmp_path):
+    """Two gloo ranks, each with its Qwen2 kernels split over two CPU
+    entries (a (2, 2) mesh), two "tts" steps with LoRA and CFG dropout on:
+    every metric against one process on one device over the same global
+    batches within 1e-4."""
+    out = tmp_path / "rank0.json"
+    code = (f"import sys; sys.path.insert(0, {TESTS!r}); "
+            f"import torch_tp_worker as w; w.dp_tp_rank({str(out)!r})")
+    _two_processes([sys.executable, "-c", code], tmp_path)
+    got = json.loads(out.read_text())
+    ref = tts_steps(*tp_setup())
+    assert len(got) == len(ref) == 2
+    for a, b in zip(got, ref):
+        assert set(a) == set(b)
+        for k in b:
+            assert _close(a[k], b[k]), (k, got, ref)
