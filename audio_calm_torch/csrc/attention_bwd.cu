@@ -361,11 +361,9 @@ int launch(const void* q, const void* k, const void* v, const void* o, const voi
            const uint8_t* valid, void* dq, void* dk, void* dv, float4* stats, int B,
            int Tq, int S, int Hq, int Hkv, int causal, cudaStream_t st) {
   const float scale = 1.0f / sqrtf((float)D);
-  // the shared-memory sizes are fixed per instantiation: set them once
-  static const int attr = [] {
-    const int e = set_smem(dq_kernel<D>, smem_a<D>());
-    return e != 0 ? e : set_smem(dkv_kernel<D>, smem_b<D>());
-  }();
+  // the shared-memory sizes (set_smem sets each once a device)
+  int attr = set_smem(dq_kernel<D>, smem_a<D>());
+  if (attr == 0) attr = set_smem(dkv_kernel<D>, smem_b<D>());
   if (attr != 0) return attr;
   const float* qt = static_cast<const float*>(q);
   const float* kt = static_cast<const float*>(k);
@@ -1092,10 +1090,9 @@ int launch(const void* q, const void* k, const void* v, const void* o, const voi
            const uint8_t* valid, void* dq, void* dk, void* dv, float4* stats, float* part,
            int B, int T, int S, int Hq, int Hkv, int causal, int splits, cudaStream_t st) {
   if (splits < 1 || (splits > 1 && part == nullptr)) return (int)cudaErrorInvalidValue;
-  static const int attr = [] {  // the shared-memory sizes, once per instantiation
-    const int e = set_smem(stats_kernel<D>, smem_stats<D>());
-    return e != 0 ? e : set_smem(grads_kernel<D>, smem_grads<D>());
-  }();
+  // the shared-memory sizes (set_smem sets each once a device)
+  int attr = set_smem(stats_kernel<D>, smem_stats<D>());
+  if (attr == 0) attr = set_smem(grads_kernel<D>, smem_grads<D>());
   if (attr != 0) return attr;
   Maps m;
   if (!tensor_maps<D>(&m, q, k, v, dout, B, T, S, Hq, Hkv)) return (int)cudaErrorInvalidValue;

@@ -536,7 +536,7 @@ int launch(const void* q, const void* k, const void* v, const uint8_t* valid, vo
   Maps m;
   if (!tensor_maps<D>(&m, q, k, v, B, T, S, Hq, Hkv, G)) return (int)cudaErrorInvalidValue;
   auto kern = attention_kernel<D, NC>;
-  static const int attr = set_smem(kern, smem_bytes<D, NC>());  // once per instantiation
+  const int attr = set_smem(kern, smem_bytes<D, NC>());
   if (attr != 0) return attr;
   kern<<<tiles * groups * B, 128 * NC + 32, smem_bytes<D, NC>(), st>>>(
       m.q, m.k, m.v, valid, static_cast<bf16*>(out), T, S, Hq, gq, G, P, tiles, groups, B,
@@ -561,7 +561,7 @@ template <int D>
 int launch_simt(const void* q, const void* k, const void* v, const uint8_t* valid, void* out,
                 int B, int T, int S, int Hq, int Hkv, int causal, cudaStream_t stream) {
   auto kern = simt::attention_kernel<D>;
-  static const int attr = set_smem(kern, simt::smem_bytes<D>());  // once per instantiation
+  const int attr = set_smem(kern, simt::smem_bytes<D>());
   if (attr != 0) return attr;
   const dim3 grid((T + simt::kBQ - 1) / simt::kBQ, Hq, B);
   kern<<<grid, kThreads, simt::smem_bytes<D>(), stream>>>(

@@ -1,5 +1,5 @@
 // Device helpers shared by the hand-written kernels: scalar conversions,
-// the shared-memory attribute and the bf16 tensor-core building blocks
+// the shared-memory attribute (per device) and the bf16 tensor-core building blocks
 // (ldmatrix, ldmatrix.trans, mma.sync m16n8k16 with fp32 accumulators, bf16
 // pair packing). The HiFi-GAN kernels' own tiling sits in
 // vocoder_common.cuh.
@@ -8,6 +8,10 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <map>
+#include <mutex>
+#include <utility>
 
 namespace {
 
@@ -22,10 +26,25 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
   return __float2bfloat16_rn(v);
 }
 
+// A kernel's dynamic shared-memory limit on the current device, raised to
+// `smem` where it is lower: the attribute belongs to each device (a kernel
+// first launched on one card needs it set again on another), and it only
+// grows, so a launch that found it high enough never sees it lowered.
 template <typename K>
 int set_smem(K kern, size_t smem) {
-  return (int)cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   (int)smem);
+  static std::mutex mu;
+  static std::map<std::pair<const void*, int>, size_t> limit;
+  int dev = 0;
+  const cudaError_t got = cudaGetDevice(&dev);
+  if (got != cudaSuccess) return (int)got;
+  const auto key = std::make_pair(reinterpret_cast<const void*>(kern), dev);
+  std::lock_guard<std::mutex> lock(mu);
+  const auto it = limit.find(key);
+  if (it != limit.end() && it->second >= smem) return 0;
+  const cudaError_t e =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e == cudaSuccess) limit[key] = smem;
+  return (int)e;
 }
 
 namespace tc {

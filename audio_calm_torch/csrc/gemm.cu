@@ -359,7 +359,7 @@ int launch(const void* x, const void* w, const bf16* bias, bf16* y, float* work,
       !(kKN ? tensor_map(&tw, w, K, N, 64) : tensor_map(&tw, w, N, K, BN)))
     return (int)cudaErrorInvalidValue;
   auto kern = gemm_kernel<BN, NC, kKN>;
-  static const int attr = set_smem(kern, C::kSmem);  // once per instantiation
+  const int attr = set_smem(kern, C::kSmem);
   if (attr != 0) return attr;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((M + 64 * NC - 1) / (64 * NC), (N + BN - 1) / BN, spread ? splits : 1);

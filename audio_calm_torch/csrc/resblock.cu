@@ -644,7 +644,7 @@ int launch_tc_w(const void* x, const void* w, long long w_elems, const float* bi
   // the ring's bulk copies read every image: the buffer must hold them all
   if (w_elems != 2LL * a.n_dil * a.k * L::KP * W) return (int)cudaErrorInvalidValue;
   auto kern = tc::resblock_kernel<IO, W>;
-  static const int attr = set_smem(kern, kMaxSmem);
+  const int attr = set_smem(kern, kMaxSmem);
   if (attr) return attr;
   const dim3 grid((a.T + a.tile - 1) / a.tile, a.B);
   kern<<<grid, tc::kBlock, smem, stream>>>(

@@ -842,7 +842,7 @@ int launch_tc_c(const void* x, const void* w, long long w_elems, const float* bi
   const size_t smem = tc::kBarBytes + (size_t)a.n_stages * 64 * C + a.Lp * per_row;
   if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
   auto kern = tc::stage_kernel<IO, C>;
-  static const int attr = set_smem(kern, kMaxSmem);
+  const int attr = set_smem(kern, kMaxSmem);
   if (attr) return attr;
   const dim3 grid((a.T_out + a.tile - 1) / a.tile, a.B);
   constexpr int kBlock = tc::Layout<C>::kThreads;

@@ -505,28 +505,23 @@ class QwenCALM(nn.Module):
 
 
 @torch.no_grad()
-def init_calm_(model: QwenCALM, seed: int = 0) -> QwenCALM:
-    """Fresh training weights from one seeded generator with the JAX
-    package's initializers (init_calm_params, flax's defaults): Dense and
-    conv kernels lecun-normal (a normal truncated at 2 sigma, variance 1 /
+def init_layers_(module: nn.Module, gen: torch.Generator) -> nn.Module:
+    """Flax's default initializers for every Dense, LoRA, conv and norm
+    under `module`, drawn from `gen` in module order: Dense and conv
+    kernels lecun-normal (a normal truncated at 2 sigma, variance 1 /
     fan_in), biases 0; LoRA's A uniform in +-1 / sqrt(fan_in), B 0; norm
-    scales 1; the Qwen2 embedding N(0, 0.02), the ASR query table N(0, 1 /
-    width) (flax's Embed); the DiT context gates and the flow heads'
-    out_proj 0; SOA the mean of the embedding rows [min(1000, V // 2),
-    min(2000, V)). The draws are torch's, not JAX's."""
+    scales 1."""
     from audio_calm_torch.models.calm_heads import CausalConv1d
     from audio_calm_torch.models.layers import Linear
     from audio_calm_torch.models.lora import LoRADense
     from audio_calm_torch.models.qwen2 import RMSNorm
-
-    gen = torch.Generator(model.soa_embed.device).manual_seed(seed)
 
     def lecun_(w: torch.Tensor, fan_in: int) -> None:
         std = (1.0 / fan_in) ** 0.5 / .87962566103423978
         nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std,
                               generator=gen)
 
-    for m in model.modules():
+    for m in module.modules():
         if isinstance(m, Linear):
             lecun_(m.weight, m.weight.shape[1])
             if m.bias is not None:
@@ -543,6 +538,19 @@ def init_calm_(model: QwenCALM, seed: int = 0) -> QwenCALM:
                 m.weight.fill_(1.0)
             if getattr(m, "bias", None) is not None:
                 m.bias.zero_()
+    return module
+
+
+@torch.no_grad()
+def init_calm_(model: QwenCALM, seed: int = 0) -> QwenCALM:
+    """Fresh training weights from one seeded generator with the JAX
+    package's initializers (init_calm_params, flax's defaults):
+    `init_layers_` over every layer; the Qwen2 embedding N(0, 0.02), the
+    ASR query table N(0, 1 / width) (flax's Embed); the DiT context gates
+    and the flow heads' out_proj 0; SOA the mean of the embedding rows
+    [min(1000, V // 2), min(2000, V)). The draws are torch's, not JAX's."""
+    gen = torch.Generator(model.soa_embed.device).manual_seed(seed)
+    init_layers_(model, gen)
     model.embed.embedding.normal_(0.0, 0.02, generator=gen)
     q = model.asr_query_embed.embedding
     q.normal_(0.0, q.shape[1] ** -0.5, generator=gen)

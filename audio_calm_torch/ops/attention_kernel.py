@@ -37,23 +37,22 @@ The zero columns add nothing to q k^T, the padded v columns give output
 columns that are cut, and the padded columns' gradients are cut the same
 way (`_pad_head_dim`, held on the CPU with the plain versions).
 
-FLOP counts (`counting_flops`, used by utils/profiling.count_flops): a
-ctypes launch is invisible to torch's FlopCounterMode, so while a count is
-taken each call adds its dense product count to a tally, and the plain
-versions (the CPU route) run hidden from the counter: the count is the
-same on both routes.
+FLOP counts (cuda_build.counting_flops, used by utils/profiling.
+count_flops): each call adds its dense product count to the tally, 4 B Hq
+T S d a forward (Q K^T and P V), 10 B Hq T S d a backward (its five
+products, P recomputed), masked and causal-skipped work included, as a
+FLOP counter counts the plain versions' products; the plain versions run
+hidden from the counter, so the count is the same on both routes.
 """
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import functools
 import math
 from typing import List, NamedTuple, Optional
 
 import torch
-from torch.utils._python_dispatch import _disable_current_modes
 
 from audio_calm_torch.ops import cuda_build
 
@@ -74,38 +73,11 @@ _FLASH = "audio_calm_torch.ops.attention_kernel.flash_attention"
 _H100_SMS = 132  # the plan's SM count where no card is asked (the CPU)
 
 
-class FlopTally:
-    """Dense product FLOPs of the attention calls made while a count is
-    taken: 4 B Hq T S d a forward (Q K^T and P V), 10 B Hq T S d a backward
-    (its five products, P recomputed), masked and causal-skipped work
-    included, as a FLOP counter counts the plain versions' products."""
-    active = False
-    flops = 0.0
-
-
-_TALLY = FlopTally()
-
-
-@contextlib.contextmanager
-def counting_flops():
-    """Tally the attention calls' FLOPs for the block (yields the tally);
-    their plain versions run with the torch dispatch modes (a
-    FlopCounterMode) disabled."""
-    _TALLY.active, _TALLY.flops = True, 0.0
-    try:
-        yield _TALLY
-    finally:
-        _TALLY.active = False
-
-
 def _tally(q, k, products: int):
-    """Add a call's products to the tally -> the context its plain version
-    runs in."""
-    if not _TALLY.active:
-        return contextlib.nullcontext()
+    """Add a call's products to the FLOP tally -> the context its plain
+    version runs in."""
     B, T, Hq, d = q.shape
-    _TALLY.flops += 2.0 * products * B * Hq * T * k.shape[1] * d
-    return _disable_current_modes()
+    return cuda_build.tally(2.0 * products * B * Hq * T * k.shape[1] * d)
 
 
 def _mask(key_valid, B, T, S, causal, device):

@@ -9,6 +9,12 @@ rebuilt and a stale one never loads.
 `load(name, defines)` builds a variant compiled with -D<define> (a probe
 build, which no wrapper loads) under a name of its own.
 `check` and `refuse_autograd` are the guards every kernel wrapper shares.
+`counting_flops` / `tally` count the FLOPs of the kernel calls made while
+a count is taken (utils/profiling.count_flops): a ctypes launch is
+invisible to torch's FlopCounterMode, so each wrapper adds its plain
+version's product count, worked out from the shapes, and runs that plain
+version (the CPU route) hidden from the counter; the count is the same on
+the card and on the CPU.
 
 Nothing here runs at import: the CPU tests import every module, on machines
 that have no CUDA toolkit.
@@ -16,6 +22,7 @@ that have no CUDA toolkit.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -25,6 +32,7 @@ from pathlib import Path
 from typing import Dict, Iterable, Optional, Sequence, Tuple
 
 import torch
+from torch.utils._python_dispatch import _disable_current_modes
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "kernels"
@@ -115,3 +123,33 @@ def refuse_autograd(what: str, tensors: Iterable[Optional[torch.Tensor]],
         alt = f", or use the differentiable route {route}" if route else ""
         raise RuntimeError(f"{what} on a CUDA tensor returns no gradient: "
                            f"call it under torch.no_grad(){alt}")
+
+
+class FlopTally:
+    """FLOPs of the kernel calls made while a count is taken."""
+    active = False
+    flops = 0.0
+
+
+_TALLY = FlopTally()
+
+
+@contextlib.contextmanager
+def counting_flops():
+    """Tally the kernel calls' FLOPs for the block (yields the tally);
+    their plain versions run with the torch dispatch modes (a
+    FlopCounterMode) disabled."""
+    _TALLY.active, _TALLY.flops = True, 0.0
+    try:
+        yield _TALLY
+    finally:
+        _TALLY.active = False
+
+
+def tally(flops: float):
+    """Add a call's FLOPs to the tally while a count is taken -> the
+    context its plain version runs in (hidden from the counter then)."""
+    if not _TALLY.active:
+        return contextlib.nullcontext()
+    _TALLY.flops += flops
+    return _disable_current_modes()

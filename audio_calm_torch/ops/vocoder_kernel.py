@@ -16,6 +16,13 @@ Counterpart of audio_calm_tpu/ops/pallas_vocoder.py:
     PyTorch, the kernels where the JAX package routes to Pallas, and
     conv_post + tanh.
 
+While a FLOP count is taken (utils/profiling.count_flops) both wrappers
+add their plain version's products, worked out from the shapes
+(`stage_flops`, `resblock_flops`), to the kernels' tally
+(cuda_build.counting_flops) and run the plain version hidden from the
+counter: a launch is invisible to it, and the count is the same on the
+card and on the CPU.
+
 Weights are passed in the JAX kernel layout, [k, C_in, C_out] per conv, so
 the tests compare like with like. Operands are rounded to `compute_dtype`
 and accumulated in fp32, as the TPU kernel feeds its MXU.
@@ -240,9 +247,41 @@ def vocoder_stage(x: torch.Tensor, ups_w: Optional[torch.Tensor],
     """One HiFi-GAN stage: x [B, T_in, C_in] -> [B, T_in * r, C_out]
     (r treated as 1 when ups_w is None). CPU tensors take the plain
     version; CUDA tensors launch csrc/vocoder_stage.cu."""
+    hidden = cuda_build.tally(stage_flops(x.shape, ups_w, blocks, r))
     if x.device.type == "cpu":
-        return vocoder_stage_plain(x, ups_w, ups_b, blocks, r, slope,
-                                   compute_dtype)
+        with hidden:
+            return vocoder_stage_plain(x, ups_w, ups_b, blocks, r, slope,
+                                       compute_dtype)
+    return _launch_stage(x, ups_w, ups_b, blocks, r, slope, compute_dtype)
+
+
+def stage_flops(x_shape, ups_w: Optional[torch.Tensor],
+                blocks: Sequence[Block], r: int = 2) -> float:
+    """The products of one stage as a FLOP counter counts its plain
+    version: the transposed conv 2 B T_in C_in C k_up, then two k-tap
+    convs a dilation of each resblock, 2 B T C C k each, at T = T_in r."""
+    B, T, C = x_shape
+    flops = 0.0
+    if ups_w is not None:
+        k_up, C_in, C = ups_w.shape
+        flops += 2.0 * B * T * C_in * C * k_up
+        T *= r
+    for block in blocks:
+        flops += resblock_flops((B, T, C), block)
+    return flops
+
+
+def resblock_flops(x_shape, block: Block) -> float:
+    """The products of one MRF resblock on x [B, T, C]: two k-tap convs a
+    dilation, 2 B T C C k each."""
+    B, T, C = x_shape
+    w1 = block[0]
+    return 2 * len(block[5]) * 2.0 * B * T * C * C * w1.shape[1]
+
+
+def _launch_stage(x, ups_w, ups_b, blocks, r, slope, compute_dtype):
+    """`vocoder_stage` on a CUDA tensor: one launch of
+    csrc/vocoder_stage.cu."""
     if x.device.type != "cuda":
         raise ValueError(f"vocoder_stage: unsupported device {x.device}")
     cuda_build.refuse_autograd(
@@ -263,7 +302,7 @@ def vocoder_stage(x: torch.Tensor, ups_w: Optional[torch.Tensor],
     if not 1 <= len(blocks) <= 4:
         raise ValueError("vocoder_stage takes 1 to 4 resblocks")
     if C < _STAGE_MIN_CHANNELS and 128 % C == 0:
-        out = vocoder_stage(*pad_stage(x, ups_w, ups_b, blocks,
+        out = _launch_stage(*pad_stage(x, ups_w, ups_b, blocks,
                                        _STAGE_MIN_CHANNELS),
                             r, slope, compute_dtype)
         return out[..., :C]
@@ -315,14 +354,16 @@ def vocoder_stage(x: torch.Tensor, ups_w: Optional[torch.Tensor],
            if tensor_cores and x.dtype != torch.float32 else None)
     ints = ctypes.c_int * len(ksize)
     lib = _stage_lib()
-    status = lib.vocoder_stage(
-        x.data_ptr(), w.data_ptr(), w.numel(), bias.data_ptr(),
-        out.data_ptr(), None if acc is None else acc.data_ptr(),
-        int(x.dtype == torch.bfloat16), int(tensor_cores),
-        B, T_in, C_in, C, r, k_up, len(blocks), ints(*ksize), ints(*n_dil),
-        (ctypes.c_int * len(dil))(*dil), float(slope), plan.Lp, plan.tile,
-        plan.stages, torch.cuda.current_stream(x.device).cuda_stream,
-    )
+    with torch.cuda.device(x.device):  # x's card need not be current
+        status = lib.vocoder_stage(
+            x.data_ptr(), w.data_ptr(), w.numel(), bias.data_ptr(),
+            out.data_ptr(), None if acc is None else acc.data_ptr(),
+            int(x.dtype == torch.bfloat16), int(tensor_cores),
+            B, T_in, C_in, C, r, k_up, len(blocks), ints(*ksize),
+            ints(*n_dil), (ctypes.c_int * len(dil))(*dil), float(slope),
+            plan.Lp, plan.tile, plan.stages,
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
     cuda_build.check(lib, status, "vocoder_stage")
     vocoder_stage.launches += 1
     return out
@@ -573,7 +614,9 @@ def _resblock_call(x: torch.Tensor, block: Block, slope: float,
     keep = (x, w, bias, scratch)  # alive as long as the call is
 
     def call():
-        cuda_build.check(lib, lib.fused_resblock(*args), "fused_resblock")
+        with torch.cuda.device(x.device):  # x's card need not be current
+            status = lib.fused_resblock(*args)
+        cuda_build.check(lib, status, "fused_resblock")
         return keep
 
     return call, out[..., :C] if C_k > C else out
@@ -586,14 +629,15 @@ def fused_resblock(x: torch.Tensor, block: Block, slope: float = 0.1,
     Routed as in JAX: C < 128 dividing 128 -> the stage kernel with this
     one block (K1); any other C -> csrc/resblock.cu (K6). CPU tensors take
     the plain version; on a CUDA tensor a kernel runs or the call raises."""
+    hidden = cuda_build.tally(resblock_flops(x.shape, block))
     if x.device.type == "cpu":
-        return fused_resblock_plain(x, block, slope, compute_dtype)
+        with hidden:
+            return fused_resblock_plain(x, block, slope, compute_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"fused_resblock: unsupported device {x.device}")
     C = x.shape[-1]
     if C < 128 and 128 % C == 0:
-        return vocoder_stage(x, None, None, [block], slope=slope,
-                             compute_dtype=compute_dtype)
+        return _launch_stage(x, None, None, [block], 1, slope, compute_dtype)
     cuda_build.refuse_autograd("fused_resblock", (x, *block[:4]))
     _check_resblock(x, block, compute_dtype)
     call, out = _resblock_call(x, block, slope, compute_dtype)

@@ -76,7 +76,13 @@ DiT heads' and the ASR cross-attention's trainable q/k/v, and their
 moments; the port keeps those whole on the row's first device.) The
 step's math is the one-device step's: the shards' draws are
 the one-device draws (ops/dropout.draw's `cols`), and only the order of
-the split sums differs.
+the split sums differs. The CALM steps run their backward on the calling
+thread (torch.autograd.set_multithreading_enabled(False)): a placed
+model's checkpointed blocks hold tensors of several cards, and torch's
+non-reentrant checkpoint recomputes a block from whichever device worker
+thread first needs one of its tensors, so with a worker thread a card two
+threads recompute the same block at once (on two H100s: "Unexpected
+state: target_frame.early_stop is set").
 """
 
 from __future__ import annotations
@@ -247,13 +253,15 @@ def make_calm_step(model, optimizer, task: str = "tts", microbatch: int = 1,
     def step(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         for p in params.values():
             p.grad = None
-        if world > 1:
-            metrics = accumulate_grads_dp(model, batch, microbatch,
-                                          derive_seed(seed, step.count),
-                                          task, rank, world)
-        else:
-            metrics = accumulate_grads(model, batch, microbatch,
-                                       derive_seed(seed, step.count), task)
+        with torch.autograd.set_multithreading_enabled(False):  # see above
+            if world > 1:
+                metrics = accumulate_grads_dp(model, batch, microbatch,
+                                              derive_seed(seed, step.count),
+                                              task, rank, world)
+            else:
+                metrics = accumulate_grads(model, batch, microbatch,
+                                           derive_seed(seed, step.count),
+                                           task)
         metrics["grad_norm"] = optimizer.step(
             {n: p.grad for n, p in params.items()})
         step.count += 1
@@ -374,7 +382,8 @@ def backward_flops(model, run: Callable[[], torch.Tensor]) -> float:
     saved = {n: p.grad for n, p in params.items()}
     for p in params.values():
         p.grad = None
-    flops = count_flops(lambda: run().backward())
+    with torch.autograd.set_multithreading_enabled(False):  # as the step
+        flops = count_flops(lambda: run().backward())
     for n, p in params.items():
         p.grad = saved[n]
     return flops

@@ -3,9 +3,10 @@ audio_calm_tpu/utils/profiling.py).
 
 XLA's cost analysis (`flops_estimate`, `lowered_flops`) has one
 counterpart here, `count_flops`: it runs the work once under torch's
-FlopCounterMode and adds the dense product count of the hand-written
-attention calls, which the counter cannot see (ops/attention_kernel.
-counting_flops), so the count is the same on the card and on the CPU.
+FlopCounterMode and adds the product count of the hand-written kernels'
+calls (attention, the vocoder stage and resblock), which the counter
+cannot see (ops/cuda_build.counting_flops), so the count is the same on
+the card and on the CPU.
 `trace(log_dir)` is a torch.profiler session that writes a Chrome trace
 into log_dir; `StepTimer` gives steps per second after a warmup, each
 tick waiting for the device.
@@ -43,10 +44,10 @@ def device_peak_flops(device=None) -> Optional[float]:
 
 def count_flops(fn: Callable[[], object]) -> float:
     """FLOPs of running fn() once (it runs): FlopCounterMode's count of the
-    products torch dispatches plus the attention calls' tally."""
+    products torch dispatches plus the kernel calls' tally."""
     from torch.utils.flop_counter import FlopCounterMode
 
-    from audio_calm_torch.ops.attention_kernel import counting_flops
+    from audio_calm_torch.ops.cuda_build import counting_flops
 
     with counting_flops() as tally:
         with FlopCounterMode(display=False) as counter:

@@ -119,8 +119,8 @@ Phases, in order; any failure exits non-zero and prints no result:
      store with both tasks (384 utterances each, 16 held out),
      configs/asr.yaml at full width (packed ASR rows, 16 x 512 tokens in 8
      slices) through train_calm for 3 steps (an eval and checkpoints),
-     K3/K4 only in its eval forwards; 4 of its packed steps timed one by
-     one (2 of them again in 2 slices), then 4 plain ASR steps (B = 16 in 8 slices, the 384 grid: rows
+     K3/K4 only in its eval forwards; 2 of its packed steps timed one by
+     one (and again in 2 slices), then 2 plain ASR steps (B = 16 in 8 slices, the 384 grid: rows
      of 384 + SOA + the 76-token prompt) on the same model and optimizer,
      K4 and K5 in every Qwen2 layer of every slice; configs/calm.yaml (the
      mix, one optimizer over packed ASR at k = 8 and packed TTS at k = 2)
@@ -150,8 +150,8 @@ Phases, in order; any failure exits non-zero and prints no result:
      second), 4 files' latents in fp32 against the same VAE on the CPU,
      compute_stats and --stats, the store as reference .pt payloads
      through convert_store, read back by CalmDataset; then
-     eval/e2e_demo.run_demo at the JAX script's counts (VAE 400, CALM 600,
-     distillation 300 steps, K = 4; head dim 24 through the padded
+     eval/e2e_demo.run_demo (VAE 400, CALM 500, distillation 150 steps,
+     K = 4, where the JAX script takes 400 / 600 / 300; head dim 24 through the padded
      attention kernels): at least 2 of 3 words in both legs, each
      stage's wall and attention launches; then the batch-invariant
      products' cost against cuBLAS, in turns: the served pair's group
@@ -167,8 +167,9 @@ Phases, in order; any failure exits non-zero and prints no result:
      them) and serving/web_demo's two callbacks through a stub gradio;
      launches and walls;
   5n. the TP + DP engine: calm.yaml's served model on a (data 2, model 2)
-     mesh of four cuda:0 entries (serving/server.make_engine with an
-     explicit device list), bf16 and int8 LLM weights: a B = 2 TTS group
+     mesh whose entry i is cuda:{i % the card count} (four cuda:0 entries
+     on one card; serving/server.make_engine with an explicit device
+     list; the placement logged), bf16 and int8 LLM weights: a B = 2 TTS group
      and a B = 2 ASR group against the one-device engine (the encode's
      hidden state within 2e-2 and the latents within 0.1 relative; ids
      margin-aware), each dp-split row against the request alone on the
@@ -180,7 +181,8 @@ Phases, in order; any failure exits non-zero and prints no result:
      1e-5 relative), the ZeRO optimizer's collectives over NCCL; each of
      5m-5p prints its wall beside the card's name and power limit;
   5p. the tensor-parallel training step (train/steps.shard_step) on a
-     (data 1, model 2) mesh of two cuda:0 entries: the 28-layer flagship
+     (data 1, model 2) mesh of cuda:0 and cuda:{1 % the card count} (two
+     cuda:0 entries on one card; the placement logged): the 28-layer flagship
      under phase 5b's recipe (bf16, B = 32 in 2 slices), the one-device
      model and its replica from the same seed for 3 steps each (loss
      terms within 2e-2, grad_norm within 5e-2, K4 / K5 launches a step
@@ -189,6 +191,18 @@ Phases, in order; any failure exits non-zero and prints no result:
      "asr_packed" at 2 LLM layers each (loss terms and grad_norm within
      1e-4); one card stands in for two, so it proves the code, not a
      tensor-parallel speed-up;
+  5q. the measurement entry points, each main(argv) in this process at
+     full width with few iterations: tools/bench_tts (--iters 2 --asr
+     --stream: both grids' rows, the ASR and streaming rows, the
+     headline), tools/bench_stages (--iters 2 --chain 3), tools/
+     bench_train (the tts.yaml plain step, --steps 2, and asr.yaml's
+     packed recipe folded over the LibriSpeech-like corpus), tools/
+     bench_serve (2 clients x 1 request against calm.yaml's server, built
+     here on the arguments bench_serve spawns it with), tools/
+     measure_quant_error (28 layers) and data/build_manifest: every line
+     parses, every time and rate is finite and positive, K1 and K3/K4
+     launched under bench_tts, K4 and K5 under bench_train's plain step,
+     A1 under bench_serve; the headline values logged;
   6. per kernel: its launches on its main path, its device time per launch
      at main-path shapes, the bound, the plain version's and the library
      call's device time (the batch-invariant product: at GEMM_ROWS, its
@@ -3099,7 +3113,7 @@ def phase_step_profile(probe, what, lead=False):
 ASR_STORE = ["--asr-n", "384", "--tts-n", "384", "--dev-n", "16", "--seed",
              "4"]
 ASR_EVAL_BATCHES = 2  # 16 dev utterances a task in eval batches of 8
-ASR_STEPS, MIX_STEPS, ASR_TIMED = 3, 4, 4
+ASR_STEPS, MIX_STEPS, ASR_TIMED = 3, 4, 2
 ASR_PLAIN_B, ASR_PLAIN_K = 16, 8  # plain ASR: asr.yaml's batch and slices
 # asr.yaml's warm start reads tts.yaml's output, whose TTS head is 1024
 # wide against asr.yaml's 768 (ROADMAP Queue 3): no warm start here
@@ -3985,7 +3999,8 @@ def phase_data_prep(card, smi, tmp):
 
 
 def phase_e2e_proof(card):
-    """The end-to-end proof at the JAX script's counts: the VAE and the
+    """The end-to-end proof, cut in depth from the JAX script's 400 / 600 /
+    300 steps to 400 / 500 / 150 (the script's time limit): the VAE and the
     tiny CALM (head dim 24: the attention kernels zero-padded to 32)
     trained from scratch on the tone words, each word synthesized (32
     steps, cfg 2) and then by the distilled 4-step student, its pitch
@@ -3998,7 +4013,7 @@ def phase_e2e_proof(card):
     stats = {}
     attention_fwd.launches = attention_bwd.launches = 0
     (matches, total, distilled), wall = synced(lambda: run_demo(
-        400, 600, distill_steps=300, distill_k=4, device=card, stats=stats))
+        400, 500, distill_steps=150, distill_k=4, device=card, stats=stats))
     out = {"matches": matches, "total": total, "distilled_matches": distilled,
            "wall_s": wall, "run_launches": {
                "attention_fwd": attention_fwd.launches,
@@ -4104,20 +4119,27 @@ def calm_yaml_argv(store, *extra):
 
 
 def launches():
-    """The attention forward's (K3/K4) and the batch-invariant product's
-    (A1) launch counters."""
-    from audio_calm_torch.ops.attention_kernel import attention_fwd
-    from audio_calm_torch.ops.gemm_kernel import linear as gemm_linear
-
-    return {"attention_fwd": attention_fwd.launches,
-            "gemm": gemm_linear.launches}
+    """Every kernel wrapper's launch counter: the stage kernel (K1), the
+    attention forward (K3/K4) and backward (K5), the resblock kernel (K6)
+    and the batch-invariant product (A1)."""
+    return {name: fn.launches for name, fn in _counted().items()}
 
 
 def zero_launches():
-    from audio_calm_torch.ops.attention_kernel import attention_fwd
-    from audio_calm_torch.ops.gemm_kernel import linear as gemm_linear
+    for fn in _counted().values():
+        fn.launches = 0
 
-    attention_fwd.launches = gemm_linear.launches = 0
+
+def _counted():
+    from audio_calm_torch.ops.attention_kernel import (attention_bwd,
+                                                       attention_fwd)
+    from audio_calm_torch.ops.gemm_kernel import linear as gemm_linear
+    from audio_calm_torch.ops.vocoder_kernel import (fused_resblock,
+                                                     vocoder_stage)
+
+    return {"vocoder_stage": vocoder_stage, "attention_fwd": attention_fwd,
+            "attention_bwd": attention_bwd, "fused_resblock": fused_resblock,
+            "gemm": gemm_linear}
 
 
 def phase_entry_points(card, smi):
@@ -4297,6 +4319,18 @@ def mesh_asr_states(models):
     return seen, restore
 
 
+def spread_devices(n):
+    """n mesh entries, entry i on cuda:{i % the card count}: four cards
+    hold a shard each, one card holds them all."""
+    count = torch.cuda.device_count()
+    return [torch.device("cuda", i % count) for i in range(n)]
+
+
+def mesh_placement(mesh):
+    """The mesh's devices by (data row, model column), for the log."""
+    return [[str(d) for d in row] for row in mesh.devices]
+
+
 def phase_mesh_engine(card, smi):
     """5n: configs/calm.yaml's served model on a (data 2, model 2) mesh of
     four cuda:0 entries (make_engine with an explicit device list; the
@@ -4330,7 +4364,8 @@ def phase_mesh_engine(card, smi):
     e = cfg.evaluation
     tok = load_tokenizer(cfg.model, byte_fallback=True)
     model, vae = server.load_models(cfg, card)
-    mesh = make_mesh(2, 2, [card] * 4)
+    mesh = make_mesh(2, 2, spread_devices(4))
+    log(f"  mesh engine placement: {mesh_placement(mesh)}")
     texts, seeds = [t for t, _ in SERVE_PAIR], [s for _, s in SERVE_PAIR]
     kw = dict(steps=e.steps, cfg_scale=e.cfg_scale, method=e.ode_method,
               time_schedule=e.time_schedule)
@@ -4340,7 +4375,8 @@ def phase_mesh_engine(card, smi):
     aseeds = [21, 22]
     akw = dict(steps=e.asr_steps, cfg_scale=e.asr_cfg_scale,
                method=e.ode_method, time_schedule=e.time_schedule)
-    out = {"card": smi, "mesh": mesh.shape}
+    out = {"card": smi, "mesh": mesh.shape,
+           "placement": mesh_placement(mesh)}
 
     def rel(a, b):
         return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-12))
@@ -4397,8 +4433,8 @@ def phase_mesh_engine(card, smi):
             res["mesh_asr_launches"] = launches()
             restore2()
             check(np.array_equal(q1, q2), "the ASR query lengths")
-            agree = ids_agreement(
-                torch.cat(seen1), torch.cat(seen2),
+            agree = ids_agreement(  # the replicas' states on one card
+                torch.cat(seen1), torch.cat([x.to(card) for x in seen2]),
                 one.inf.model.embed.embedding, torch.as_tensor(ids1),
                 torch.as_tensor(ids2))
             res["asr_ids_checked_agreeing_total_bad"] = agree
@@ -4611,9 +4647,12 @@ def phase_tp_training(card, smi):
     from audio_calm_torch.parallel.mesh import make_mesh
     from audio_calm_torch.train.optim import freeze
 
-    mesh = make_mesh(1, 2, [card, card])
+    mesh = make_mesh(1, 2, spread_devices(2))
+    log(f"  tensor-parallel placement: {mesh_placement(mesh)}")
     out = {"card": smi, "mesh": mesh.shape,
-           "note": "one card stands in for two: the code, not a speed-up"}
+           "placement": mesh_placement(mesh),
+           "note": "one card stands in for two: the code, not a speed-up"
+           if torch.cuda.device_count() == 1 else "a shard a card"}
     tcfg = TrainingConfig(
         per_device_train_batch_size=32, microbatch_steps=2, soa_lr_mult=3.0,
         proj_lr_mult=1.0, head_lr_mult=3.0, learning_rate=5e-5,
@@ -4716,6 +4755,188 @@ def phase_tp_training(card, smi):
                 check(gap <= 1e-4, f"TP fp32 {task} {key} within 1e-4 of one "
                       f"device ({gap:.3e})")
     out["fp32_reduced_depth"] = fp32
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 5q: the measurement entry points (audio_calm_torch/tools/bench_*.py,
+# measure_quant_error) in this process at full width, few iterations
+# ---------------------------------------------------------------------------
+BENCH_TTS_ARGV = ["--iters", "2", "--asr", "--stream"]
+BENCH_STAGES_ARGV = ["--iters", "2", "--chain", "3"]
+BENCH_TRAIN_ARGV = {
+    "tts": ["--task", "tts", "--steps", "2"],
+    # configs/asr.yaml's packed recipe: 16 rows of 512 tokens, 4 segments
+    # a row, 8 slices (bench_train's default --microbatch)
+    "asr_packed": ["--task", "asr", "--pack", "16,512,4", "--fold",
+                   "librispeech", "--steps", "2"]}
+BENCH_SERVE_ARGV = ["--config", "configs/calm.yaml", "--byte-tokenizer",
+                    "--override", "model.vae_path=null", "--clients", "2",
+                    "--requests", "1", "--rounds", "1"]
+MEASURE_QUANT_ARGV = ["--layers", "28"]
+# fields of the entry points' lines that are no time or rate
+NOT_MEASURED = {"spread_pct", "fold_sigma", "chain", "batch", "t_aud",
+                "t_aud_grid", "clients", "requests", "microbatch", "rows",
+                "row_len", "segments", "prompt_len", "fold_utts", "n_chunks",
+                "layers", "hidden", "seq", "crop", "text_pad", "group_window",
+                "fold_utts_per_step", "fold_token_occupancy_pct"}
+
+
+def run_entry(name, main, argv):
+    """main(argv) in this process with the kernels' counters zeroed first
+    -> {"stdout": its stdout's JSON lines, "stderr": its stderr's, "wall_s",
+    "launches"}; both streams are echoed to the log."""
+    import io
+
+    out, err = io.StringIO(), io.StringIO()
+    zero_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = main(argv)
+    wall = time.perf_counter() - t0
+    counts = launches()
+    check(rc == 0, f"{name} {' '.join(argv)} exits 0 (rc {rc})")
+    res = {"argv": argv, "wall_s": wall, "launches": counts}
+    for stream, text in (("stdout", out.getvalue()),
+                         ("stderr", err.getvalue())):
+        lines = []
+        for line in text.splitlines():
+            log(f"  {name} {stream}| {line}")
+            if line.startswith("{"):
+                try:
+                    lines.append(json.loads(line))
+                except ValueError:
+                    check(False, f"{name}: a {stream} line that does not "
+                          f"parse: {line[:200]}")
+        res[stream] = lines
+    log(f"  {name}: {wall:.1f} s, launches {json.dumps(counts)}")
+    return res
+
+
+def measured_fields(name, rec):
+    """Every time and rate of a line: finite and positive (check)."""
+    for key, value in rec.items():
+        if isinstance(value, bool) or key in NOT_MEASURED:
+            continue
+        if isinstance(value, (int, float)):
+            check(np.isfinite(value) and value > 0,
+                  f"{name}: {key} = {value} finite and positive in "
+                  f"{json.dumps(rec)[:300]}")
+
+
+def phase_measurement_entry_points(card, smi):
+    """5q: each measurement entry point's main(argv) in this process at
+    full width (bench_tts --iters 2 --asr --stream; bench_stages --iters 2
+    --chain 3; bench_train --task tts --steps 2 and the packed ASR recipe
+    folded over the LibriSpeech-like corpus; bench_serve with 2 clients x
+    1 request against calm.yaml's server, started here on the arguments
+    bench_serve would spawn it with so that its launches are counted;
+    measure_quant_error --layers 28): every line parses, every time and
+    rate is finite and positive, and the kernels each path reaches
+    launched (K1 and K3/K4 under bench_tts, K5 under bench_train's plain
+    step, A1 under bench_serve). The headline values go to the log."""
+    import gc
+
+    from audio_calm_torch.data import build_manifest
+    from audio_calm_torch.serving import server
+    from audio_calm_torch.tools import (bench_serve, bench_stages, bench_train,
+                                        bench_tts, measure_quant_error)
+
+    out = {"card": smi}
+    res = out["bench_tts"] = run_entry("bench_tts", bench_tts.main,
+                                       BENCH_TTS_ARGV)
+    head = res["stdout"][-1]
+    check(head.get("metric") == "tts_realtime_factor_device"
+          and set(head) == {"metric", "value", "unit", "vs_baseline",
+                            "rtf_wall_mean"},
+          f"bench_tts's last line is its headline ({head})")
+    rows = {r.get("label"): r for r in res["stderr"]}
+    check({"full_grid_384", "realistic_8s_bucket_192", "asr_transcribe_384f",
+           "stream_long_tts"} <= set(rows), f"bench_tts's rows ({set(rows)})")
+    for rec in [head] + list(rows.values()):
+        measured_fields("bench_tts", rec)
+    check(res["launches"]["vocoder_stage"] > 0
+          and res["launches"]["attention_fwd"] > 0,
+          "bench_tts launched K1 and K3/K4")
+    full = rows["full_grid_384"]
+    log(f"  bench_tts headline ({smi}): rtf_device {head['value']:.2f}x, "
+        f"rtf_wall_mean {head['rtf_wall_mean']:.2f}x, device "
+        f"{full['wall_min_device_s'] * 1e3:.2f} ms, wall "
+        f"{full['wall_min_s'] * 1e3:.2f} ms, busy "
+        f"{full['device_busy_s'] * 1e3:.2f} ms, mfu {full['mfu_pct']:.3f}%, "
+        f"{full['pipeline_tflops']:.3f} TFLOP")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    res = out["bench_stages"] = run_entry("bench_stages", bench_stages.main,
+                                          BENCH_STAGES_ARGV)
+    stages = [r["stage"] for r in res["stdout"]]
+    check(stages == ["encode", "condition", "ode", "vae_decode", "vocoder",
+                     "TOTAL(sum)"], f"bench_stages's lines ({stages})")
+    for rec in res["stdout"]:
+        measured_fields("bench_stages", rec)
+    check(res["launches"]["vocoder_stage"] > 0, "bench_stages launched K1")
+    log(f"  bench_stages ({smi}): " + ", ".join(
+        f"{r['stage']} {r['ms']:.3f} ms"
+        + (f" (busy {r['busy_ms']:.3f})" if "busy_ms" in r else "")
+        for r in res["stdout"])
+        + f"; rtf {res['stdout'][-1]['rtf_device_stage_sum']:.1f}x")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    for task, argv in BENCH_TRAIN_ARGV.items():
+        res = out[f"bench_train_{task}"] = run_entry(
+            f"bench_train {task}", bench_train.main, argv)
+        check(len(res["stdout"]) >= 1, f"bench_train {task} printed a line")
+        for rec in res["stdout"]:
+            measured_fields(f"bench_train {task}", rec)
+        rec = res["stdout"][0]
+        log(f"  bench_train {task} ({smi}): step_min_s "
+            f"{rec['step_min_s']:.4f}, mfu {rec.get('mfu_pct', 0):.2f}%"
+            + (f", fold {rec['fold_samples_per_s']:.2f} utterances/s"
+               if "fold_samples_per_s" in rec else ""))
+        gc.collect()
+        torch.cuda.empty_cache()
+    check(out["bench_train_tts"]["launches"]["attention_bwd"] > 0
+          and out["bench_train_tts"]["launches"]["attention_fwd"] > 0,
+          "bench_train's plain step launched K4 and K5")
+    check("fold_samples_per_s" in out["bench_train_asr_packed"]["stdout"][0],
+          "the packed ASR line carries its fold")
+
+    # bench_serve: the server it would spawn, in this process
+    sargs = server.parse_args(bench_serve.server_argv(
+        bench_serve.parse_args(BENCH_SERVE_ARGV)))
+    srv = server.make_server(server.build_engine(sargs), sargs).start()
+    try:
+        res = out["bench_serve"] = run_entry(
+            "bench_serve", bench_serve.main,
+            BENCH_SERVE_ARGV + ["--base", f"http://localhost:{srv.port}"])
+    finally:
+        srv.close()
+    (rec,) = res["stdout"]
+    measured_fields("bench_serve", rec)
+    check(rec["mean_batch"] >= 1, "bench_serve's requests were batched")
+    check(res["launches"]["gemm"] > 0 and res["launches"]["attention_fwd"] > 0,
+          "bench_serve's server launched A1 and K3/K4")
+    log(f"  bench_serve ({smi}): {rec['req_per_s']:.2f} req/s, rtf "
+        f"{rec['rtf_aggregate']:.1f}x, p50 {rec['latency_p50_s']:.3f} s, "
+        f"mean batch {rec['mean_batch']:.2f}")
+    del srv
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    res = out["measure_quant_error"] = run_entry(
+        "measure_quant_error", measure_quant_error.main, MEASURE_QUANT_ARGV)
+    (rec,) = res["stdout"]
+    measured_fields("measure_quant_error", rec)
+    log(f"  measure_quant_error ({smi}): " + json.dumps(rec))
+    # build_manifest needs no card: its main on an empty store
+    with tempfile.TemporaryDirectory() as tmp:
+        res = run_entry("build_manifest", build_manifest.main, [
+            "--latent_dir", tmp, "--subsets", "dev-clean", "--out",
+            os.path.join(tmp, "manifest.jsonl")])
+    gc.collect()
+    torch.cuda.empty_cache()
     return out
 
 
@@ -4962,7 +5183,7 @@ def main() -> int:
     t0 = time.perf_counter()
     entry = phase_entry_points(card, smi)
     log(f"phase entry points: ok in {time.perf_counter() - t0:.1f} s ({smi})")
-    # 5n. the TP + DP engine on a (2, 2) mesh of cuda:0
+    # 5n. the TP + DP engine on a (2, 2) mesh (cuda:{i % cards})
     t0 = time.perf_counter()
     meshed = phase_mesh_engine(card, smi)
     log(f"phase mesh engine: ok in {time.perf_counter() - t0:.1f} s ({smi})")
@@ -4971,18 +5192,29 @@ def main() -> int:
     distributed = phase_distributed_training(card, smi)
     log(f"phase distributed training: ok in "
         f"{time.perf_counter() - t0:.1f} s ({smi})")
-    # 5p. the tensor-parallel training step on (1, 2) entries of cuda:0
+    # 5p. the tensor-parallel training step on a (1, 2) mesh
     t0 = time.perf_counter()
     tp_trained = phase_tp_training(card, smi)
     tp_s = time.perf_counter() - t0
-    log(f"phase tensor-parallel training: ok in {tp_s:.1f} s ({smi}; one "
-        f"card stands in for two: the code, not a speed-up)")
+    log(f"phase tensor-parallel training: ok in {tp_s:.1f} s ({smi}; "
+        f"{tp_trained['note']})")
     tp_trained["phase_s"] = tp_s
     for name, entry_ in (("attention_fwd", fwd), ("attention_bwd", bwd)):
         entry_["tp_training_launches_per_step"] = {
             "one_device": tp_trained["bf16_flagship"][
                 "one_device_launches_per_step"][name],
             "tp2": tp_trained["bf16_flagship"]["tp2_launches_per_step"][name]}
+    # 5q. the measurement entry points at full width
+    t0 = time.perf_counter()
+    benches = phase_measurement_entry_points(card, smi)
+    benches["phase_s"] = time.perf_counter() - t0
+    log(f"phase measurement entry points: ok in {benches['phase_s']:.1f} s "
+        f"({smi})")
+    for entry_ in kernels:
+        entry_["bench_launches"] = {
+            name: res["launches"][entry_["name"]]
+            for name, res in benches.items() if isinstance(res, dict)
+            and "launches" in res}
     fwd["tp_shard_row"] = {key: tp_trained["k4_rows"][1][key] for key in (
         "shape", "q", "Hkv", "ms", "plain_ms", "library_ms", "bound_ms",
         "bound_by", "max_abs_err")}
@@ -5011,6 +5243,9 @@ def main() -> int:
     log("mesh_engine " + json.dumps(meshed))
     log("distributed_training " + json.dumps(distributed))
     log("tp_training " + json.dumps(tp_trained))
+    log("measurement_entry_points " + json.dumps(
+        {k: ({kk: vv for kk, vv in v.items() if kk in ("wall_s", "launches")}
+             if isinstance(v, dict) else v) for k, v in benches.items()}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

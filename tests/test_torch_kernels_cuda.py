@@ -315,6 +315,90 @@ def test_fused_resblock_routes_as_jax(card):
         fused_resblock(x, block)
 
 
+def test_vocoder_kernels_run_on_the_operands_card(card):
+    """K1 and K6 launch on x's card, not on the current one: with cuda:0
+    current, a V1 render, one V1 stage and an odd-width resblock on cuda:1
+    match their plain twins there (a launch on cuda:0 with cuda:1's stream
+    and pointers would fail or read the wrong memory), each after the
+    same instantiations launched on cuda:0 (a kernel's shared-memory limit
+    is set for each card)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two NVIDIA cards")
+    other = torch.device("cuda", 1)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        gen = HiFiGANGenerator(HiFiGANConfig()).eval()
+    mel = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (2, 24, 80)).astype(np.float32))
+    with torch.no_grad():
+        hifigan_apply_fused(gen.to(card), mel.to(card))
+        vocoder_stage(*_stage_inputs(128, 64, 777, True, card),
+                      compute_dtype=torch.bfloat16)
+        fused_resblock(*_resblock_inputs(96, 7, 1000, card))
+    gen, mel = gen.to(other), mel.to(other)
+    with torch.cuda.device(0), torch.no_grad():
+        assert torch.cuda.current_device() == 0
+        k1, k6 = vocoder_stage.launches, fused_resblock.launches
+        wav = hifigan_apply_fused(gen, mel)
+        args = _stage_inputs(128, 64, 777, True, other)
+        out = vocoder_stage(*args, compute_dtype=torch.bfloat16)
+        ref = vocoder_stage_plain(*args, compute_dtype=torch.bfloat16)
+        x, block = _resblock_inputs(96, 7, 1000, other)
+        res = fused_resblock(x, block)
+        res_ref = fused_resblock_plain(x, block)
+        torch.cuda.synchronize(other)
+        assert (vocoder_stage.launches, fused_resblock.launches) == (k1 + 4,
+                                                                     k6 + 1)
+    with torch.no_grad():
+        wav_ref = hifigan_apply_fused(gen.cpu(), mel.cpu())
+    assert wav.device == out.device == res.device == other
+    assert (wav.cpu() - wav_ref).abs().max().item() < 5e-3
+    assert (out - ref).abs().max().item() <= 2 ** -7 * ref.abs().max().item()
+    assert _held(res, res_ref, torch.bfloat16)
+
+
+def test_attention_and_gemm_run_on_the_operands_card(card):
+    """K3/K4, K5 and A1 on cuda:1 with cuda:0 current, each after a launch
+    of the same instantiation on cuda:0: a kernel's shared-memory limit
+    is an attribute of each card (a limit set once, on the first card,
+    leaves the launch on the second an invalid argument), and each result
+    matches its plain twin on cuda:1."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two NVIDIA cards")
+    from audio_calm_torch.ops.gemm_kernel import linear, linear_plain
+
+    def inputs(device):
+        g = torch.Generator(device).manual_seed(0)
+        q = torch.randn(2, 97, 12, 128, generator=g, device=device)
+        k, v = (torch.randn(2, 97, 2, 128, generator=g, device=device)
+                for _ in range(2))
+        dout = torch.randn(2, 97, 12, 128, generator=g, device=device)
+        x = torch.randn(50, 1536, generator=g, device=device)
+        w = torch.randn(256, 1536, generator=g, device=device) / 1536 ** 0.5
+        b = torch.randn(256, generator=g, device=device)
+        return [t.bfloat16() for t in (q, k, v, dout, x, w, b)]
+
+    def run(device, fwd, bwd, gemm, out=None):
+        q, k, v, dout, x, w, b = inputs(device)
+        res = fwd(q, k, v, causal=True)
+        out = res if out is None else out  # the backward on one output
+        return [res, *bwd(q, k, v, out, dout, causal=True), gemm(x, w, b)]
+
+    with torch.no_grad():
+        run(torch.device("cuda", 0), attention_fwd, attention_bwd, linear)
+        other = torch.device("cuda", 1)
+        with torch.cuda.device(0):
+            got = run(other, attention_fwd, attention_bwd, linear)
+            ref = run(other, attention_fwd_plain, attention_bwd_plain,
+                      linear_plain, out=got[0])
+        torch.cuda.synchronize(other)
+    for name, g, r in zip(("out", "dq", "dk", "dv", "gemm"), got, ref):
+        assert g.device == other, name
+        g, r = g.float(), r.float()
+        assert (g - r).abs().max().item() <= 2 ** -7 * r.abs().max().item(), \
+            name
+
+
 def test_hifigan_apply_fused_card_matches_cpu(card):
     """The V1 generator through hifigan_apply_fused, bf16 operands, on the
     card (three stage launches) and on the CPU (plain twins), same weights:
